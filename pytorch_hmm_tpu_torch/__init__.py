@@ -1,0 +1,44 @@
+"""pytorch_hmm_tpu_torch — the HMM framework on PyTorch and CUDA.
+
+The PyTorch port of ``pytorch_hmm_tpu``. Plain tensor code is torch; the
+JAX package's Pallas kernels become CUDA C++ kernels written for Hopper
+(``csrc/``), built with ``nvcc`` at first use (``ops/_build.py``). So far
+the port covers the GMM-HMM decode path: ``MixtureGaussianHMMLayer`` with
+diag, tied or spherical covariances, its emission scoring and its
+Viterbi trellis. On CPU tensors everything runs as plain torch.
+
+Importing the package imports neither JAX nor Triton and builds nothing.
+"""
+
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+from . import bridge, core, emissions, models, ops, precision
+from .core import viterbi
+from .emissions import (
+    diag_gaussian_log_probs,
+    gmm_component_log_probs,
+    gmm_log_probs,
+    spherical_gaussian_log_probs,
+)
+from .models import MixtureGaussianHMMLayer, PreparedGMMDecoder
+from .ops import auto_gmm_viterbi, auto_viterbi
+
+__all__ = [
+    "bridge",
+    "core",
+    "emissions",
+    "models",
+    "ops",
+    "precision",
+    "viterbi",
+    "diag_gaussian_log_probs",
+    "gmm_component_log_probs",
+    "gmm_log_probs",
+    "spherical_gaussian_log_probs",
+    "MixtureGaussianHMMLayer",
+    "PreparedGMMDecoder",
+    "auto_gmm_viterbi",
+    "auto_viterbi",
+]

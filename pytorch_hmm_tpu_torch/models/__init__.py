@@ -1,0 +1,10 @@
+"""Model layers (``torch.nn.Module``s) on the shared DP code.
+
+The JAX package's ``models/common.py`` (``Buffer``, ``TrainMode``) has
+no counterpart here: ``nn.Module.register_buffer`` and
+``nn.Module.train()`` / ``eval()`` already do its job.
+"""
+
+from .mixture_gaussian import MixtureGaussianHMMLayer, PreparedGMMDecoder
+
+__all__ = ["MixtureGaussianHMMLayer", "PreparedGMMDecoder"]

@@ -1,0 +1,110 @@
+"""Small-K Viterbi decode (the decode path's trellis).
+
+Port of ``pytorch_hmm_tpu/ops/smallk.py``. On CUDA tensors
+:func:`smallk_viterbi` launches the hand-written kernel in
+``csrc/smallk_viterbi.cu``: one warp per sequence, trellis and
+backtrace in one launch, any batch size. On CPU tensors it runs
+:func:`smallk_viterbi_reference`, the ported ``core.viterbi``. Both give
+the same paths and scores as ``pytorch_hmm_tpu.core.viterbi``, ties
+(lowest state index) and ragged padding included.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from .. import core
+from . import _build
+
+__all__ = ["smallk_viterbi", "smallk_viterbi_reference", "smallk_supported",
+           "MAX_SMALLK"]
+
+# One warp lane per state.
+MAX_SMALLK = 32
+
+_SIGNATURES = {
+    "smallk_viterbi_f32": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ],
+}
+
+
+def smallk_supported(num_states: int) -> bool:
+    """True when the CUDA trellis kernel takes ``num_states`` states."""
+    return 1 <= num_states <= MAX_SMALLK
+
+
+def smallk_viterbi_reference(
+    log_obs: torch.Tensor,
+    log_a: torch.Tensor,
+    log_pi: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version: the ported ``core.viterbi``."""
+    return core.viterbi(log_obs, log_a, log_pi, lengths)
+
+
+def smallk_viterbi(
+    log_obs: torch.Tensor,
+    log_a: torch.Tensor,
+    log_pi: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact batched Viterbi for K ≤ 32 states.
+
+    Args: ``(B, T, K)`` log-obs, static ``(K, K)`` / ``(K,)`` log
+    transitions and prior, optional ``(B,)`` lengths. Returns
+    ``(states (B, T) int32, score (B,) float32)``.
+
+    CUDA tensors run the kernel (counted in ``smallk_viterbi.launches``):
+    float32 and contiguous, ``lengths`` int32, all on one device; anything
+    else raises. CPU tensors run the plain version.
+    """
+    if log_obs.device.type == "cpu":
+        return smallk_viterbi_reference(log_obs, log_a, log_pi, lengths)
+    if log_obs.ndim != 3:
+        raise ValueError(f"smallk_viterbi: log_obs must be (B, T, K), got {tuple(log_obs.shape)}")
+    B, T, K = log_obs.shape
+    if tuple(log_a.shape) != (K, K) or tuple(log_pi.shape) != (K,):
+        raise ValueError(
+            f"smallk_viterbi: K={K} needs log_a (K, K) and log_pi (K,), got "
+            f"{tuple(log_a.shape)} and {tuple(log_pi.shape)}"
+        )
+    if not smallk_supported(K):
+        raise ValueError(f"smallk_viterbi takes 1 <= K <= {MAX_SMALLK}, got K={K}")
+    if B == 0 or T == 0:
+        raise ValueError(f"smallk_viterbi: empty input {tuple(log_obs.shape)}")
+    _build.check_tensors("smallk_viterbi", log_obs.device,
+                         log_obs=log_obs, log_a=log_a, log_pi=log_pi)
+    dev = log_obs.device
+    if lengths is None:
+        lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
+    elif (lengths.device != dev or lengths.dtype != torch.int32
+          or tuple(lengths.shape) != (B,) or not lengths.is_contiguous()):
+        raise ValueError(
+            f"smallk_viterbi: lengths must be contiguous int32 ({B},) on {dev}, "
+            f"got {lengths.dtype} {tuple(lengths.shape)} on {lengths.device}"
+        )
+
+    lib = _build.load("smallk_viterbi", _SIGNATURES)
+    psi = torch.empty((B, T, K), dtype=torch.uint8, device=dev)
+    states = torch.empty((B, T), dtype=torch.int32, device=dev)
+    score = torch.empty((B,), dtype=torch.float32, device=dev)
+    rc = lib.smallk_viterbi_f32(
+        log_obs.data_ptr(), log_a.data_ptr(), log_pi.data_ptr(),
+        lengths.data_ptr(), psi.data_ptr(), states.data_ptr(),
+        score.data_ptr(), B, T, K, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(rc, "smallk_viterbi")
+    smallk_viterbi.launches += 1
+    return states, score
+
+
+smallk_viterbi.launches = 0

@@ -1,0 +1,68 @@
+"""Importing the torch port must pull in no JAX, no Triton and no part
+of the JAX package, and must build nothing: the package imports on
+machines with no GPU and no CUDA toolkit."""
+
+import json
+import os
+import subprocess
+import sys
+
+_PROBE = r"""
+import json, os, pkgutil, sys
+import pytorch_hmm_tpu_torch as pkg
+from pytorch_hmm_tpu_torch.ops import _build
+
+build_dir = str(_build.BUILD_DIR)
+before = sorted(os.listdir(build_dir)) if os.path.isdir(build_dir) else None
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    __import__(name)
+after = sorted(os.listdir(build_dir)) if os.path.isdir(build_dir) else None
+banned = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "triton", "pytorch_hmm_tpu")]
+print(json.dumps({"modules": names, "banned": banned, "same_build": before == after}))
+"""
+
+
+def test_port_imports_no_jax_no_triton_and_builds_nothing():
+    env = dict(os.environ)
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=repo_root)
+    assert r.returncode == 0, r.stdout + r.stderr
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got["banned"] == []
+    assert got["same_build"]
+    expected = {
+        "pytorch_hmm_tpu_torch.bridge",
+        "pytorch_hmm_tpu_torch.core.semiring",
+        "pytorch_hmm_tpu_torch.core.viterbi",
+        "pytorch_hmm_tpu_torch.emissions",
+        "pytorch_hmm_tpu_torch.models.mixture_gaussian",
+        "pytorch_hmm_tpu_torch.ops._build",
+        "pytorch_hmm_tpu_torch.ops.emit",
+        "pytorch_hmm_tpu_torch.ops.smallk",
+        "pytorch_hmm_tpu_torch.precision",
+    }
+    assert expected <= set(got["modules"])
+
+
+def test_port_never_names_jax_in_its_sources():
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = os.path.join(repo_root, "pytorch_hmm_tpu_torch")
+    offenders = []
+    for dirpath, _dirs, files in os.walk(pkg):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fn)
+            with open(path) as f:
+                for lineno, line in enumerate(f, 1):
+                    words = line.split()
+                    if words[:1] in (["import"], ["from"]) and any(
+                        w.split(".")[0] in ("jax", "flax", "orbax", "triton", "pytorch_hmm_tpu")
+                        for w in words[1:2]
+                    ):
+                        offenders.append(f"{path}:{lineno}: {line.strip()}")
+    assert not offenders, "\n".join(offenders)

@@ -1,0 +1,92 @@
+"""``diag_quadratic`` port: its plain version vs the JAX Pallas kernel,
+and the kernel loader's failure modes.
+
+The JAX kernel runs in interpret mode at ``Precision.HIGHEST`` (true f32)
+on the CPU; torch runs with TF32 off. The CUDA kernel itself is checked
+against the same plain version on the card by ``chip_smoke.py``.
+"""
+
+import ctypes
+import os
+import stat
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pytorch_hmm_tpu.ops.emit import diag_quadratic as jax_diag_quadratic
+from pytorch_hmm_tpu_torch.ops import _build
+from pytorch_hmm_tpu_torch.ops.emit import diag_quadratic, diag_quadratic_reference
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("B,T,D,N", [(2, 100, 20, 12), (3, 257, 80, 48),
+                                     (1, 33, 7, 5)])
+def test_reference_matches_jax_kernel(rng, B, T, D, N):
+    obs = rng.normal(size=(B, T, D)).astype(np.float32)
+    wq = (rng.normal(size=(D, N)) ** 2).astype(np.float32)
+    wl = rng.normal(size=(D, N)).astype(np.float32)
+    b = rng.normal(size=(N,)).astype(np.float32)
+    want = jax_diag_quadratic(jnp.asarray(obs), jnp.asarray(wq), jnp.asarray(wl),
+                              jnp.asarray(b), precision=jax.lax.Precision.HIGHEST)
+    got = diag_quadratic_reference(*(torch.from_numpy(a) for a in (obs, wq, wl, b)))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, T, N)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=1e-5)
+
+
+def test_wrapper_on_cpu_runs_plain_version_without_launching(rng):
+    args = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            for s in ((2, 9, 6), (6, 4), (6, 4), (4,))]
+    before = diag_quadratic.launches
+    assert torch.equal(diag_quadratic(*args), diag_quadratic_reference(*args))
+    assert diag_quadratic.launches == before
+
+
+def test_wrapper_raises_off_cpu_instead_of_falling_back():
+    args = [torch.empty(s, device="meta") for s in ((2, 9, 6), (6, 4), (6, 4), (4,))]
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        diag_quadratic(*args)
+
+
+def _isolated_build_dir(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_build, "_loaded", {})
+
+
+def test_loader_without_nvcc_raises(monkeypatch, tmp_path):
+    _isolated_build_dir(monkeypatch, tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.load("diag_quadratic", {"diag_quadratic_f32": [ctypes.c_void_p]})
+    assert not (tmp_path / "_build").exists()
+
+
+def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
+    _isolated_build_dir(monkeypatch, tmp_path)
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 2\n")
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        _build.build("smallk_viterbi")
+    assert os.listdir(tmp_path / "_build") == []
+
+
+def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
+    a = _build.library_path("diag_quadratic")
+    b = _build.library_path("smallk_viterbi")
+    assert a.parent == _build.BUILD_DIR and a.name.startswith("libdiag_quadratic-")
+    assert a != b
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert _build.library_path("diag_quadratic") != a

@@ -1,0 +1,111 @@
+"""Ported ``core.viterbi`` (torch) vs ``pytorch_hmm_tpu.core.viterbi``.
+
+Same numpy inputs into both; paths must be identical (lowest-index ties,
+padded frames repeating the last valid state) and scores within 1e-5.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pytorch_hmm_tpu import core as jcore
+from pytorch_hmm_tpu_torch import core as tcore
+
+
+def _k_problem(B, T, K, seed=None):
+    rng = np.random.default_rng(B * T if seed is None else seed)
+    lo = rng.normal(size=(B, T, K)).astype(np.float32)
+    la = np.log(rng.dirichlet(np.ones(K), size=K)).astype(np.float32)
+    lp = np.log(rng.dirichlet(np.ones(K))).astype(np.float32)
+    return lo, la, lp
+
+
+def _ties():
+    K = 6
+    lo = np.zeros((2, 40, K), np.float32)
+    la = np.full((K, K), -np.log(K), np.float32)
+    lp = np.full((K,), -np.log(K), np.float32)
+    return lo, la, lp
+
+
+def _bracketed_ties():
+    K = 4
+    a = np.full((K, K), 1.0 / (K - 1))
+    np.fill_diagonal(a, 0.0)
+    la = np.log(a + 1e-300).astype(np.float32)
+    lp = np.full((K,), -np.log(K), np.float32)
+    lo = np.zeros((2, 50, K), np.float32)
+    return lo, la, lp
+
+
+def assert_same_decode(lo, la, lp, lengths=None):
+    jl = None if lengths is None else jnp.asarray(lengths, jnp.int32)
+    s_j, sc_j = jcore.viterbi(jnp.asarray(lo), jnp.asarray(la), jnp.asarray(lp), jl)
+    tl = None if lengths is None else torch.as_tensor(np.asarray(lengths, np.int32))
+    s_t, sc_t = tcore.viterbi(torch.from_numpy(lo), torch.from_numpy(la),
+                              torch.from_numpy(lp), tl)
+    assert s_t.dtype == torch.int32 and tuple(s_t.shape) == lo.shape[:2]
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    np.testing.assert_allclose(sc_t.numpy(), np.asarray(sc_j), atol=1e-5)
+    return s_t, sc_t
+
+
+@pytest.mark.parametrize(
+    "shape", [(5, 300, 11), (3, 64, 5), (4, 128, 32), (1, 1, 3), (2, 500, 12)]
+)
+def test_viterbi_matches_jax(shape):
+    assert_same_decode(*_k_problem(*shape))
+
+
+@pytest.mark.parametrize("make", [_ties, _bracketed_ties], ids=["all", "bracketed"])
+def test_viterbi_ties_match_jax(make):
+    assert_same_decode(*make())
+
+
+def test_viterbi_ragged_matches_jax_and_solo():
+    lo, la, lp = _k_problem(5, 300, 9, seed=3)
+    lengths = [300, 31, 164, 1, 129]
+    s_t, sc_t = assert_same_decode(lo, la, lp, lengths)
+    for b, n in enumerate(lengths):
+        s_solo, sc_solo = tcore.viterbi(torch.from_numpy(lo[b:b + 1, :n]),
+                                        torch.from_numpy(la), torch.from_numpy(lp))
+        assert torch.equal(s_t[b, :n], s_solo[0])
+        assert torch.all(s_t[b, n - 1:] == s_t[b, n - 1])
+        np.testing.assert_allclose(sc_t[b].item(), sc_solo[0].item(), atol=1e-5)
+
+
+def test_viterbi_single_frame_batch():
+    lo, la, lp = _k_problem(3, 1, 7, seed=11)
+    assert_same_decode(lo, la, lp)
+    assert_same_decode(lo, la, lp, [1, 1, 1])
+
+
+def test_viterbi_rejects_time_varying_transitions():
+    lo, la, lp = _k_problem(2, 5, 3)
+    la_tv = np.broadcast_to(la, (2, 5, 3, 3)).copy()
+    with pytest.raises(ValueError, match="static"):
+        tcore.viterbi(torch.from_numpy(lo), torch.from_numpy(la_tv), torch.from_numpy(lp))
+
+
+def test_semiring_matches_jax():
+    from pytorch_hmm_tpu.core import semiring as js
+    from pytorch_hmm_tpu_torch.core import semiring as ts
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(3, 4, 6)).astype(np.float32)
+    x[0, 0] = -np.inf  # an all -inf row stays -inf
+    np.testing.assert_allclose(ts.logsumexp(torch.from_numpy(x), dim=-1).numpy(),
+                               np.asarray(js.logsumexp(jnp.asarray(x), axis=-1)),
+                               atol=1e-6)
+    v = rng.normal(size=(3, 6)).astype(np.float32)
+    a = np.log(rng.dirichlet(np.ones(6), size=6)).astype(np.float32)
+    tv, ti = ts.max_matvec(torch.from_numpy(v), torch.from_numpy(a))
+    jv, ji = js.max_matvec(jnp.asarray(v), jnp.asarray(a))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    p = rng.random(size=(5,)).astype(np.float32)
+    p[0] = 0.0
+    np.testing.assert_allclose(ts.safe_log(torch.from_numpy(p)).numpy(),
+                               np.asarray(js.safe_log(jnp.asarray(p))), rtol=1e-6)
+    assert ts.LOG_ZERO == js.LOG_ZERO
