@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's GMM-HMM decode path on one CUDA GPU.
+"""Smoke run of the PyTorch port's GMM-HMM decode and training paths on
+one CUDA GPU.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 (any
 sm_90a card), PyTorch built for CUDA and the CUDA toolkit. It builds the
-port's two CUDA kernels from ``pytorch_hmm_tpu_torch/csrc``, checks each
-against its plain PyTorch version on the card, serves a few decode
-requests through ``MixtureGaussianHMMLayer`` at the decode headline
-shape (B=32, T=1000, S=12, C=4, D=80; random weights from a seed),
-checks the results against the same layer on the CPU, and times the
-kernels and the decode with CUDA events.
+port's CUDA kernels from ``pytorch_hmm_tpu_torch/csrc`` (one nvcc per
+source, all at once), checks each kernel against its plain PyTorch
+version on the card, then drives ``MixtureGaussianHMMLayer`` at the
+width of the repo's GMM-HMM configuration (B=32, T=1000, S=12, C=4,
+D=80, diag covariance; random weights from a seed):
 
-Phases, one line each: card, build, diag_quadratic, smallk_viterbi,
-decode, timing. Any failure exits non-zero before the last line. On
+* decode: serves a few requests and checks them against the same layer
+  on the CPU;
+* training: gradients of ``compute_loss`` (unragged and ragged) against
+  the same layer on the CPU in float64, five Adam steps with the loss
+  falling, five ``em_step``s with the log-likelihood non-decreasing and
+  the first step's parameters against the CPU's;
+
+and times the kernels, a decode, a ``compute_loss`` step and an
+``em_step`` with CUDA events.
+
+Phases, one line each: card, build, each kernel vs plain, decode,
+training, timing. Any failure exits non-zero before the last line. On
 success the last two lines are a JSON object describing each kernel and
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a CUDA
 device the script fails. It imports no JAX.
@@ -26,16 +36,37 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 SEED = 0
-# Decode headline shape: batch, frames, states, components, feature dim.
+# The GMM-HMM configuration's width: batch, frames, states, components,
+# feature dim.
 B, T, S, C, D = 32, 1000, 12, 4, 80
 TIMED_RUNS = 20
+PLAIN_SUM_RUNS = 5      # the plain sum recursions are Python loops of T steps
 # Tolerance of the JAX kernel's own test (tests/test_ops_emit.py).
 DQ_ATOL, DQ_RTOL = 2e-4, 1e-5
 VIT_SCORE_ATOL = 1e-5
+# Sum recursions vs their plain versions: the JAX kernel tests' atol
+# 2e-4 (tests/test_ops_fbsum.py), plus rtol 1e-6 (8 f32 ulps) of the
+# running magnitude, which reaches ~2.5e3 at T=1000 on these inputs.
+SUM_ATOL, SUM_RTOL = 2e-4, 1e-6
+ADAM_STEPS = EM_STEPS = 5
+# Training on the card vs the same layer on the CPU in float64. The loss
+# and EM log-likelihood (mean log Z ~ -1.5e5): rtol 1e-5, about 80 f32
+# ulps of a sum of 1000 frames of ~150. Gradients and EM parameters are
+# compared relative to each tensor's largest entry (logits as their
+# softmax): the f32 posteriors, taken on max-shifted chains, carry
+# ~1e-3 absolute error at this width, and sums over 32,000 frames
+# average it down.
+LOSS_RTOL = 1e-5
+GRAD_RTOL = 2e-3
+EM_RTOL = 1e-3
+# EM never lowers the log-likelihood in exact arithmetic; allow f32
+# rounding of the ~1.5e5 sum.
+LL_SLACK = 1e-6
 
 KERNELS = {
     "diag_quadratic": {
@@ -46,7 +77,21 @@ KERNELS = {
         "source": "pytorch_hmm_tpu_torch/csrc/smallk_viterbi.cu",
         "replaces": "pytorch_hmm_tpu/ops/smallk.py:379",
     },
+    "fbsum_smallk": {
+        "source": "pytorch_hmm_tpu_torch/csrc/smallk_sum.cu",
+        "replaces": "pytorch_hmm_tpu/ops/fbsum.py:240",
+    },
+    "hsmm_smallk_forward": {
+        "source": "pytorch_hmm_tpu_torch/csrc/smallk_sum.cu",
+        "replaces": "pytorch_hmm_tpu/ops/hsmm_smallk.py:678",
+    },
+    "hsmm_smallk_backward": {
+        "source": "pytorch_hmm_tpu_torch/csrc/smallk_sum.cu",
+        "replaces": "pytorch_hmm_tpu/ops/hsmm_smallk.py:903",
+    },
 }
+TRAINING_KERNELS = ("diag_quadratic", "fbsum_smallk", "hsmm_smallk_forward",
+                    "hsmm_smallk_backward")
 
 
 class SmokeFailure(RuntimeError):
@@ -86,12 +131,32 @@ def cuda_median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
 
 
 def phase_build():
+    """Build every kernel source at once, one nvcc each."""
     from pytorch_hmm_tpu_torch.ops import _build
 
+    libs = sorted({Path(k["source"]).stem for k in KERNELS.values()})
     t0 = time.perf_counter()
-    for name in KERNELS:
-        _build.build(name)
-    return time.perf_counter() - t0
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for future in [pool.submit(_build.build, lib) for lib in libs]:
+            future.result()
+    return time.perf_counter() - t0, libs
+
+
+def kernel_fns():
+    """Each kernel's wrapper (which holds its launch count)."""
+    from pytorch_hmm_tpu_torch import ops
+
+    return {name: getattr(ops, name) for name in KERNELS}
+
+
+def reset_launches():
+    for fn in kernel_fns().values():
+        fn.launches = 0
+
+
+def read_launches(names):
+    fns = kernel_fns()
+    return {name: fns[name].launches for name in names}
 
 
 def phase_diag_quadratic(dev, gen):
@@ -186,7 +251,6 @@ def phase_decode(dev):
     import torch
     from pytorch_hmm_tpu_torch import MixtureGaussianHMMLayer, core
     from pytorch_hmm_tpu_torch.ops import MAX_SMALLK, auto_gmm_viterbi
-    from pytorch_hmm_tpu_torch.ops.emit import diag_quadratic
     from pytorch_hmm_tpu_torch.ops.smallk import smallk_viterbi
 
     layer = MixtureGaussianHMMLayer(
@@ -195,14 +259,12 @@ def phase_decode(dev):
     ).eval()
     obs, lengths = make_requests(dev)
 
-    diag_quadratic.launches = 0
-    smallk_viterbi.launches = 0
+    reset_launches()
     full = layer(obs, return_log_probs=True)
     ragged = layer(obs, return_log_probs=True, lengths=lengths)
     served = layer.make_decoder()(obs, return_log_probs=True)
     torch.cuda.synchronize(dev)
-    launches = {"diag_quadratic": diag_quadratic.launches,
-                "smallk_viterbi": smallk_viterbi.launches}
+    launches = read_launches(("diag_quadratic", "smallk_viterbi"))
     for name, n in launches.items():
         check(n > 0, f"the decode path never launched {name}")
 
@@ -254,10 +316,203 @@ def phase_decode(dev):
     return layer, obs, launches, agreement
 
 
-def phase_timing(dev, gen, layer, obs):
+def _sum_cases(dev, gen):
+    """Inputs of the sum-recursion checks: ``(log_obs, log_a, log_pi,
+    lengths, log_dur)``, ``log_dur (K, 1)`` non-zero."""
     import torch
-    from pytorch_hmm_tpu_torch.ops.emit import diag_quadratic, diag_quadratic_reference
-    from pytorch_hmm_tpu_torch.ops.smallk import smallk_viterbi, smallk_viterbi_reference
+
+    def rand(b, t, k, lengths=None, left_to_right=False):
+        lo = torch.randn(b, t, k, device=dev, generator=gen)
+        la = torch.log_softmax(torch.randn(k, k, device=dev, generator=gen), -1)
+        if left_to_right:
+            # Self-loop and one step forward; -inf everywhere else.
+            i = torch.arange(k, device=dev)
+            band = (i[None, :] == i[:, None]) | (i[None, :] == i[:, None] + 1)
+            la = torch.log_softmax(la.masked_fill(~band, float("-inf")), -1)
+        lp = torch.log_softmax(torch.randn(k, device=dev, generator=gen), -1)
+        ln = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+        ld = 0.3 * torch.randn(k, 1, device=dev, generator=gen)
+        return lo, la, lp, ln, ld
+
+    return {
+        "headline": rand(B, T, S),
+        "K=32": rand(8, 500, 32),
+        "ragged": rand(5, 300, 9, [300, 31, 164, 1, 129]),
+        "T=1": rand(3, 1, 5),
+        "left-to-right": rand(4, 300, S, left_to_right=True),
+    }
+
+
+def _sum_err(got, want, lengths):
+    """Max |got - want| over valid frames, or ``inf`` when they disagree
+    beyond ``SUM_ATOL + SUM_RTOL·|want|`` or either holds a NaN. Entries
+    that are -inf in the plain version (impossible under -inf
+    transitions) must be below -1e29 in the kernel's, which clamps at
+    -1e30."""
+    import torch
+
+    valid = torch.ones_like(got, dtype=torch.bool)
+    if lengths is not None and got.ndim == 3:
+        valid = (torch.arange(got.shape[1], device=got.device)[None, :]
+                 < lengths[:, None])[..., None].expand_as(got)
+    if bool(torch.isnan(got[valid]).any() or torch.isnan(want[valid]).any()):
+        return float("inf")
+    impossible = valid & torch.isneginf(want)
+    if bool((got[impossible] > -1e29).any()):
+        return float("inf")
+    ok = valid & ~impossible
+    d = (got - want).abs()[ok]
+    if bool((d > SUM_ATOL + SUM_RTOL * want.abs()[ok]).any()):
+        return float("inf")
+    return d.max().item() if d.numel() else 0.0
+
+
+def phase_sum_kernels(dev, gen):
+    """The three sum-recursion kernels vs their plain versions on the
+    same inputs; returns each kernel's max abs error at the headline
+    shape."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    worst = {}
+    for name, (lo, la, lp, ln, ld) in _sum_cases(dev, gen).items():
+        got = {
+            "fbsum_smallk": ops.fbsum_smallk(lo, la, lp, ln),
+            "hsmm_smallk_forward": ops.hsmm_smallk_forward(lo, la, lp, ld, ln),
+            "hsmm_smallk_backward": ops.hsmm_smallk_backward(lo, la, ld, ln),
+        }
+        torch.cuda.synchronize(dev)
+        want = {
+            "fbsum_smallk": ops.fbsum_smallk_reference(lo, la, lp, ln),
+            "hsmm_smallk_forward": ops.hsmm_smallk_forward_reference(lo, la, lp, ld, ln),
+            "hsmm_smallk_backward": ops.hsmm_smallk_backward_reference(lo, la, ld, ln),
+        }
+        for kernel, outs in got.items():
+            err = max(_sum_err(g, w, ln) for g, w in zip(outs, want[kernel]))
+            check(err != float("inf"), f"{kernel} {name}: disagrees with its plain version")
+            if name == "headline":
+                worst[kernel] = err
+        # At D = 1 the backward's beta_start is log_obs + log_dur + beta*.
+        bstar, bstart = got["hsmm_smallk_backward"]
+        err = _sum_err(bstart, lo + ld[:, 0] + bstar, ln)
+        check(err != float("inf"), f"hsmm_smallk_backward {name}: beta_start != o + beta*")
+    return worst
+
+
+def _grad_err(got, want):
+    """Max abs difference relative to the reference's largest entry."""
+    return ((got.double() - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def phase_training(dev):
+    """Train the layer on the card at full width: compute_loss gradients
+    (diag unragged and ragged, tied) vs the CPU in float64, Adam, EM. Returns launch counts, errors, the
+    loss and log-likelihood trajectories, and the layer and data."""
+    import torch
+    from pytorch_hmm_tpu_torch import MixtureGaussianHMMLayer, ops
+
+    def make(cov="diag"):
+        return MixtureGaussianHMMLayer(
+            S, D, num_components=C, covariance_type=cov,
+            generator=torch.Generator().manual_seed(SEED), device=dev,
+        )
+
+    def cpu64(layer):
+        ref = MixtureGaussianHMMLayer(S, D, num_components=C,
+                                      covariance_type=layer.covariance_type).double()
+        ref.load_state_dict({k: v.detach().cpu().double() for k, v in layer.state_dict().items()})
+        return ref
+
+    obs, lengths = make_requests(dev)
+    obs64, lengths_cpu = obs.cpu().double(), lengths.cpu()
+    layer = make()
+    tied = make("tied")
+    errs = {}
+
+    reset_launches()
+    # Diag unragged and ragged; tied (one shared log-variance through the
+    # same emission kernel) unragged.
+    for tag, lay, ln, ln_cpu in (("unragged", layer, None, None),
+                                 ("ragged", layer, lengths, lengths_cpu),
+                                 ("tied", tied, None, None)):
+        ref = cpu64(lay)
+        lay.zero_grad()
+        loss = lay.compute_loss(obs, ln)
+        loss.backward()
+        ref_loss = ref.compute_loss(obs64, ln_cpu)
+        ref_loss.backward()
+        rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+        check(rel <= LOSS_RTOL, f"compute_loss {tag}: {loss.item()} vs CPU {ref_loss.item()}")
+        errs[f"loss {tag}"] = rel
+        for (name, p), (_, q) in zip(lay.named_parameters(), ref.named_parameters()):
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                  f"{tag}: gradient of {name} missing or not finite")
+            err = _grad_err(p.grad.cpu(), q.grad)
+            check(err <= GRAD_RTOL, f"{tag}: gradient of {name} off by {err:.3g} of its max")
+            errs[f"d{name} {tag}"] = err
+
+    opt = torch.optim.Adam(layer.parameters(), lr=1e-2)
+    losses = []
+    for _ in range(ADAM_STEPS):
+        opt.zero_grad()
+        loss = layer.compute_loss(obs)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    check(losses[-1] < losses[0], f"Adam: the loss did not fall: {losses}")
+
+    em_layer = make()
+    em_ref = cpu64(em_layer)
+    lls = [em_layer.em_step(obs).item() for _ in range(EM_STEPS)]
+    torch.cuda.synchronize(dev)
+    launches = read_launches(TRAINING_KERNELS)
+    for name, n in launches.items():
+        check(n > 0, f"the training path never launched {name}")
+    for a, b in zip(lls, lls[1:]):
+        check(b >= a - LL_SLACK * abs(a), f"em_step: log-likelihood fell: {lls}")
+    # The first step, repeated from the same weights on the CPU in f64.
+    em_layer.load_state_dict(make().state_dict())
+    ll = em_layer.em_step(obs).item()
+    ref_ll = em_ref.em_step(obs64).item()
+    check(abs(ll - ref_ll) <= LOSS_RTOL * abs(ref_ll), f"em_step: ll {ll} vs CPU {ref_ll}")
+    errs["em ll"] = abs(ll - ref_ll) / abs(ref_ll)
+    for (name, p), (_, q) in zip(em_layer.named_parameters(), em_ref.named_parameters()):
+        check(bool(torch.isfinite(p).all()), f"em_step: {name} not finite")
+        p, q = p.detach().cpu(), q.detach()
+        if name.endswith("_logits"):
+            # log(p + 1e-10) of near-zero probabilities is all rounding.
+            p, q = torch.softmax(p, -1), torch.softmax(q, -1)
+        err = _grad_err(p, q)
+        check(err <= EM_RTOL, f"em_step: {name} off by {err:.3g} of its max")
+        errs[f"em {name}"] = err
+
+    # Cases with no kernel yet raise before any work instead of falling back.
+    big = ops.MAX_SMALLK + 1
+    refusals = {
+        "K>32 likelihood": lambda: ops.auto_log_likelihood(
+            torch.zeros(1, 4, big, device=dev), torch.zeros(big, big, device=dev),
+            torch.zeros(big, device=dev)),
+        "K>32 posteriors": lambda: ops.auto_forward_backward(
+            torch.zeros(1, 4, big, device=dev), torch.zeros(big, big, device=dev),
+            torch.zeros(big, device=dev)),
+        "D>1": lambda: ops.hsmm_smallk_forward(
+            torch.zeros(1, 4, S, device=dev), torch.zeros(S, S, device=dev),
+            torch.zeros(S, device=dev), torch.zeros(S, 2, device=dev)),
+        "mesh": lambda: layer.em_step(obs, mesh=object()),
+    }
+    for what, call in refusals.items():
+        try:
+            call()
+        except NotImplementedError:
+            continue
+        raise SmokeFailure(f"{what} on CUDA did not raise NotImplementedError")
+    return {"launches": launches, "errs": errs, "losses": losses, "lls": lls,
+            "layer": layer, "em_layer": em_layer, "obs": obs, "lengths": lengths}
+
+
+def phase_timing(dev, gen, layer, obs, train):
+    import torch
+    from pytorch_hmm_tpu_torch import ops
 
     n = S * C
     x = torch.randn(B, T, D, device=dev, generator=gen)
@@ -267,12 +522,30 @@ def phase_timing(dev, gen, layer, obs):
     lo = torch.randn(B, T, S, device=dev, generator=gen)
     la = torch.log_softmax(torch.randn(S, S, device=dev, generator=gen), -1)
     lp = torch.log_softmax(torch.randn(S, device=dev, generator=gen), -1)
+    ld = torch.zeros(S, 1, device=dev)
+    slow = dict(runs=PLAIN_SUM_RUNS, warmup=1)
+    tl, tobs = train["layer"], train["obs"]
+
+    def step():
+        tl.zero_grad()
+        tl.compute_loss(tobs).backward()
+
     return {
-        "diag_quadratic": (cuda_median_ms(lambda: diag_quadratic(x, wq, wl, bias)),
-                           cuda_median_ms(lambda: diag_quadratic_reference(x, wq, wl, bias))),
-        "smallk_viterbi": (cuda_median_ms(lambda: smallk_viterbi(lo, la, lp)),
-                           cuda_median_ms(lambda: smallk_viterbi_reference(lo, la, lp))),
+        "diag_quadratic": (cuda_median_ms(lambda: ops.diag_quadratic(x, wq, wl, bias)),
+                           cuda_median_ms(lambda: ops.diag_quadratic_reference(x, wq, wl, bias))),
+        "smallk_viterbi": (cuda_median_ms(lambda: ops.smallk_viterbi(lo, la, lp)),
+                           cuda_median_ms(lambda: ops.smallk_viterbi_reference(lo, la, lp))),
+        "fbsum_smallk": (cuda_median_ms(lambda: ops.fbsum_smallk(lo, la, lp)),
+                         cuda_median_ms(lambda: ops.fbsum_smallk_reference(lo, la, lp), **slow)),
+        "hsmm_smallk_forward": (
+            cuda_median_ms(lambda: ops.hsmm_smallk_forward(lo, la, lp, ld)),
+            cuda_median_ms(lambda: ops.hsmm_smallk_forward_reference(lo, la, lp, ld), **slow)),
+        "hsmm_smallk_backward": (
+            cuda_median_ms(lambda: ops.hsmm_smallk_backward(lo, la, ld)),
+            cuda_median_ms(lambda: ops.hsmm_smallk_backward_reference(lo, la, ld), **slow)),
         "decode": cuda_median_ms(lambda: layer(obs, return_log_probs=True)),
+        "compute_loss step": cuda_median_ms(step),
+        "em_step": cuda_median_ms(lambda: train["em_layer"].em_step(tobs)),
     }
 
 
@@ -295,7 +568,8 @@ def main() -> int:
     card = card_line()
     print(f"nvidia-smi: {card}", flush=True)
 
-    print(f"build: {phase_build():.1f} s for {', '.join(KERNELS)} (nvcc, sm_90a)", flush=True)
+    seconds, libs = phase_build()
+    print(f"build: {seconds:.1f} s for {', '.join(libs)} (nvcc, sm_90a, in parallel)", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     dq_errs = phase_diag_quadratic(dev, gen)
@@ -307,19 +581,36 @@ def main() -> int:
     print(f"smallk_viterbi vs plain: ok, paths identical on 6 cases, max abs score err {vit_err:.3g}",
           flush=True)
 
-    layer, obs, launches, agreement = phase_decode(dev)
-    print(f"decode (B={B}, T={T}, S={S}, C={C}, D={D}): ok, launches {launches}, "
+    sum_errs = phase_sum_kernels(dev, gen)
+    print("fbsum_smallk, hsmm_smallk_forward/backward (D=1) vs plain: ok on 5 cases "
+          "(headline, K=32, ragged with a length-1 row, T=1, left-to-right with -inf); "
+          "headline max abs err " + ", ".join(f"{k}: {v:.3g}" for k, v in sum_errs.items())
+          + f" (atol {SUM_ATOL} + rtol {SUM_RTOL})", flush=True)
+
+    layer, obs, dec_launches, agreement = phase_decode(dev)
+    print(f"decode (B={B}, T={T}, S={S}, C={C}, D={D}): ok, launches {dec_launches}, "
           f"frame agreement with CPU {agreement}", flush=True)
 
-    times = phase_timing(dev, gen, layer, obs)
+    train = phase_training(dev)
+    print(f"training (B={B}, T={T}, S={S}, C={C}, D={D}, diag): ok, launches {train['launches']}, "
+          f"Adam losses {train['losses']}, em_step log-likelihoods {train['lls']}", flush=True)
+    print("training vs CPU float64 (relative to each tensor's max): "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in train["errs"].items())
+          + f" (loss/ll rtol {LOSS_RTOL}, grad rtol {GRAD_RTOL}, EM rtol {EM_RTOL})", flush=True)
+
+    times = phase_timing(dev, gen, layer, obs, train)
     for name in KERNELS:
         ms, plain = times[name]
         print(f"timing {name}: {ms:.4f} ms kernel, {plain:.4f} ms plain torch "
+              f"(median, CUDA events) on {card}", flush=True)
+    for name, what in (("decode", "request"), ("compute_loss step", "forward+backward"),
+                       ("em_step", "step")):
+        print(f"timing {name}: {times[name]:.4f} ms per {what} of {B}x{T} frames "
               f"(median of {TIMED_RUNS}, CUDA events) on {card}", flush=True)
-    print(f"timing decode: {times['decode']:.4f} ms per request of {B}x{T} frames "
-          f"(median of {TIMED_RUNS}, CUDA events) on {card}", flush=True)
 
-    errs = {"diag_quadratic": dq_errs[(B, T, D, S * C)], "smallk_viterbi": vit_err}
+    errs = {"diag_quadratic": dq_errs[(B, T, D, S * C)], "smallk_viterbi": vit_err, **sum_errs}
+    launches = {name: dec_launches.get(name, 0) + train["launches"].get(name, 0)
+                for name in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0], "plain_ms": times[name][1]}

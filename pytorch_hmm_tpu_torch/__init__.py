@@ -3,9 +3,12 @@
 The PyTorch port of ``pytorch_hmm_tpu``. Plain tensor code is torch; the
 JAX package's Pallas kernels become CUDA C++ kernels written for Hopper
 (``csrc/``), built with ``nvcc`` at first use (``ops/_build.py``). So far
-the port covers the GMM-HMM decode path: ``MixtureGaussianHMMLayer`` with
-diag, tied or spherical covariances, its emission scoring and its
-Viterbi trellis. On CPU tensors everything runs as plain torch.
+the port covers the GMM-HMM decode and training paths:
+``MixtureGaussianHMMLayer`` with diag, tied or spherical covariances, its
+emission scoring, Viterbi trellis, differentiable likelihood
+(``compute_loss``) and Baum-Welch ``em_step``, over the ``core``
+forward-backward recursions. On CPU tensors everything runs as plain
+torch.
 
 Importing the package imports neither JAX nor Triton and builds nothing.
 """
@@ -15,7 +18,7 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 from . import bridge, core, emissions, models, ops, precision
-from .core import viterbi
+from .core import backward_log, forward_backward, forward_log, log_likelihood, viterbi
 from .emissions import (
     diag_gaussian_log_probs,
     gmm_component_log_probs,
@@ -23,7 +26,13 @@ from .emissions import (
     spherical_gaussian_log_probs,
 )
 from .models import MixtureGaussianHMMLayer, PreparedGMMDecoder
-from .ops import auto_gmm_viterbi, auto_viterbi
+from .ops import (
+    auto_forward,
+    auto_forward_backward,
+    auto_gmm_viterbi,
+    auto_log_likelihood,
+    auto_viterbi,
+)
 
 __all__ = [
     "bridge",
@@ -33,12 +42,19 @@ __all__ = [
     "ops",
     "precision",
     "viterbi",
+    "forward_log",
+    "backward_log",
+    "forward_backward",
+    "log_likelihood",
     "diag_gaussian_log_probs",
     "gmm_component_log_probs",
     "gmm_log_probs",
     "spherical_gaussian_log_probs",
     "MixtureGaussianHMMLayer",
     "PreparedGMMDecoder",
+    "auto_forward",
+    "auto_forward_backward",
     "auto_gmm_viterbi",
+    "auto_log_likelihood",
     "auto_viterbi",
 ]

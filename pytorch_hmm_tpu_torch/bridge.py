@@ -1,9 +1,10 @@
-"""Carry weights from the JAX package into the torch layers.
+"""Carry weights between the JAX package and the torch layers.
 
 Torch cannot reproduce the draws of the JAX layers' ``nnx.Rngs``
 initialisation, so a model that must agree with its JAX counterpart gets
-its weights copied across. The input is plain numpy, keyed by the JAX
-attribute names; this module never sees a JAX object.
+its weights copied across, and comes back out for comparison after
+training. Both directions are plain numpy, keyed by the JAX attribute
+names; this module never sees a JAX object.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["mixture_gaussian_state_dict"]
+__all__ = ["mixture_gaussian_numpy", "mixture_gaussian_state_dict"]
 
 _GMM_KEYS = (
     "transition_logits",        # learnable transitions
@@ -44,4 +45,14 @@ def mixture_gaussian_state_dict(
     return {
         k: torch.from_numpy(np.array(v, dtype=np.float32, copy=True))
         for k, v in params.items()
+    }
+
+
+def mixture_gaussian_numpy(layer: torch.nn.Module) -> dict[str, np.ndarray]:
+    """A ``MixtureGaussianHMMLayer``'s weights as float32 numpy arrays,
+    keyed by the JAX attribute names (the inverse of
+    :func:`mixture_gaussian_state_dict`)."""
+    return {
+        k: v.detach().cpu().numpy().astype(np.float32)
+        for k, v in layer.state_dict().items() if k in _GMM_KEYS
     }

@@ -1,6 +1,39 @@
 """Core DP recursions as plain torch code."""
 
-from .semiring import LOG_ZERO, logsumexp, max_matvec, safe_log
+from .fb import (
+    backward_log,
+    forward_backward,
+    forward_log,
+    log_likelihood,
+    xi_expectations,
+)
+from .semiring import (
+    LOG_ZERO,
+    log_matmul,
+    log_matvec,
+    log_matvec_t,
+    logsumexp,
+    max_matmul,
+    max_matvec,
+    normalize_log,
+    safe_log,
+)
 from .viterbi import viterbi
 
-__all__ = ["LOG_ZERO", "logsumexp", "max_matvec", "safe_log", "viterbi"]
+__all__ = [
+    "LOG_ZERO",
+    "log_matmul",
+    "log_matvec",
+    "log_matvec_t",
+    "logsumexp",
+    "max_matmul",
+    "max_matvec",
+    "normalize_log",
+    "safe_log",
+    "backward_log",
+    "forward_backward",
+    "forward_log",
+    "log_likelihood",
+    "xi_expectations",
+    "viterbi",
+]

@@ -2,16 +2,30 @@
 
 Port of ``pytorch_hmm_tpu/core/semiring.py``: the same log-space
 conventions (row-stochastic ``A[i, j] = P(s_t = j | s_{t-1} = i)``,
-``-inf`` for impossible transitions, every op ``-inf``-safe). Only the
-pieces the decode path needs are here; the sum-product matrix products
-come with the forward/backward slice.
+``-inf`` for impossible transitions, every op ``-inf``-safe).
+
+* sum-product (log semiring, ``(logsumexp, +)``): :func:`log_matvec`,
+  :func:`log_matvec_t`, :func:`log_matmul` — the forward and backward
+  recursions and the associative-scan combine;
+* max-product (tropical semiring, ``(max, +)``): :func:`max_matvec`,
+  :func:`max_matmul` — Viterbi.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["LOG_ZERO", "logsumexp", "max_matvec", "safe_log"]
+__all__ = [
+    "LOG_ZERO",
+    "logsumexp",
+    "log_matvec",
+    "log_matvec_t",
+    "log_matmul",
+    "max_matvec",
+    "max_matmul",
+    "normalize_log",
+    "safe_log",
+]
 
 # A finite stand-in for log(0) where -inf would create NaNs under
 # autodiff (same value as the JAX package).
@@ -21,6 +35,24 @@ LOG_ZERO = -1e30
 def logsumexp(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
     """``-inf``-safe logsumexp: a row of all ``-inf`` gives ``-inf``."""
     return torch.logsumexp(x, dim=dim, keepdim=keepdim)
+
+
+def log_matvec(v: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:
+    """``out[..., j] = logsumexp_i(v[..., i] + log_a[..., i, j])`` — one
+    forward step (``v`` is ``log alpha_{t-1}``)."""
+    return logsumexp(v[..., :, None] + log_a, dim=-2)
+
+
+def log_matvec_t(log_a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``out[..., i] = logsumexp_j(log_a[..., i, j] + v[..., j])`` — one
+    backward step."""
+    return logsumexp(log_a + v[..., None, :], dim=-1)
+
+
+def log_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``out[..., i, j] = logsumexp_k(x[..., i, k] + y[..., k, j])`` — the
+    associative combine of the parallel-in-time forward and backward."""
+    return logsumexp(x[..., :, :, None] + y[..., None, :, :], dim=-2)
 
 
 def max_matvec(v: torch.Tensor, log_a: torch.Tensor):
@@ -33,6 +65,16 @@ def max_matvec(v: torch.Tensor, log_a: torch.Tensor):
     return (v[..., :, None] + log_a).max(dim=-2)
 
 
+def max_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Max-product matrix-matrix product (no argmax)."""
+    return (x[..., :, :, None] + y[..., None, :, :]).amax(dim=-2)
+
+
 def safe_log(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Elementwise ``log(x + eps)`` for probability-space inputs."""
     return torch.log(x + eps)
+
+
+def normalize_log(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Normalize a log-space distribution so that exp sums to 1 over ``dim``."""
+    return x - logsumexp(x, dim=dim, keepdim=True)

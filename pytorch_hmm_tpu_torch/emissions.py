@@ -8,8 +8,11 @@ form is expanded so scoring is two ``(B·T, D) × (D, K)`` products::
     (x-μ)ᵀ diag(1/σ²) (x-μ) = x²·(1/σ²) − 2x·(μ/σ²) + Σ μ²/σ²
 
 which ``ops.emit.diag_quadratic`` evaluates with one read of the
-observations (the hand kernel on CUDA, plain torch on CPU). Full
-covariance is not ported yet and raises ``NotImplementedError``.
+observations (the hand kernel on CUDA, plain torch on CPU). Its
+autograd Function carries gradients back to the means and
+log-variances on both devices, so the diag and tied scores train as
+they decode. Full covariance is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -1,14 +1,21 @@
-"""MixtureGaussianHMMLayer — GMM-HMM acoustic model, decode path.
+"""MixtureGaussianHMMLayer — GMM-HMM acoustic model, decode and training.
 
 Port of ``pytorch_hmm_tpu/models/mixture_gaussian.py`` as an
 ``nn.Module``: S states, C mixture components per state, diag / tied /
 spherical covariances, learnable or fixed left-to-right transitions,
-batched Viterbi decode (``forward``) and the frozen serving decoder
-(``make_decoder``). Decoding on CUDA tensors goes through the two hand
-kernels (``ops.emit.diag_quadratic`` and ``ops.smallk.smallk_viterbi``).
+batched Viterbi decode (``forward``), the frozen serving decoder
+(``make_decoder``), the differentiable ``log_likelihood`` /
+``compute_loss`` for gradient training, and a closed-form Baum-Welch
+``em_step``.
 
-Full covariance, ``log_likelihood``, ``compute_loss`` and ``em_step``
-come with later slices (ROADMAP queue 1 items 2 to 4).
+On CUDA tensors decoding goes through ``ops.emit.diag_quadratic`` and
+``ops.smallk.smallk_viterbi``; the likelihood through
+``diag_quadratic`` (an autograd Function) and the forward and backward
+sum kernels (``ops.hsmm_smallk``, or ``ops.fbsum`` when ragged); EM
+through ``diag_quadratic`` and ``ops.fbsum.fbsum_smallk``.
+
+Full covariance comes with ROADMAP queue 1 item 2, and distributed EM
+(``em_step(mesh=...)``) with item 12.
 """
 
 from __future__ import annotations
@@ -19,9 +26,11 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from .. import core
 from ..core.semiring import logsumexp, safe_log
 from ..emissions import _FULL_COV_TODO, gmm_component_log_probs, gmm_log_probs
-from ..ops import auto_gmm_viterbi, auto_viterbi
+from ..ops import auto_forward_backward, auto_gmm_viterbi, auto_log_likelihood, auto_viterbi
+from ..precision import maybe_remat
 
 __all__ = ["MixtureGaussianHMMLayer", "PreparedGMMDecoder"]
 
@@ -74,7 +83,7 @@ def _l2r_fixed(num_states: int) -> torch.Tensor:
 
 
 class MixtureGaussianHMMLayer(nn.Module):
-    """GMM-HMM with diag / tied / spherical covariances (decode path).
+    """GMM-HMM with diag / tied / spherical covariances.
 
     Parameters are initialised from ``generator`` (a ``torch.Generator``;
     a fresh one seeded with 0 when omitted). Torch cannot reproduce the
@@ -150,8 +159,7 @@ class MixtureGaussianHMMLayer(nn.Module):
         )
 
     def get_observation_log_probs(self, observations: torch.Tensor) -> torch.Tensor:
-        """State scores ``(B, T, S)``. On CUDA the emission kernel has no
-        backward yet, so call this under ``torch.no_grad()`` there."""
+        """State scores ``(B, T, S)``, differentiable on both devices."""
         comp = self.get_component_log_probs(observations)
         log_w = torch.log_softmax(self.mixture_weights_logits, dim=-1)
         return logsumexp(comp + log_w, dim=-1)
@@ -192,6 +200,56 @@ class MixtureGaussianHMMLayer(nn.Module):
             self.num_components, self.covariance_type,
         )
 
+    def log_likelihood(
+        self, observations: torch.Tensor, lengths: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """Marginal sequence log-likelihood ``(B,)`` via the forward pass.
+
+        With checkpointing on (``precision.set_checkpointing``), the
+        ``(B, T, S, C)`` component scores are recomputed in the backward
+        pass instead of kept across it."""
+
+        def _score(o, means, cov_params, mixture_logits):
+            return gmm_log_probs(o, means, cov_params, mixture_logits, self.covariance_type)
+
+        log_obs = maybe_remat(_score)(
+            observations, self.means, self.cov_params, self.mixture_weights_logits
+        )
+        return auto_log_likelihood(log_obs, self._log_a(), self._log_pi(), lengths)
+
+    def compute_loss(
+        self, observations: torch.Tensor, lengths: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """Mean negative log-likelihood, for gradient training."""
+        return -torch.mean(self.log_likelihood(observations, lengths))
+
+    # -- EM (Baum-Welch) ----------------------------------------------------------
+    @torch.no_grad()
+    def em_step(self, observations: torch.Tensor, var_floor: float = 1e-3, mesh=None):
+        """One exact Baum-Welch update from a batch of sequences, in place.
+
+        E-step: forward-backward posteriors γ (``ops.auto_forward_backward``)
+        and pairwise ξ, component responsibilities r = γ · p(c | x, s).
+        M-step: closed-form weight, mean, covariance and transition
+        updates. Returns the batch mean log-likelihood before the update.
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "em_step(mesh=...) is not ported yet: ROADMAP queue 1 item 12 "
+                "(parallel/ on torch.distributed)"
+            )
+        ll, new = _em_update(
+            observations, self.means, self.cov_params, self.mixture_weights_logits,
+            self._log_a(), self._log_pi(), self.covariance_type, var_floor,
+            self.learnable_transitions,
+        )
+        self.means.copy_(new["means"])
+        self.cov_params.copy_(new["cov_params"])
+        self.mixture_weights_logits.copy_(new["mixture_logits"])
+        if self.learnable_transitions:
+            self.transition_logits.copy_(new["transition_logits"])
+        return ll
+
     def get_model_info(self) -> dict:
         """Configuration and parameter statistics."""
         total = sum(p.numel() for p in self.parameters())
@@ -206,3 +264,63 @@ class MixtureGaussianHMMLayer(nn.Module):
             "memory_efficient": True,
             "max_sequence_length": self.max_sequence_length,
         }
+
+
+def _em_update(
+    obs: torch.Tensor,
+    means: torch.Tensor,
+    cov_params: torch.Tensor,
+    mixture_logits: torch.Tensor,
+    log_a: torch.Tensor,
+    log_pi: torch.Tensor,
+    covariance_type: str,
+    var_floor: float,
+    learnable_transitions: bool,
+):
+    """One Baum-Welch step: ``(mean log Z, new parameters)``, the new
+    parameters keyed ``means``, ``cov_params``, ``mixture_logits`` and,
+    with learnable transitions, ``transition_logits``."""
+    comp = gmm_component_log_probs(obs, means, cov_params, covariance_type)
+    log_w = torch.log_softmax(mixture_logits, dim=-1)
+    weighted = comp + log_w                                  # (B, T, S, C)
+    log_obs = logsumexp(weighted, dim=-1)                    # (B, T, S)
+    # The E-step runs on emissions shifted by each frame's max, which
+    # cancels out of γ and ξ but keeps alpha and beta at O(1e3) instead
+    # of O(1e5), where f32 rounding would cost ξ ~1e-2 (the JAX package
+    # shifts inside auto_forward_backward and re-adds the shift before
+    # taking ξ); the shift is added back to log Z.
+    shift = torch.amax(log_obs, dim=-1, keepdim=True)
+    lo_hat = log_obs - shift
+    log_gamma, alpha_hat, beta_hat, lz_hat = auto_forward_backward(lo_hat, log_a, log_pi)
+
+    # Component responsibilities: r = γ_s · p(c | x, s).
+    r = torch.exp(log_gamma[..., None] + weighted - log_obs[..., None])
+    r_sum = torch.sum(r, dim=(0, 1)) + 1e-10                 # (S, C)
+    new_w = r_sum / torch.sum(r_sum, dim=-1, keepdim=True)
+    new_means = torch.einsum("btsc,btd->scd", r, obs) / r_sum[..., None]
+    ex2 = torch.einsum("btsc,btd->scd", r, obs * obs) / r_sum[..., None]
+    var_diag = torch.clamp(ex2 - new_means**2, min=var_floor)  # (S, C, D)
+
+    if covariance_type == "diag":
+        new_cov = torch.log(var_diag)
+    elif covariance_type == "spherical":
+        new_cov = torch.log(torch.mean(var_diag, dim=-1))
+    elif covariance_type == "tied":
+        w = r_sum / torch.sum(r_sum)
+        new_cov = torch.log(torch.einsum("sc,scd->d", w, var_diag))
+    elif covariance_type == "full":
+        raise NotImplementedError(_FULL_COV_TODO)
+    else:
+        raise ValueError(f"Unknown covariance_type: {covariance_type}")
+
+    new = {
+        "means": new_means,
+        "cov_params": new_cov,
+        "mixture_logits": torch.log(new_w + 1e-10),
+    }
+    if learnable_transitions:
+        xi = core.xi_expectations(alpha_hat, beta_hat, lo_hat, log_a, lz_hat)
+        a_new = torch.sum(torch.exp(xi), dim=0)              # Σ_b Σ_t ξ_t
+        a_new = a_new / (torch.sum(a_new, dim=-1, keepdim=True) + 1e-10)
+        new["transition_logits"] = torch.log(a_new + 1e-10)
+    return torch.mean(lz_hat + shift.sum(dim=(1, 2))), new

@@ -1,14 +1,19 @@
-"""Hand-written CUDA kernels for the hot HMM ops, and decode dispatch.
+"""Hand-written CUDA kernels for the hot HMM ops, and their dispatch.
 
-Port of the decode half of ``pytorch_hmm_tpu/ops/__init__.py``. The
-device decides the path, as the backend does in the JAX package:
+Port of ``pytorch_hmm_tpu/ops/__init__.py``. The device decides the
+path, as the backend does in the JAX package:
 
-* CUDA tensors with K ≤ 32 run the hand kernels
-  (``emit.diag_quadratic`` for diag/tied emissions,
-  ``smallk.smallk_viterbi`` for the trellis). A CUDA case this package
-  has no kernel for yet raises ``NotImplementedError`` naming its ROADMAP
-  item; it never falls back to the plain torch path.
-* CPU tensors run the plain torch versions.
+* CUDA tensors with K ≤ 32 and static ``(K, K)`` transitions run the
+  hand kernels: ``emit.diag_quadratic`` for diag/tied emissions,
+  ``smallk.smallk_viterbi`` for decode, ``hsmm_smallk`` (forward and
+  backward sum recursions at D = 1) for the likelihood and its gradient,
+  ``fbsum.fbsum_smallk`` for posteriors and the ragged likelihood. Every
+  K ≤ 32 goes to them at any T, ragged or not: the TPU kernels' VMEM
+  gates (fbsum's 16 states and T < 1024) and the long-T switch to the
+  prob-space kernels are TPU matters. A CUDA case this package has no
+  kernel for yet raises ``NotImplementedError`` naming its ROADMAP item;
+  it never falls back to the plain torch path.
+* CPU tensors run the plain torch versions (``core``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,14 @@ import torch
 
 from .. import core
 from .emit import diag_quadratic, diag_quadratic_reference
+from .fbsum import fbsum_smallk, fbsum_smallk_reference, fbsum_supported
+from .hsmm_smallk import (
+    hsmm_smallk_backward,
+    hsmm_smallk_backward_reference,
+    hsmm_smallk_forward,
+    hsmm_smallk_forward_reference,
+    hsmm_smallk_supported,
+)
 from .smallk import (
     MAX_SMALLK,
     smallk_supported,
@@ -27,10 +40,22 @@ from .smallk import (
 )
 
 __all__ = [
+    "auto_forward",
+    "auto_forward_backward",
+    "auto_log_likelihood",
     "auto_viterbi",
     "auto_gmm_viterbi",
+    "pallas_log_likelihood",
     "diag_quadratic",
     "diag_quadratic_reference",
+    "fbsum_smallk",
+    "fbsum_smallk_reference",
+    "fbsum_supported",
+    "hsmm_smallk_backward",
+    "hsmm_smallk_backward_reference",
+    "hsmm_smallk_forward",
+    "hsmm_smallk_forward_reference",
+    "hsmm_smallk_supported",
     "smallk_viterbi",
     "smallk_viterbi_reference",
     "smallk_supported",
@@ -45,10 +70,219 @@ def _unported_trellis(K: int) -> NotImplementedError:
     )
 
 
+def _unported_time_varying() -> NotImplementedError:
+    return NotImplementedError(
+        "no CUDA kernel for time-varying (B, T, K, K) transitions yet: "
+        "ROADMAP queue 1 item 8 (NeuralHMM)"
+    )
+
+
+def _check_sum_path(log_obs: torch.Tensor, log_a: torch.Tensor) -> None:
+    """Raise for a CUDA sum-recursion problem no kernel takes yet."""
+    K = log_obs.shape[-1]
+    if log_a.ndim != 2:
+        raise _unported_time_varying()
+    if not fbsum_supported(K, log_obs.shape[0]):
+        raise NotImplementedError(
+            f"no CUDA sum-recursion kernel for K={K} > {MAX_SMALLK} states yet: "
+            "ROADMAP queue 2 rows 8 (pallas_forward), 9 (pallas_backward) and "
+            "12 (pallas_fb_prob)"
+        )
+
+
+def _f32(*tensors):
+    return tuple(t.float().contiguous() for t in tensors)
+
+
 def _lengths_on(lengths: Optional[torch.Tensor], device: torch.device):
     if lengths is None:
         return None
     return torch.as_tensor(lengths).to(device=device, dtype=torch.int32).contiguous()
+
+
+def _unit_durations(log_obs: torch.Tensor) -> torch.Tensor:
+    """``log_dur (K, 1)`` of zeros: an HMM is an HSMM whose segments last
+    one frame."""
+    return torch.zeros((log_obs.shape[-1], 1), dtype=torch.float32, device=log_obs.device)
+
+
+def _valid_frames(lengths: torch.Tensor, T: int, start: int = 0) -> torch.Tensor:
+    """``(B, T - start)`` mask of frames ``t >= start`` inside each row."""
+    return torch.arange(start, T, device=lengths.device)[None, :] < lengths[:, None]
+
+
+def _frame_shift(log_obs: torch.Tensor, lengths=None) -> torch.Tensor:
+    """Each frame's largest emission ``(B, T, 1)``, zero past each row's
+    end.
+
+    Raw log-alpha reaches |T·log p| ~ 1e5 at speech shapes (log Z ≈
+    -1.5e5 at B=32, T=1000, D=80), where one f32 ulp is ~1e-2, and
+    posteriors formed as ``exp(alpha + beta - log Z)`` absorb that as
+    error. Subtracting this shift from the emissions adds one constant
+    per frame to every state's alpha + beta, so the posteriors are
+    unchanged mathematically but computed at O(1e3) magnitudes; the sum
+    of the shift is added back to log Z.
+    """
+    shift = torch.amax(log_obs, dim=-1, keepdim=True)
+    if lengths is not None:
+        shift = torch.where(_valid_frames(lengths, log_obs.shape[1])[..., None], shift, 0.0)
+    return shift
+
+
+class _LogLikelihood(torch.autograd.Function):
+    """``log Z (B,)`` with the closed-form posterior gradients
+    (``∂ log Z/∂ log_obs = γ``, ``∂/∂ log_a = Σ_t ξ_t``,
+    ``∂/∂ log_pi = γ_0``). Forward: the D = 1 forward sum kernel;
+    backward: the D = 1 backward sum kernel, then ``γ`` and
+    ``core.fb.xi_expectations`` in plain torch (XLA in the JAX package).
+    Both chains run on max-shifted emissions (:func:`_frame_shift`),
+    which the shift cancels out of every posterior."""
+
+    @staticmethod
+    def forward(ctx, log_obs, log_a, log_pi):
+        shift = _frame_shift(log_obs)
+        lo_hat = (log_obs - shift).contiguous()
+        alpha_hat, lz_hat = hsmm_smallk_forward(lo_hat, log_a, log_pi, _unit_durations(log_obs))
+        ctx.save_for_backward(lo_hat, log_a, alpha_hat, lz_hat)
+        return lz_hat + shift.sum(dim=(1, 2))
+
+    @staticmethod
+    def backward(ctx, g):
+        lo_hat, log_a, alpha_hat, lz_hat = ctx.saved_tensors
+        beta_hat = hsmm_smallk_backward(lo_hat, log_a, _unit_durations(lo_hat))[0]
+        log_gamma = alpha_hat + beta_hat - lz_hat[:, None, None]
+        d_log_obs = g[:, None, None] * torch.exp(log_gamma)
+        d_log_pi = torch.sum(g[:, None] * torch.exp(log_gamma[:, 0]), dim=0)
+        lxi = core.fb.xi_expectations(alpha_hat, beta_hat, lo_hat, log_a, lz_hat)
+        d_log_a = torch.sum(g[:, None, None] * torch.exp(lxi), dim=0)
+        return d_log_obs, d_log_a, d_log_pi
+
+
+class _LogLikelihoodMasked(torch.autograd.Function):
+    """Ragged ``log Z (B,)``: ``fbsum_smallk`` gives alpha and beta in
+    one launch (the backward always needs beta); the gradients are the
+    posteriors of valid frames and of transitions that land inside each
+    row (``t + 1 < lengths[b]``), zero elsewhere. Max-shifted as
+    :class:`_LogLikelihood` is."""
+
+    @staticmethod
+    def forward(ctx, log_obs, log_a, log_pi, lengths):
+        shift = _frame_shift(log_obs, lengths)
+        lo_hat = (log_obs - shift).contiguous()
+        alpha_hat, beta_hat, lz_hat = fbsum_smallk(lo_hat, log_a, log_pi, lengths)
+        ctx.save_for_backward(lo_hat, log_a, lengths, alpha_hat, beta_hat, lz_hat)
+        return lz_hat + shift.sum(dim=(1, 2))
+
+    @staticmethod
+    def backward(ctx, g):
+        lo_hat, log_a, lengths, alpha_hat, beta_hat, lz_hat = ctx.saved_tensors
+        T = lo_hat.shape[1]
+        log_gamma = alpha_hat + beta_hat - lz_hat[:, None, None]
+        gamma = torch.where(_valid_frames(lengths, T)[..., None], torch.exp(log_gamma), 0.0)
+        d_log_obs = g[:, None, None] * gamma
+        d_log_pi = torch.sum(g[:, None] * torch.exp(log_gamma[:, 0]), dim=0)
+        lxi = (
+            alpha_hat[:, :-1, :, None]
+            + log_a
+            + (lo_hat + beta_hat)[:, 1:, None, :]
+            - lz_hat[:, None, None, None]
+        )
+        xi = torch.where(_valid_frames(lengths, T, 1)[..., None, None], torch.exp(lxi), 0.0)
+        d_log_a = torch.sum(g[:, None, None] * torch.sum(xi, dim=1), dim=0)
+        return d_log_obs, d_log_a, d_log_pi, None
+
+
+def pallas_log_likelihood(log_obs, log_a, log_pi):
+    """Differentiable sequence log-likelihood ``(B,)`` on the forward and
+    backward sum kernels (their plain versions on CPU tensors)."""
+    return _LogLikelihood.apply(log_obs, log_a, log_pi)
+
+
+def _pallas_ll_masked(log_obs, log_a, log_pi, lengths):
+    """Ragged twin of :func:`pallas_log_likelihood` on ``fbsum_smallk``;
+    ``lengths`` is int32 ``(B,)`` on the tensors' device."""
+    return _LogLikelihoodMasked.apply(log_obs, log_a, log_pi, lengths)
+
+
+def auto_log_likelihood(
+    log_obs: torch.Tensor,
+    log_a: torch.Tensor,
+    log_pi: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+):
+    """Differentiable ``log Z (B,)``: the sum kernels with closed-form
+    posterior gradients on CUDA tensors (K ≤ 32, static transitions),
+    autograd through the plain ``core.log_likelihood`` scan on CPU."""
+    if log_obs.device.type == "cpu":
+        return core.log_likelihood(log_obs, log_a, log_pi, lengths)
+    _check_sum_path(log_obs, log_a)
+    args = _f32(log_obs, log_a, log_pi)
+    if lengths is None:
+        return pallas_log_likelihood(*args)
+    return _pallas_ll_masked(*args, _lengths_on(lengths, log_obs.device))
+
+
+def auto_forward(
+    log_obs: torch.Tensor,
+    log_a: torch.Tensor,
+    log_pi: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+):
+    """``(log_alpha, log_z)`` — the D = 1 forward sum kernel on CUDA
+    tensors, ``core.forward_log`` on CPU. Past each row's end alpha holds
+    its final valid value, as ``core`` freezes it."""
+    if log_obs.device.type == "cpu":
+        return core.forward_log(log_obs, log_a, log_pi, lengths)
+    _check_sum_path(log_obs, log_a)
+    ln = _lengths_on(lengths, log_obs.device)
+    log_alpha, log_z = hsmm_smallk_forward(*_f32(log_obs, log_a, log_pi),
+                                           _unit_durations(log_obs), ln)
+    if ln is not None:
+        log_alpha = _freeze_past_end(log_alpha, ln)
+    return log_alpha, log_z
+
+
+def _freeze_past_end(log_alpha: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Each row's frames ``t >= lengths[b]`` replaced by its frame
+    ``lengths[b] - 1`` (the kernel runs on through them)."""
+    B, T, K = log_alpha.shape
+    t = torch.arange(T, device=lengths.device)
+    idx = torch.minimum(t[None, :], (lengths - 1).long()[:, None])
+    return log_alpha.gather(1, idx[..., None].expand(B, T, K))
+
+
+def _shifted_forward_backward(log_obs, log_a, log_pi, lengths=None):
+    """``fbsum_smallk`` on max-shifted emissions (:func:`_frame_shift`),
+    with the cumulative shift re-added to alpha, beta and log Z so the
+    outputs stay raw."""
+    shift = _frame_shift(log_obs, lengths)
+    alpha_hat, beta_hat, lz_hat = fbsum_smallk(
+        (log_obs - shift).contiguous(), log_a, log_pi, lengths
+    )
+    lg = alpha_hat + beta_hat
+    log_gamma = lg - core.logsumexp(lg, dim=-1, keepdim=True)
+    csh = torch.cumsum(shift, dim=1)                           # Σ_{u<=t} shift
+    total = csh[:, -1]                                         # padded frames add 0
+    log_alpha = alpha_hat + csh
+    log_beta = beta_hat + (total[:, None] - csh)
+    log_z = lz_hat + total[:, 0]
+    return log_gamma, log_alpha, log_beta, log_z
+
+
+def auto_forward_backward(
+    log_obs: torch.Tensor,
+    log_a: torch.Tensor,
+    log_pi: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+):
+    """``(log_gamma, log_alpha, log_beta, log_z)`` — ``fbsum_smallk`` on
+    max-shifted emissions on CUDA tensors, ``core.forward_backward`` on
+    CPU. The posterior normalization matches ``core`` exactly."""
+    if log_obs.device.type == "cpu":
+        return core.forward_backward(log_obs, log_a, log_pi, lengths)
+    _check_sum_path(log_obs, log_a)
+    return _shifted_forward_backward(*_f32(log_obs, log_a, log_pi),
+                                     _lengths_on(lengths, log_obs.device))
 
 
 def auto_viterbi(
@@ -64,16 +298,10 @@ def auto_viterbi(
     if log_obs.device.type == "cpu":
         return core.viterbi(log_obs, log_a, log_pi, lengths)
     if log_a.ndim != 2:
-        raise NotImplementedError(
-            "no CUDA kernel for time-varying (B, T, K, K) transitions yet: "
-            "ROADMAP queue 1 item 8 (NeuralHMM)"
-        )
+        raise _unported_time_varying()
     if not smallk_supported(K):
         raise _unported_trellis(K)
-    return smallk_viterbi(
-        log_obs.float().contiguous(), log_a.float().contiguous(),
-        log_pi.float().contiguous(), _lengths_on(lengths, log_obs.device),
-    )
+    return smallk_viterbi(*_f32(log_obs, log_a, log_pi), _lengths_on(lengths, log_obs.device))
 
 
 def auto_gmm_viterbi(

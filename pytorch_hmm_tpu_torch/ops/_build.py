@@ -90,16 +90,19 @@ def build(name: str) -> Path:
 
 def load(name: str, signatures: dict) -> ctypes.CDLL:
     """Build if needed, then load ``csrc/<name>.cu`` and declare the
-    ``argtypes`` of each exported function (``{fn: [ctypes types]}``);
-    every function returns a CUDA error code as ``int``."""
+    ``argtypes`` of each exported function in ``signatures`` (``{fn:
+    [ctypes types]}``) not declared yet, so modules that share one
+    library each declare the functions they call. Every function
+    returns a CUDA error code as ``int``."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
-        for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
+        _loaded[name] = lib
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        if f.argtypes is None:
             f.argtypes = list(argtypes)
             f.restype = ctypes.c_int
-        _loaded[name] = lib
     return lib
 
 
@@ -111,7 +114,10 @@ def check(rc: int, what: str) -> None:
 
 def check_tensors(what: str, device: torch.device, **tensors) -> None:
     """Raise unless every tensor is a contiguous float32 CUDA tensor on
-    ``device`` that needs no gradient (the kernels have no backward yet)."""
+    ``device`` that records no gradient. A raw launch is invisible to
+    autograd; the differentiable paths (``ops.emit.diag_quadratic``,
+    ``ops.pallas_log_likelihood``, ``ops._pallas_ll_masked``) launch
+    inside ``torch.autograd.Function``s, where grad mode is off."""
     if device.type != "cuda":
         raise ValueError(f"{what} runs on CPU or CUDA tensors, got {device}")
     for name, t in tensors.items():
@@ -123,6 +129,7 @@ def check_tensors(what: str, device: torch.device, **tensors) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                f"{what}: the CUDA kernel has no backward yet (ROADMAP queue 1 "
-                "item 4, training slice); call it under torch.no_grad()"
+                f"{what}: a raw kernel launch records no gradient for {name}; "
+                "differentiate through its autograd Function (ops.emit.diag_quadratic, "
+                "ops.auto_log_likelihood) or call it under torch.no_grad()"
             )

@@ -20,7 +20,7 @@ from .. import core
 from . import _build
 
 __all__ = ["smallk_viterbi", "smallk_viterbi_reference", "smallk_supported",
-           "MAX_SMALLK"]
+           "check_problem", "MAX_SMALLK"]
 
 # One warp lane per state.
 MAX_SMALLK = 32
@@ -38,6 +38,35 @@ _SIGNATURES = {
 def smallk_supported(num_states: int) -> bool:
     """True when the CUDA trellis kernel takes ``num_states`` states."""
     return 1 <= num_states <= MAX_SMALLK
+
+
+def check_problem(what: str, log_obs, log_a, log_pi=None, lengths=None):
+    """Validate the shapes of a small-K problem for a CUDA kernel
+    (``log_pi`` may be omitted); returns ``(B, T, K, lengths)`` with
+    ``lengths`` None or contiguous int32 ``(B,)`` on ``log_obs``'s
+    device."""
+    if log_obs.ndim != 3:
+        raise ValueError(f"{what}: log_obs must be (B, T, K), got {tuple(log_obs.shape)}")
+    B, T, K = log_obs.shape
+    if tuple(log_a.shape) != (K, K) or (log_pi is not None and tuple(log_pi.shape) != (K,)):
+        raise ValueError(
+            f"{what}: K={K} needs log_a (K, K) and log_pi (K,), got {tuple(log_a.shape)}"
+            + ("" if log_pi is None else f" and {tuple(log_pi.shape)}")
+        )
+    if not 1 <= K <= MAX_SMALLK:
+        raise ValueError(f"{what} takes 1 <= K <= {MAX_SMALLK}, got K={K}")
+    if B == 0 or T == 0:
+        raise ValueError(f"{what}: empty input {tuple(log_obs.shape)}")
+    dev = log_obs.device
+    if lengths is not None and (
+        lengths.device != dev or lengths.dtype != torch.int32
+        or tuple(lengths.shape) != (B,) or not lengths.is_contiguous()
+    ):
+        raise ValueError(
+            f"{what}: lengths must be contiguous int32 ({B},) on {dev}, got "
+            f"{lengths.dtype} {tuple(lengths.shape)} on {lengths.device}"
+        )
+    return B, T, K, lengths
 
 
 def smallk_viterbi_reference(
@@ -68,29 +97,12 @@ def smallk_viterbi(
     """
     if log_obs.device.type == "cpu":
         return smallk_viterbi_reference(log_obs, log_a, log_pi, lengths)
-    if log_obs.ndim != 3:
-        raise ValueError(f"smallk_viterbi: log_obs must be (B, T, K), got {tuple(log_obs.shape)}")
-    B, T, K = log_obs.shape
-    if tuple(log_a.shape) != (K, K) or tuple(log_pi.shape) != (K,):
-        raise ValueError(
-            f"smallk_viterbi: K={K} needs log_a (K, K) and log_pi (K,), got "
-            f"{tuple(log_a.shape)} and {tuple(log_pi.shape)}"
-        )
-    if not smallk_supported(K):
-        raise ValueError(f"smallk_viterbi takes 1 <= K <= {MAX_SMALLK}, got K={K}")
-    if B == 0 or T == 0:
-        raise ValueError(f"smallk_viterbi: empty input {tuple(log_obs.shape)}")
+    B, T, K, lengths = check_problem("smallk_viterbi", log_obs, log_a, log_pi, lengths)
     _build.check_tensors("smallk_viterbi", log_obs.device,
                          log_obs=log_obs, log_a=log_a, log_pi=log_pi)
     dev = log_obs.device
     if lengths is None:
         lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
-    elif (lengths.device != dev or lengths.dtype != torch.int32
-          or tuple(lengths.shape) != (B,) or not lengths.is_contiguous()):
-        raise ValueError(
-            f"smallk_viterbi: lengths must be contiguous int32 ({B},) on {dev}, "
-            f"got {lengths.dtype} {tuple(lengths.shape)} on {lengths.device}"
-        )
 
     lib = _build.load("smallk_viterbi", _SIGNATURES)
     psi = torch.empty((B, T, K), dtype=torch.uint8, device=dev)

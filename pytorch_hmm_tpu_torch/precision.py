@@ -2,21 +2,24 @@
 
 Port of ``pytorch_hmm_tpu/precision.py``: the same two process-wide
 flags, ``USE_MIXED_PRECISION`` and ``USE_CHECKPOINTING``, both on by
-default, and ``compute_dtype``.
+default, ``compute_dtype`` and ``maybe_remat``.
 
 On the H100 the mixed flag is meant to select bf16 or TF32 tensor-core
 contractions for emission scoring. No kernel of this package has such
-a path yet: ``ops.emit.diag_quadratic`` and ``ops.smallk.smallk_viterbi``
-compute in true float32 whatever the flag says, and ``compute_dtype``
-resolves to float32 unless the caller overrides it. The checkpointing
-flag is read by nothing until the training slice lands.
+a path yet: every kernel (``ops.emit``, ``ops.smallk``, ``ops.fbsum``,
+``ops.hsmm_smallk``) computes in true float32 whatever the flag says,
+as the gradients and EM statistics need posterior-grade accuracy, and
+``compute_dtype`` resolves to float32 unless the caller overrides it.
+The checkpointing flag is read by ``maybe_remat``, which the GMM layer's
+``log_likelihood`` wraps around its emission scoring.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.utils.checkpoint
 
 __all__ = [
     "mixed_precision_enabled",
@@ -24,6 +27,7 @@ __all__ = [
     "checkpointing_enabled",
     "set_checkpointing",
     "compute_dtype",
+    "maybe_remat",
 ]
 
 _MIXED_PRECISION = True
@@ -55,3 +59,17 @@ def compute_dtype(override: Optional[torch.dtype] = None) -> torch.dtype:
     if override is not None:
         return override
     return torch.float32
+
+
+def maybe_remat(fn: Callable) -> Callable:
+    """``fn`` recomputed in the backward pass instead of keeping its
+    intermediates (``torch.utils.checkpoint``, non-reentrant) when
+    checkpointing is enabled as ``maybe_remat`` is called; ``fn`` itself
+    otherwise."""
+    if not _CHECKPOINTING:
+        return fn
+
+    def remat(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    return remat

@@ -36,12 +36,15 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
     assert got["same_build"]
     expected = {
         "pytorch_hmm_tpu_torch.bridge",
+        "pytorch_hmm_tpu_torch.core.fb",
         "pytorch_hmm_tpu_torch.core.semiring",
         "pytorch_hmm_tpu_torch.core.viterbi",
         "pytorch_hmm_tpu_torch.emissions",
         "pytorch_hmm_tpu_torch.models.mixture_gaussian",
         "pytorch_hmm_tpu_torch.ops._build",
         "pytorch_hmm_tpu_torch.ops.emit",
+        "pytorch_hmm_tpu_torch.ops.fbsum",
+        "pytorch_hmm_tpu_torch.ops.hsmm_smallk",
         "pytorch_hmm_tpu_torch.ops.smallk",
         "pytorch_hmm_tpu_torch.precision",
     }

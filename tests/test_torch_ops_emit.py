@@ -90,3 +90,60 @@ def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
     assert a != b
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.library_path("diag_quadratic") != a
+
+
+def _grad_problem(rng, B, T, D, N, dtype=np.float32):
+    return [rng.normal(size=s).astype(dtype) for s in ((B, T, D), (D, N), (D, N), (N,), (B, T, N))]
+
+
+def test_function_backward_passes_gradcheck():
+    """The autograd Function's hand-written backward against finite
+    differences, in float64 on a tiny shape (the CPU forward is the plain
+    version, which keeps float64)."""
+    rng = np.random.default_rng(3)
+    args = [torch.from_numpy(a).requires_grad_(True)
+            for a in _grad_problem(rng, 2, 3, 4, 5, np.float64)[:4]]
+    assert torch.autograd.gradcheck(diag_quadratic, args)
+
+
+def test_function_gradients_match_jax_grad_of_xla_form():
+    """Gradients of ``Σ w ⊙ diag_quadratic(...)`` in all four inputs
+    against ``jax.grad`` of the XLA form at Precision.HIGHEST (the JAX
+    kernel has no VJP; XLA differentiates its plain form). Tolerance of
+    the forward test (atol 2e-4, rtol 1e-5)."""
+    rng = np.random.default_rng(4)
+    obs, wq, wl, b, w = _grad_problem(rng, 2, 50, 20, 12)
+
+    def loss(x, q, lin, bias):
+        hi = jax.lax.Precision.HIGHEST
+        out = jnp.matmul(x * x, q, precision=hi) + jnp.matmul(x, lin, precision=hi) + bias
+        return jnp.sum(out * jnp.asarray(w))
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in (obs, wq, wl, b)))
+    args = [torch.from_numpy(a).requires_grad_(True) for a in (obs, wq, wl, b)]
+    (diag_quadratic(*args) * torch.from_numpy(w)).sum().backward()
+    for a, g in zip(args, want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(g), atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cov", ["diag", "tied"])
+def test_emission_gradients_match_jax(cov):
+    """Diag and tied GMM scores back-propagate through the Function to
+    the observations, means and log-variances as the JAX XLA emission
+    does (atol 1e-4, rtol 1e-5)."""
+    from pytorch_hmm_tpu.emissions import gmm_component_log_probs as jax_comp
+    from pytorch_hmm_tpu_torch.emissions import gmm_component_log_probs
+
+    rng = np.random.default_rng(5)
+    S, C, D = 3, 2, 6
+    obs = rng.normal(size=(2, 30, D)).astype(np.float32)
+    means = rng.normal(size=(S, C, D)).astype(np.float32)
+    cov_p = (0.3 * rng.normal(size=(S, C, D) if cov == "diag" else (D,))).astype(np.float32)
+    w = rng.normal(size=(2, 30, S, C)).astype(np.float32)
+
+    want = jax.grad(lambda *a: jnp.sum(jax_comp(*a, cov) * jnp.asarray(w)), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (obs, means, cov_p)))
+    args = [torch.from_numpy(a).requires_grad_(True) for a in (obs, means, cov_p)]
+    (gmm_component_log_probs(*args, cov) * torch.from_numpy(w)).sum().backward()
+    for a, g in zip(args, want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(g), atol=1e-4, rtol=1e-5)
