@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's GMM-HMM decode and training paths on
+"""Smoke run of the PyTorch port's GMM-HMM and duration-model paths on
 one CUDA GPU.
 
     python3 chip_smoke.py
@@ -19,11 +19,24 @@ D=80, diag covariance; random weights from a seed):
   falling, five ``em_step``s with the log-likelihood non-decreasing and
   the first step's parameters against the CPU's;
 
+then the duration models (random weights from a seed, observations drawn
+from the model's own means):
+
+* decode: ``HSMMLayer`` (B=32, T=1000, S=10, D=20, F=80, the JAX
+  bench's duration-model row) through ``forward``, unragged and ragged,
+  and ``SemiMarkovHMM`` (B=24, T=800) through ``viterbi_decode``, each
+  against the same model on the CPU;
+* posteriors and training: ``HSMMLayer.posteriors``, ``compute_loss``
+  gradients (unragged and ragged) and one ``em_step`` against the same
+  layer on the CPU in float64, five ``em_step``s (fixed durations) with
+  the log-likelihood non-decreasing;
+
 and times the kernels, a decode, a ``compute_loss`` step and an
-``em_step`` with CUDA events.
+``em_step`` of each path, and a duration-model ``posteriors`` call,
+with CUDA events.
 
 Phases, one line each: card, build, each kernel vs plain, decode,
-training, timing. Any failure exits non-zero before the last line. On
+training, duration-model decode, duration-model training, timing. Any failure exits non-zero before the last line. On
 success the last two lines are a JSON object describing each kernel and
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a CUDA
 device the script fails. It imports no JAX.
@@ -54,6 +67,23 @@ VIT_SCORE_ATOL = 1e-5
 # running magnitude, which reaches ~2.5e3 at T=1000 on these inputs.
 SUM_ATOL, SUM_RTOL = 2e-4, 1e-6
 ADAM_STEPS = EM_STEPS = 5
+# The duration models' width: the JAX bench's HSMMLayer row (B, T,
+# states, max duration, feature dim) and its SemiMarkovHMM row.
+HB, HT, HS, HD, HF = 32, 1000, 10, 20, 80
+SEMI_B, SEMI_T = 24, 800
+# Segment-DP sum tables vs their plain versions: atol 5e-4, the JAX
+# kernel tests' own (tests/test_ops_hsmm.py), plus rtol 1e-6 (8 f32 ulps)
+# of the running magnitude (~2.5e3 at T=1000 on these inputs). The
+# kernels form segment emissions with window rings, the plain versions
+# as differences of running sums: they round differently.
+HSMM_SUM_ATOL, HSMM_SUM_RTOL = 5e-4, 1e-6
+# Duration models on the card vs the CPU in float64. The card's f32
+# posteriors, from shifted window-ring chains, sat 9.0e-4 off float64 at
+# this width in a CPU check (gamma; segment_end 5.1e-4): posteriors
+# atol 5e-3; gradients and EM parameters, sums over 32,000 frames of
+# them, within 5e-3 of each tensor's largest entry.
+HSMM_POST_ATOL = 5e-3
+HSMM_GRAD_RTOL = HSMM_EM_RTOL = 5e-3
 # Training on the card vs the same layer on the CPU in float64. The loss
 # and EM log-likelihood (mean log Z ~ -1.5e5): rtol 1e-5, about 80 f32
 # ulps of a sum of 1000 frames of ~150. Gradients and EM parameters are
@@ -89,9 +119,28 @@ KERNELS = {
         "source": "pytorch_hmm_tpu_torch/csrc/smallk_sum.cu",
         "replaces": "pytorch_hmm_tpu/ops/hsmm_smallk.py:903",
     },
+    "hsmm_smallk_viterbi": {
+        "source": "pytorch_hmm_tpu_torch/csrc/hsmm_smallk.cu",
+        "replaces": "pytorch_hmm_tpu/ops/hsmm_smallk.py:435",
+    },
+    "hsmm_smallk_fb": {
+        "source": "pytorch_hmm_tpu_torch/csrc/hsmm_smallk.cu",
+        "replaces": "pytorch_hmm_tpu/ops/hsmm_smallk.py:1182",
+    },
+    "hsmm_smallk_forward_general": {
+        "source": "pytorch_hmm_tpu_torch/csrc/hsmm_smallk.cu",
+        "replaces": "pytorch_hmm_tpu/ops/hsmm_smallk.py:678",
+    },
+    "hsmm_smallk_backward_general": {
+        "source": "pytorch_hmm_tpu_torch/csrc/hsmm_smallk.cu",
+        "replaces": "pytorch_hmm_tpu/ops/hsmm_smallk.py:903",
+    },
 }
 TRAINING_KERNELS = ("diag_quadratic", "fbsum_smallk", "hsmm_smallk_forward",
                     "hsmm_smallk_backward")
+DURATION_DECODE_KERNELS = ("diag_quadratic", "hsmm_smallk_viterbi")
+DURATION_TRAINING_KERNELS = ("diag_quadratic", "hsmm_smallk_fb", "hsmm_smallk_forward_general",
+                             "hsmm_smallk_backward_general")
 
 
 class SmokeFailure(RuntimeError):
@@ -343,9 +392,9 @@ def _sum_cases(dev, gen):
     }
 
 
-def _sum_err(got, want, lengths):
+def _sum_err(got, want, lengths, atol=SUM_ATOL, rtol=SUM_RTOL):
     """Max |got - want| over valid frames, or ``inf`` when they disagree
-    beyond ``SUM_ATOL + SUM_RTOL·|want|`` or either holds a NaN. Entries
+    beyond ``atol + rtol·|want|`` or either holds a NaN. Entries
     that are -inf in the plain version (impossible under -inf
     transitions) must be below -1e29 in the kernel's, which clamps at
     -1e30."""
@@ -362,7 +411,7 @@ def _sum_err(got, want, lengths):
         return float("inf")
     ok = valid & ~impossible
     d = (got - want).abs()[ok]
-    if bool((d > SUM_ATOL + SUM_RTOL * want.abs()[ok]).any()):
+    if bool((d > atol + rtol * want.abs()[ok]).any()):
         return float("inf")
     return d.max().item() if d.numel() else 0.0
 
@@ -495,22 +544,273 @@ def phase_training(dev):
         "K>32 posteriors": lambda: ops.auto_forward_backward(
             torch.zeros(1, 4, big, device=dev), torch.zeros(big, big, device=dev),
             torch.zeros(big, device=dev)),
-        "D>1": lambda: ops.hsmm_smallk_forward(
+        "HSMM D>256": lambda: ops.hsmm_smallk_forward(
             torch.zeros(1, 4, S, device=dev), torch.zeros(S, S, device=dev),
-            torch.zeros(S, device=dev), torch.zeros(S, 2, device=dev)),
+            torch.zeros(S, device=dev), torch.zeros(S, ops.MAX_DURATION + 1, device=dev)),
         "mesh": lambda: layer.em_step(obs, mesh=object()),
     }
     for what, call in refusals.items():
         try:
             call()
-        except NotImplementedError:
+        except (NotImplementedError, ValueError):
             continue
-        raise SmokeFailure(f"{what} on CUDA did not raise NotImplementedError")
+        raise SmokeFailure(f"{what} on CUDA did not raise")
     return {"launches": launches, "errs": errs, "losses": losses, "lls": lls,
             "layer": layer, "em_layer": em_layer, "obs": obs, "lengths": lengths}
 
 
-def phase_timing(dev, gen, layer, obs, train):
+def _hsmm_cases(dev, gen):
+    """Inputs of the segment-DP kernel checks: ``(log_obs, log_a,
+    log_pi, log_dur, lengths)``; no self-transitions."""
+    import torch
+
+    def rand(b, t, k, d, lengths=None, min_duration=1):
+        lo = torch.randn(b, t, k, device=dev, generator=gen)
+        a = torch.rand(k, k, device=dev, generator=gen) + 0.1
+        a.fill_diagonal_(0.0)
+        la = torch.log(a / a.sum(-1, keepdim=True).clamp_min(1e-30))
+        lp = torch.log_softmax(torch.randn(k, device=dev, generator=gen), -1)
+        ld = torch.log_softmax(torch.randn(k, d, device=dev, generator=gen), -1)
+        ld[:, : min_duration - 1] = float("-inf")
+        ln = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+        return lo, la, lp, ld, ln
+
+    return {
+        "headline": rand(HB, HT, HS, HD),
+        "D=128": rand(4, 600, HS, 128),
+        "S=32": rand(8, 500, 32, HD),
+        "ragged": rand(5, 300, 9, 15, [300, 31, 164, 1, 129]),
+        "T<D": rand(3, 12, 5, HD),
+        "min_duration=3": rand(4, 300, HS, HD, min_duration=3),
+    }
+
+
+def phase_hsmm_kernels(dev, gen):
+    """The four segment-DP kernels vs their plain versions on the same
+    inputs; returns each one's max abs error at the headline shape (the
+    Viterbi's: of its scores) and the case names."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    worst = {}
+    cases = _hsmm_cases(dev, gen)
+    for name, (lo, la, lp, ld, ln) in cases.items():
+        st, sc = ops.hsmm_smallk_viterbi(lo, la, lp, ld, ln)
+        fb = ops.hsmm_smallk_fb(lo, la, lp, ld, ln)
+        fwd = ops.hsmm_smallk_forward_general(lo, la, lp, ld, ln)
+        bwd = ops.hsmm_smallk_backward_general(lo, la, ld, ln)
+        torch.cuda.synchronize(dev)
+        st0, sc0 = ops.hsmm_smallk_viterbi_reference(lo, la, lp, ld, ln)
+        alpha0, lz0, bstar0, bstart0 = ops.hsmm_smallk_fb_reference(lo, la, lp, ld, ln)
+        check(st.dtype == torch.int32 and st.shape == lo.shape[:2],
+              f"hsmm_smallk_viterbi {name}: states {st.dtype} {tuple(st.shape)}")
+        check(torch.equal(st, st0), f"hsmm_smallk_viterbi {name}: paths differ")
+        errs = {"hsmm_smallk_viterbi": (sc - sc0).abs().max().item()}
+        check(errs["hsmm_smallk_viterbi"] == 0.0,
+              f"hsmm_smallk_viterbi {name}: scores differ by {errs['hsmm_smallk_viterbi']}")
+        want_fb = (alpha0, lz0, bstar0, bstart0)
+        for kernel, got, want in (("hsmm_smallk_fb", fb, want_fb),
+                                  ("hsmm_smallk_forward_general", fwd, want_fb[:2]),
+                                  ("hsmm_smallk_backward_general", bwd, want_fb[2:])):
+            errs[kernel] = max(_sum_err(g, w, ln, HSMM_SUM_ATOL, HSMM_SUM_RTOL)
+                               for g, w in zip(got, want))
+            check(errs[kernel] != float("inf"), f"{kernel} {name}: disagrees with its plain version")
+        if name == "headline":
+            worst = errs
+    return worst, list(cases)
+
+
+def _segment_walk(means, b, t, seed):
+    """Observations ``(b, t, F)`` from segments of 2..HD frames, each of
+    a state other than the one before, and ragged lengths (one full row,
+    one of length 1). Each state's frames scatter around its mean moved
+    by half a unit per feature, so the model is near the data but not at
+    its optimum, where the mean gradients would be noise."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    n_states, n_feat = means.shape
+    centers = means.detach().cpu() + 0.5 * torch.randn(n_states, n_feat, generator=g)
+    states = torch.empty(b, t, dtype=torch.long)
+    for r in range(b):
+        s, u = int(torch.randint(0, n_states, (1,), generator=g)), 0
+        while u < t:
+            n = int(torch.randint(2, HD + 1, (1,), generator=g))
+            states[r, u:u + n] = s
+            u += n
+            s = (s + int(torch.randint(1, n_states, (1,), generator=g))) % n_states
+    obs = centers[states] + torch.randn(b, t, n_feat, generator=g)
+    lengths = torch.randint(1, t + 1, (b,), generator=g, dtype=torch.int32)
+    lengths[0], lengths[1] = t, 1
+    return obs.to(means.device).contiguous(), lengths.to(means.device)
+
+
+def _make_hsmm(dev, learnable_durations=True):
+    """``HSMMLayer`` at the bench row's width, random weights from the
+    seed, its means at unit scale so the states are told apart."""
+    import torch
+    from pytorch_hmm_tpu_torch import HSMMLayer
+
+    layer = HSMMLayer(HS, HF, max_duration=HD, learnable_duration_params=learnable_durations,
+                      generator=torch.Generator().manual_seed(SEED), device=dev)
+    with torch.no_grad():
+        layer.observation_means.copy_(
+            torch.randn(HS, HF, generator=torch.Generator().manual_seed(SEED + 5)))
+    return layer
+
+
+def _cpu_copy(model, cls, dtype=None, **kw):
+    ref = cls(**kw)
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if dtype is not None:
+        ref = ref.to(dtype)
+        state = {k: v.to(dtype) for k, v in state.items()}
+    ref.load_state_dict(state)
+    return ref
+
+
+def phase_duration_decode(dev):
+    """Decode through ``HSMMLayer.forward`` (unragged and ragged) and
+    ``SemiMarkovHMM.viterbi_decode`` on the card, count launches, and
+    check against the same models on the CPU."""
+    import torch
+    from pytorch_hmm_tpu_torch import HSMMLayer, SemiMarkovHMM, core, ops
+
+    hsmm = _make_hsmm(dev)
+    semi = SemiMarkovHMM(HS, HF, max_duration=HD, generator=torch.Generator().manual_seed(SEED),
+                         device=dev)
+    obs, lengths = _segment_walk(hsmm.observation_means, HB, HT, SEED + 2)
+    obs_s, _ = _segment_walk(semi.observation_means, SEMI_B, SEMI_T, SEED + 3)
+
+    reset_launches()
+    full = hsmm(obs)
+    ragged = hsmm(obs, lengths)
+    semi_path, _, semi_score = semi.viterbi_decode(obs_s)
+    torch.cuda.synchronize(dev)
+    launches = read_launches(DURATION_DECODE_KERNELS)
+    for name, n in launches.items():
+        check(n > 0, f"the duration-model decode never launched {name}")
+
+    kw = dict(num_states=HS, feature_dim=HF, max_duration=HD)
+    hsmm_cpu = _cpu_copy(hsmm, HSMMLayer, **kw)
+    semi_cpu = _cpu_copy(semi, SemiMarkovHMM, num_states=HS, observation_dim=HF, max_duration=HD)
+    obs_cpu, lengths_cpu = obs.cpu(), lengths.cpu()
+    ref_full = hsmm_cpu(obs_cpu)
+    ref_ragged = hsmm_cpu(obs_cpu, lengths_cpu)
+    ref_semi_path, _, ref_semi_score = semi_cpu.viterbi_decode(obs_s.cpu())
+    agreement = {}
+    for name, (st, sc), (rst, rsc), shape in [
+            ("HSMMLayer", full, ref_full, (HB, HT)),
+            ("HSMMLayer ragged", ragged, ref_ragged, (HB, HT)),
+            ("SemiMarkovHMM", (semi_path, semi_score), (ref_semi_path, ref_semi_score),
+             (SEMI_B, SEMI_T))]:
+        st, sc = st.cpu(), sc.cpu()
+        check(st.dtype == torch.int32 and st.shape == shape, f"{name}: states {st.dtype} {tuple(st.shape)}")
+        check(bool(torch.isfinite(sc).all()), f"{name}: scores not finite")
+        check(int(st.min()) >= 0 and int(st.max()) < HS, f"{name}: state out of range")
+        agreement[name] = (st == rst).float().mean().item()
+        check(agreement[name] >= 0.999, f"{name}: frame agreement {agreement[name]} < 0.999")
+        check(torch.allclose(sc, rsc, rtol=1e-5, atol=0.0),
+              f"{name}: scores differ, max rel {((sc - rsc).abs() / rsc.abs()).max().item()}")
+    st = ragged[0].cpu()
+    for b in range(HB):
+        n = int(lengths_cpu[b])
+        check(bool((st[b, n - 1:] == st[b, n - 1]).all()), f"HSMM row {b}: padding not repeated")
+    # The card's kernel on the CPU's log-obs gives the CPU's paths and
+    # scores, bit for bit.
+    with torch.no_grad():
+        args = hsmm_cpu._dp_args(obs_cpu)
+    for ln in (None, lengths_cpu):
+        rs, rc = core.hsmm_viterbi(*args, ln)
+        gs, gc = ops.hsmm_smallk_viterbi(*(a.to(dev).contiguous() for a in args),
+                                         None if ln is None else ln.to(dev))
+        check(torch.equal(gs.cpu(), rs), "card segment Viterbi on CPU log-obs: paths differ")
+        check(torch.equal(gc.cpu(), rc), "card segment Viterbi on CPU log-obs: scores differ")
+    return {"hsmm": hsmm, "obs": obs, "lengths": lengths, "launches": launches,
+            "agreement": agreement}
+
+
+def phase_duration_training(dev, obs, lengths):
+    """Posteriors, ``compute_loss`` gradients and ``em_step`` of
+    ``HSMMLayer`` on the card vs the same layer on the CPU in float64."""
+    import torch
+    from pytorch_hmm_tpu_torch import HSMMLayer
+
+    kw = dict(num_states=HS, feature_dim=HF, max_duration=HD)
+    layer = _make_hsmm(dev)
+    ref = _cpu_copy(layer, HSMMLayer, torch.float64, **kw)
+    obs64, lengths_cpu = obs.cpu().double(), lengths.cpu()
+    valid = torch.arange(HT)[None, :] < lengths_cpu[:, None]
+    errs, fails = {}, []
+
+    def bound(key, err, limit):
+        errs[key] = err
+        if not err <= limit:
+            fails.append(f"{key} off by {err:.3g} (limit {limit})")
+
+    reset_launches()
+    for tag, ln, ln_cpu in (("unragged", None, None), ("ragged", lengths, lengths_cpu)):
+        post = layer.posteriors(obs, ln)
+        want = ref.posteriors(obs64, ln_cpu)
+        gamma = post["gamma"].cpu()
+        rows = gamma.sum(-1)
+        on = valid if ln is not None else torch.ones_like(valid)
+        check(bool(((rows[on] - 1.0).abs() <= 1e-5).all()), f"posteriors {tag}: gamma rows do not sum to 1")
+        for key in ("gamma", "segment_end", "segment_start"):
+            bound(f"{key} {tag}", (post[key].cpu().double() - want[key]).abs().max().item(),
+                  HSMM_POST_ATOL)
+        bound(f"log_z {tag}", ((post["log_z"].cpu().double() - want["log_z"]).abs()
+                               / want["log_z"].abs()).max().item(), LOSS_RTOL)
+
+        layer.zero_grad()
+        ref.zero_grad()
+        loss = layer.compute_loss(obs, ln)
+        loss.backward()
+        ref_loss = ref.compute_loss(obs64, ln_cpu)
+        ref_loss.backward()
+        bound(f"loss {tag}", abs(loss.item() - ref_loss.item()) / abs(ref_loss.item()), LOSS_RTOL)
+        for (name, p), (_, q) in zip(layer.named_parameters(), ref.named_parameters()):
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                  f"HSMM {tag}: gradient of {name} missing or not finite")
+            bound(f"d{name} {tag}", _grad_err(p.grad.cpu(), q.grad), HSMM_GRAD_RTOL)
+
+    em_layer = _make_hsmm(dev)
+    em_ref = _cpu_copy(em_layer, HSMMLayer, torch.float64, **kw)
+    ll = em_layer.em_step(obs).item()
+    ref_ll = em_ref.em_step(obs64).item()
+    bound("em ll", abs(ll - ref_ll) / abs(ref_ll), LOSS_RTOL)
+    for (name, p), (_, q) in zip(em_layer.named_parameters(), em_ref.named_parameters()):
+        p, q = p.detach().cpu(), q.detach()
+        if name == "transition_logits":
+            # The diagonal is log(0) by design; log of near-zero
+            # probabilities is all rounding, so compare probabilities.
+            off = ~torch.eye(HS, dtype=torch.bool)
+            check(bool(torch.isfinite(p[off]).all()), f"HSMM em_step: {name} not finite")
+            p, q = torch.softmax(p, -1), torch.softmax(q, -1)
+        elif name == "observation_log_vars":
+            # Unit-variance data puts the log-variances near 0, where an
+            # error relative to the largest is meaningless: compare the
+            # variances.
+            p, q = torch.exp(p), torch.exp(q)
+        check(bool(torch.isfinite(p).all()), f"HSMM em_step: {name} not finite")
+        bound(f"em {name}", _grad_err(p, q), HSMM_EM_RTOL)
+    check(not fails, "duration-model training vs CPU float64: " + "; ".join(fails)
+          + f" (all: {errs})")
+    # Five steps on fixed durations: the duration update matches moments,
+    # which is no exact maximization, so only the emission and transition
+    # updates make EM monotone.
+    mono = _make_hsmm(dev, learnable_durations=False)
+    lls = [mono.em_step(obs).item() for _ in range(EM_STEPS)]
+    torch.cuda.synchronize(dev)
+    launches = read_launches(DURATION_TRAINING_KERNELS)
+    for name, n in launches.items():
+        check(n > 0, f"the duration-model training path never launched {name}")
+    for a, b in zip(lls, lls[1:]):
+        check(b >= a - LL_SLACK * abs(a), f"HSMM em_step: log-likelihood fell: {lls}")
+    return {"launches": launches, "errs": errs, "lls": lls, "layer": layer, "em_layer": em_layer}
+
+
+def phase_timing(dev, gen, layer, obs, train, dur, dur_train):
     import torch
     from pytorch_hmm_tpu_torch import ops
 
@@ -530,7 +830,34 @@ def phase_timing(dev, gen, layer, obs, train):
         tl.zero_grad()
         tl.compute_loss(tobs).backward()
 
+    hsmm, hobs = dur["hsmm"], dur["obs"]
+    with torch.no_grad():
+        hlo, hla, hlp, hld = (t.contiguous() for t in hsmm._dp_args(hobs))
+    hl = dur_train["layer"]
+
+    def hsmm_step():
+        hl.zero_grad()
+        hl.compute_loss(hobs).backward()
+
     return {
+        "hsmm_smallk_viterbi": (
+            cuda_median_ms(lambda: ops.hsmm_smallk_viterbi(hlo, hla, hlp, hld)),
+            cuda_median_ms(lambda: ops.hsmm_smallk_viterbi_reference(hlo, hla, hlp, hld), **slow)),
+        "hsmm_smallk_fb": (
+            cuda_median_ms(lambda: ops.hsmm_smallk_fb(hlo, hla, hlp, hld)),
+            cuda_median_ms(lambda: ops.hsmm_smallk_fb_reference(hlo, hla, hlp, hld), **slow)),
+        "hsmm_smallk_forward_general": (
+            cuda_median_ms(lambda: ops.hsmm_smallk_forward_general(hlo, hla, hlp, hld)),
+            cuda_median_ms(lambda: ops.hsmm_smallk_forward_general_reference(hlo, hla, hlp, hld),
+                           **slow)),
+        "hsmm_smallk_backward_general": (
+            cuda_median_ms(lambda: ops.hsmm_smallk_backward_general(hlo, hla, hld)),
+            cuda_median_ms(lambda: ops.hsmm_smallk_backward_general_reference(hlo, hla, hld),
+                           **slow)),
+        "HSMM decode": cuda_median_ms(lambda: hsmm(hobs)),
+        "HSMM posteriors": cuda_median_ms(lambda: hsmm.posteriors(hobs)),
+        "HSMM compute_loss step": cuda_median_ms(hsmm_step),
+        "HSMM em_step": cuda_median_ms(lambda: dur_train["em_layer"].em_step(hobs)),
         "diag_quadratic": (cuda_median_ms(lambda: ops.diag_quadratic(x, wq, wl, bias)),
                            cuda_median_ms(lambda: ops.diag_quadratic_reference(x, wq, wl, bias))),
         "smallk_viterbi": (cuda_median_ms(lambda: ops.smallk_viterbi(lo, la, lp)),
@@ -598,18 +925,47 @@ def main() -> int:
           + ", ".join(f"{k}: {v:.3g}" for k, v in train["errs"].items())
           + f" (loss/ll rtol {LOSS_RTOL}, grad rtol {GRAD_RTOL}, EM rtol {EM_RTOL})", flush=True)
 
-    times = phase_timing(dev, gen, layer, obs, train)
+    hsmm_errs, hsmm_cases = phase_hsmm_kernels(dev, gen)
+    print(f"hsmm_smallk_viterbi vs plain: ok, paths and scores identical on {len(hsmm_cases)} "
+          f"cases ({', '.join(hsmm_cases)}); headline max abs score err "
+          f"{hsmm_errs['hsmm_smallk_viterbi']:.3g}", flush=True)
+    print("hsmm_smallk_fb, hsmm_smallk_forward/backward_general vs plain: ok on the same cases; "
+          "headline max abs err " + ", ".join(f"{k}: {v:.3g}" for k, v in hsmm_errs.items()
+                                              if k != "hsmm_smallk_viterbi")
+          + f" (atol {HSMM_SUM_ATOL} + rtol {HSMM_SUM_RTOL})", flush=True)
+
+    dur = phase_duration_decode(dev)
+    print(f"duration-model decode (HSMMLayer B={HB}, T={HT}, S={HS}, D={HD}, F={HF}; "
+          f"SemiMarkovHMM B={SEMI_B}, T={SEMI_T}): ok, launches {dur['launches']}, "
+          f"frame agreement with CPU {dur['agreement']}", flush=True)
+
+    dur_train = phase_duration_training(dev, dur["obs"], dur["lengths"])
+    print(f"duration-model training (HSMMLayer B={HB}, T={HT}, S={HS}, D={HD}, F={HF}): ok, "
+          f"launches {dur_train['launches']}, em_step log-likelihoods {dur_train['lls']}", flush=True)
+    print("duration-model posteriors and training vs CPU float64 (posteriors max abs; gradients "
+          "and EM relative to each tensor's max): "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in dur_train["errs"].items())
+          + f" (posteriors atol {HSMM_POST_ATOL}, grad rtol {HSMM_GRAD_RTOL}, "
+          f"EM rtol {HSMM_EM_RTOL})", flush=True)
+
+    times = phase_timing(dev, gen, layer, obs, train, dur, dur_train)
     for name in KERNELS:
         ms, plain = times[name]
         print(f"timing {name}: {ms:.4f} ms kernel, {plain:.4f} ms plain torch "
               f"(median, CUDA events) on {card}", flush=True)
-    for name, what in (("decode", "request"), ("compute_loss step", "forward+backward"),
-                       ("em_step", "step")):
-        print(f"timing {name}: {times[name]:.4f} ms per {what} of {B}x{T} frames "
+    for name, what, shape in (
+            ("decode", "request", (B, T)), ("compute_loss step", "forward+backward", (B, T)),
+            ("em_step", "step", (B, T)), ("HSMM decode", "request", (HB, HT)),
+            ("HSMM posteriors", "call", (HB, HT)),
+            ("HSMM compute_loss step", "forward+backward", (HB, HT)),
+            ("HSMM em_step", "step", (HB, HT))):
+        print(f"timing {name}: {times[name]:.4f} ms per {what} of {shape[0]}x{shape[1]} frames "
               f"(median of {TIMED_RUNS}, CUDA events) on {card}", flush=True)
 
-    errs = {"diag_quadratic": dq_errs[(B, T, D, S * C)], "smallk_viterbi": vit_err, **sum_errs}
-    launches = {name: dec_launches.get(name, 0) + train["launches"].get(name, 0)
+    errs = {"diag_quadratic": dq_errs[(B, T, D, S * C)], "smallk_viterbi": vit_err, **sum_errs,
+            **hsmm_errs}
+    launches = {name: sum(run.get(name, 0) for run in (dec_launches, train["launches"],
+                                                       dur["launches"], dur_train["launches"]))
                 for name in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],

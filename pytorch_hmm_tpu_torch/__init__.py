@@ -3,12 +3,15 @@
 The PyTorch port of ``pytorch_hmm_tpu``. Plain tensor code is torch; the
 JAX package's Pallas kernels become CUDA C++ kernels written for Hopper
 (``csrc/``), built with ``nvcc`` at first use (``ops/_build.py``). So far
-the port covers the GMM-HMM decode and training paths:
-``MixtureGaussianHMMLayer`` with diag, tied or spherical covariances, its
-emission scoring, Viterbi trellis, differentiable likelihood
-(``compute_loss``) and Baum-Welch ``em_step``, over the ``core``
-forward-backward recursions. On CPU tensors everything runs as plain
-torch.
+the port covers the GMM-HMM decode and training paths
+(``MixtureGaussianHMMLayer`` with diag, tied or spherical covariances,
+its emission scoring, Viterbi trellis, differentiable likelihood
+``compute_loss`` and Baum-Welch ``em_step``, over the ``core``
+forward-backward recursions) and the duration models (``HSMMLayer``,
+``DurationConstrainedHMM``, ``DurationModel``, ``SemiMarkovHMM``,
+``AdaptiveDurationHSMM``: decode, likelihood, posteriors, EM and
+sampling over the ``core.hsmm`` segment DP). On CPU tensors everything
+runs as plain torch.
 
 Importing the package imports neither JAX nor Triton and builds nothing.
 """
@@ -17,19 +20,42 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
-from . import bridge, core, emissions, models, ops, precision
-from .core import backward_log, forward_backward, forward_log, log_likelihood, viterbi
+from . import bridge, core, durations, emissions, models, ops, precision
+from .core import (
+    backward_log,
+    forward_backward,
+    forward_log,
+    hsmm_backward,
+    hsmm_forward,
+    hsmm_log_z,
+    hsmm_posteriors,
+    hsmm_viterbi,
+    log_likelihood,
+    viterbi,
+)
 from .emissions import (
     diag_gaussian_log_probs,
     gmm_component_log_probs,
     gmm_log_probs,
     spherical_gaussian_log_probs,
 )
-from .models import MixtureGaussianHMMLayer, PreparedGMMDecoder
+from .models import (
+    AdaptiveDurationHSMM,
+    DurationConstrainedHMM,
+    DurationModel,
+    HSMMLayer,
+    MixtureGaussianHMMLayer,
+    PreparedGMMDecoder,
+    SemiMarkovHMM,
+)
 from .ops import (
     auto_forward,
     auto_forward_backward,
     auto_gmm_viterbi,
+    auto_hsmm_forward,
+    auto_hsmm_log_z,
+    auto_hsmm_posteriors,
+    auto_hsmm_viterbi,
     auto_log_likelihood,
     auto_viterbi,
 )
@@ -37,6 +63,7 @@ from .ops import (
 __all__ = [
     "bridge",
     "core",
+    "durations",
     "emissions",
     "models",
     "ops",
@@ -46,15 +73,29 @@ __all__ = [
     "backward_log",
     "forward_backward",
     "log_likelihood",
+    "hsmm_backward",
+    "hsmm_forward",
+    "hsmm_log_z",
+    "hsmm_posteriors",
+    "hsmm_viterbi",
     "diag_gaussian_log_probs",
     "gmm_component_log_probs",
     "gmm_log_probs",
     "spherical_gaussian_log_probs",
+    "AdaptiveDurationHSMM",
+    "DurationConstrainedHMM",
+    "DurationModel",
+    "HSMMLayer",
     "MixtureGaussianHMMLayer",
     "PreparedGMMDecoder",
+    "SemiMarkovHMM",
     "auto_forward",
     "auto_forward_backward",
     "auto_gmm_viterbi",
+    "auto_hsmm_forward",
+    "auto_hsmm_log_z",
+    "auto_hsmm_posteriors",
+    "auto_hsmm_viterbi",
     "auto_log_likelihood",
     "auto_viterbi",
 ]

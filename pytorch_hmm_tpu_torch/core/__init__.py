@@ -7,6 +7,15 @@ from .fb import (
     log_likelihood,
     xi_expectations,
 )
+from .hsmm import (
+    hsmm_backward,
+    hsmm_forward,
+    hsmm_grads_from_tables,
+    hsmm_log_z,
+    hsmm_posteriors,
+    hsmm_posteriors_from_tables,
+    hsmm_viterbi,
+)
 from .semiring import (
     LOG_ZERO,
     log_matmul,
@@ -36,4 +45,11 @@ __all__ = [
     "log_likelihood",
     "xi_expectations",
     "viterbi",
+    "hsmm_backward",
+    "hsmm_forward",
+    "hsmm_grads_from_tables",
+    "hsmm_log_z",
+    "hsmm_posteriors",
+    "hsmm_posteriors_from_tables",
+    "hsmm_viterbi",
 ]

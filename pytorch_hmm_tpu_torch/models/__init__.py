@@ -5,6 +5,16 @@ no counterpart here: ``nn.Module.register_buffer`` and
 ``nn.Module.train()`` / ``eval()`` already do its job.
 """
 
+from .hsmm import DurationConstrainedHMM, HSMMLayer
 from .mixture_gaussian import MixtureGaussianHMMLayer, PreparedGMMDecoder
+from .semi_markov import AdaptiveDurationHSMM, DurationModel, SemiMarkovHMM
 
-__all__ = ["MixtureGaussianHMMLayer", "PreparedGMMDecoder"]
+__all__ = [
+    "AdaptiveDurationHSMM",
+    "DurationConstrainedHMM",
+    "DurationModel",
+    "HSMMLayer",
+    "MixtureGaussianHMMLayer",
+    "PreparedGMMDecoder",
+    "SemiMarkovHMM",
+]

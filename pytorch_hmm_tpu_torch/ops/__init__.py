@@ -13,6 +13,13 @@ path, as the backend does in the JAX package:
   prob-space kernels are TPU matters. A CUDA case this package has no
   kernel for yet raises ``NotImplementedError`` naming its ROADMAP item;
   it never falls back to the plain torch path.
+* The duration models' segment DP (``auto_hsmm_viterbi``,
+  ``auto_hsmm_log_z``, ``auto_hsmm_posteriors``): CUDA tensors with
+  S ≤ 32 states and D ≤ 256 durations run the ``hsmm_smallk`` kernels,
+  the sum chains on max-shifted emissions. Larger shapes, which the JAX
+  package never gives a kernel either, run the plain ``core.hsmm_*`` on
+  the tensors' own device; a shape the kernels take never lands there
+  because a build or launch failed, which raises.
 * CPU tensors run the plain torch versions (``core``).
 """
 
@@ -26,11 +33,20 @@ from .. import core
 from .emit import diag_quadratic, diag_quadratic_reference
 from .fbsum import fbsum_smallk, fbsum_smallk_reference, fbsum_supported
 from .hsmm_smallk import (
+    MAX_DURATION,
     hsmm_smallk_backward,
+    hsmm_smallk_backward_general,
+    hsmm_smallk_backward_general_reference,
     hsmm_smallk_backward_reference,
+    hsmm_smallk_fb,
+    hsmm_smallk_fb_reference,
     hsmm_smallk_forward,
+    hsmm_smallk_forward_general,
+    hsmm_smallk_forward_general_reference,
     hsmm_smallk_forward_reference,
     hsmm_smallk_supported,
+    hsmm_smallk_viterbi,
+    hsmm_smallk_viterbi_reference,
 )
 from .smallk import (
     MAX_SMALLK,
@@ -45,6 +61,11 @@ __all__ = [
     "auto_log_likelihood",
     "auto_viterbi",
     "auto_gmm_viterbi",
+    "auto_hsmm_forward",
+    "auto_hsmm_log_z",
+    "auto_hsmm_posteriors",
+    "auto_hsmm_viterbi",
+    "pallas_hsmm_log_z",
     "pallas_log_likelihood",
     "diag_quadratic",
     "diag_quadratic_reference",
@@ -52,10 +73,19 @@ __all__ = [
     "fbsum_smallk_reference",
     "fbsum_supported",
     "hsmm_smallk_backward",
+    "hsmm_smallk_backward_general",
+    "hsmm_smallk_backward_general_reference",
     "hsmm_smallk_backward_reference",
+    "hsmm_smallk_fb",
+    "hsmm_smallk_fb_reference",
     "hsmm_smallk_forward",
+    "hsmm_smallk_forward_general",
+    "hsmm_smallk_forward_general_reference",
     "hsmm_smallk_forward_reference",
     "hsmm_smallk_supported",
+    "hsmm_smallk_viterbi",
+    "hsmm_smallk_viterbi_reference",
+    "MAX_DURATION",
     "smallk_viterbi",
     "smallk_viterbi_reference",
     "smallk_supported",
@@ -329,3 +359,107 @@ def auto_gmm_viterbi(
         raise _unported_trellis(S)
     log_obs = gmm_log_probs(obs, means, cov_params, log_w, covariance_type)
     return auto_viterbi(log_obs, log_a, log_pi, lengths)
+
+
+# -- duration models ------------------------------------------------------------
+
+
+def _hsmm_kernel_route(log_obs: torch.Tensor, log_dur: torch.Tensor) -> bool:
+    """True when the segment DP goes to the ``hsmm_smallk`` kernels: any
+    device but the CPU (CUDA, or a device the kernels then refuse), with
+    a shape the kernels take."""
+    B, _, S = log_obs.shape
+    return log_obs.device.type != "cpu" and hsmm_smallk_supported(S, log_dur.shape[-1], B)
+
+
+class _HSMMLogZ(torch.autograd.Function):
+    """HSMM ``log Z (B,)``, ragged when ``lengths`` is given, with the
+    closed-form posterior-expectation cotangents. Forward: the forward
+    sum kernel; backward: the backward sum kernel, then
+    ``core.hsmm_grads_from_tables`` in plain torch. Both chains run on
+    emissions shifted by each frame's max (:func:`_frame_shift`): every
+    segmentation emits each frame once, so the shift moves log Z by its
+    sum and cancels from every posterior, and the chains stay at O(1e3)
+    where raw ones reach O(1e5)."""
+
+    @staticmethod
+    def forward(ctx, log_obs, log_a, log_pi, log_dur, lengths):
+        shift = _frame_shift(log_obs, lengths)
+        lo_hat = (log_obs - shift).contiguous()
+        alpha_hat, lz_hat = hsmm_smallk_forward(lo_hat, log_a, log_pi, log_dur, lengths)
+        ctx.save_for_backward(lo_hat, log_a, log_pi, log_dur, lengths, alpha_hat, lz_hat)
+        return lz_hat + shift.sum(dim=(1, 2))
+
+    @staticmethod
+    def backward(ctx, g):
+        lo_hat, log_a, log_pi, log_dur, lengths, alpha_hat, lz_hat = ctx.saved_tensors
+        bstar, bstart = hsmm_smallk_backward(lo_hat, log_a, log_dur, lengths)
+        grads = core.hsmm_grads_from_tables(lo_hat, log_a, log_pi, log_dur, alpha_hat,
+                                            bstar, bstart, lz_hat, lengths, g.contiguous())
+        return (*grads, None)
+
+
+def pallas_hsmm_log_z(log_obs, log_a, log_pi, log_dur):
+    """Differentiable HSMM log-likelihood ``(B,)`` on the forward and
+    backward sum kernels (their plain versions on CPU tensors)."""
+    return _HSMMLogZ.apply(log_obs, log_a, log_pi, log_dur, None)
+
+
+def _pallas_hsmm_lz_masked(log_obs, log_a, log_pi, log_dur, lengths):
+    """Ragged twin of :func:`pallas_hsmm_log_z`; ``lengths`` is int32
+    ``(B,)`` on the tensors' device."""
+    return _HSMMLogZ.apply(log_obs, log_a, log_pi, log_dur, lengths)
+
+
+def auto_hsmm_log_z(log_obs, log_a, log_pi, log_dur, lengths=None):
+    """Differentiable HSMM log-likelihood ``(B,)``: the sum kernels with
+    closed-form cotangents (:class:`_HSMMLogZ`) on the kernel route,
+    ``core.hsmm_log_z`` elsewhere."""
+    if not _hsmm_kernel_route(log_obs, log_dur):
+        return core.hsmm_log_z(log_obs, log_a, log_pi, log_dur, lengths)
+    args = _f32(log_obs, log_a, log_pi, log_dur)
+    if lengths is None:
+        return pallas_hsmm_log_z(*args)
+    return _pallas_hsmm_lz_masked(*args, _lengths_on(lengths, log_obs.device))
+
+
+def auto_hsmm_forward(log_obs, log_a, log_pi, log_dur, lengths=None):
+    """HSMM forward tables ``(log_alpha_star (B, T, S), log_z (B,))`` on
+    the raw emissions: ``hsmm_smallk_forward`` on the kernel route (no
+    gradient), ``core.hsmm_forward`` elsewhere."""
+    if not _hsmm_kernel_route(log_obs, log_dur):
+        return core.hsmm_forward(log_obs, log_a, log_pi, log_dur, lengths)
+    with torch.no_grad():
+        return hsmm_smallk_forward(*_f32(log_obs, log_a, log_pi, log_dur),
+                                   _lengths_on(lengths, log_obs.device))
+
+
+def auto_hsmm_posteriors(log_obs, log_a, log_pi, log_dur, lengths=None) -> dict:
+    """Exact HSMM posteriors (``gamma``, ``segment_end``,
+    ``segment_start``, ``log_z``; see ``core.hsmm_posteriors``). On the
+    kernel route one ``hsmm_smallk_fb`` launch, ragged or not, on
+    max-shifted emissions, then ``core.hsmm_posteriors_from_tables``;
+    the shift's sum is added back to ``log_z``. The kernel route records
+    no gradient."""
+    if not _hsmm_kernel_route(log_obs, log_dur):
+        return core.hsmm_posteriors(log_obs, log_a, log_pi, log_dur, lengths)
+    with torch.no_grad():
+        lo, la, lp, ld = _f32(log_obs, log_a, log_pi, log_dur)
+        ln = _lengths_on(lengths, lo.device)
+        shift = _frame_shift(lo, ln)
+        alpha, lz_hat, bstar, bstart = hsmm_smallk_fb((lo - shift).contiguous(), la, lp, ld, ln)
+        post = core.hsmm_posteriors_from_tables(la, lp, alpha, bstar, bstart, lz_hat, ln)
+        post["log_z"] = lz_hat + shift.sum(dim=(1, 2))
+    return post
+
+
+def auto_hsmm_viterbi(log_obs, log_a, log_pi, log_dur, lengths=None):
+    """HSMM Viterbi segmentation ``(states (B, T) int32, score (B,))``:
+    ``hsmm_smallk_viterbi`` on the kernel route, ``core.hsmm_viterbi``
+    elsewhere. Paths and scores are identical on both, tie-breaks
+    included."""
+    if not _hsmm_kernel_route(log_obs, log_dur):
+        return core.hsmm_viterbi(log_obs, log_a, log_pi, log_dur, lengths)
+    with torch.no_grad():
+        return hsmm_smallk_viterbi(*_f32(log_obs, log_a, log_pi, log_dur),
+                                   _lengths_on(lengths, log_obs.device))

@@ -37,10 +37,14 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
     expected = {
         "pytorch_hmm_tpu_torch.bridge",
         "pytorch_hmm_tpu_torch.core.fb",
+        "pytorch_hmm_tpu_torch.core.hsmm",
         "pytorch_hmm_tpu_torch.core.semiring",
         "pytorch_hmm_tpu_torch.core.viterbi",
+        "pytorch_hmm_tpu_torch.durations",
         "pytorch_hmm_tpu_torch.emissions",
+        "pytorch_hmm_tpu_torch.models.hsmm",
         "pytorch_hmm_tpu_torch.models.mixture_gaussian",
+        "pytorch_hmm_tpu_torch.models.semi_markov",
         "pytorch_hmm_tpu_torch.ops._build",
         "pytorch_hmm_tpu_torch.ops.emit",
         "pytorch_hmm_tpu_torch.ops.fbsum",
@@ -54,12 +58,13 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
 def test_port_never_names_jax_in_its_sources():
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(repo_root, "pytorch_hmm_tpu_torch")
-    offenders = []
+    offenders, seen = [], set()
     for dirpath, _dirs, files in os.walk(pkg):
         for fn in files:
             if not fn.endswith(".py"):
                 continue
             path = os.path.join(dirpath, fn)
+            seen.add(os.path.relpath(path, pkg))
             with open(path) as f:
                 for lineno, line in enumerate(f, 1):
                     words = line.split()
@@ -69,3 +74,9 @@ def test_port_never_names_jax_in_its_sources():
                     ):
                         offenders.append(f"{path}:{lineno}: {line.strip()}")
     assert not offenders, "\n".join(offenders)
+    # The scan reaches every kernel source's wrapper module.
+    wrappers = {"diag_quadratic": "emit.py", "smallk_viterbi": "smallk.py",
+                "smallk_sum": "hsmm_smallk.py", "hsmm_smallk": "hsmm_smallk.py"}
+    sources = {fn[:-3] for fn in os.listdir(os.path.join(pkg, "csrc")) if fn.endswith(".cu")}
+    assert sources == set(wrappers)
+    assert {os.path.join("ops", w) for w in wrappers.values()} <= seen

@@ -1,9 +1,18 @@
-"""``hsmm_smallk_forward`` / ``hsmm_smallk_backward`` port at duration
-D = 1: the plain versions vs the JAX Pallas kernels in interpret mode,
-with a non-zero ``log_dur[:, 0]`` and ragged lengths; atol 2e-4 (the
-JAX kernel tests' tolerance), valid frames only when ragged. D > 1 is
-not ported and must raise on any device. The CUDA kernels are checked
-against the same plain versions on the card by ``chip_smoke.py``.
+"""The ``hsmm_smallk`` kernels' plain versions vs the JAX Pallas kernels
+in interpret mode.
+
+* D = 1 (``hsmm_smallk_forward`` / ``backward`` on the HMM recursions),
+  with a non-zero ``log_dur[:, 0]`` and ragged lengths: atol 2e-4, the
+  JAX kernel tests' tolerance (``tests/test_ops_fbsum.py``).
+* General D, all four kernels (forward, backward, fb, Viterbi), with
+  and without lengths, T < D, ``min_duration`` > 1, S = 1 and S = 32:
+  the sum tables within atol 5e-4, the JAX kernel tests' own
+  (``tests/test_ops_hsmm.py``); Viterbi paths identical and scores
+  equal.
+
+Tables are compared on valid frames only when ragged. The CUDA kernels
+are checked against the same plain versions on the card by
+``chip_smoke.py``.
 """
 
 import jax.numpy as jnp
@@ -12,14 +21,23 @@ import pytest
 import torch
 
 from pytorch_hmm_tpu.ops.hsmm_smallk import hsmm_smallk_backward as jax_backward
+from pytorch_hmm_tpu.ops.hsmm_smallk import hsmm_smallk_fb as jax_fb
 from pytorch_hmm_tpu.ops.hsmm_smallk import hsmm_smallk_forward as jax_forward
+from pytorch_hmm_tpu.ops.hsmm_smallk import hsmm_smallk_viterbi as jax_viterbi
 from pytorch_hmm_tpu_torch import ops
 from pytorch_hmm_tpu_torch.ops.hsmm_smallk import (
+    MAX_DURATION,
     hsmm_smallk_backward,
+    hsmm_smallk_backward_general,
     hsmm_smallk_backward_reference,
+    hsmm_smallk_fb,
+    hsmm_smallk_fb_reference,
     hsmm_smallk_forward,
+    hsmm_smallk_forward_general,
     hsmm_smallk_forward_reference,
     hsmm_smallk_supported,
+    hsmm_smallk_viterbi,
+    hsmm_smallk_viterbi_reference,
 )
 
 ATOL = 2e-4
@@ -85,15 +103,25 @@ def test_unit_durations_are_the_hmm_recursions():
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
-def test_duration_above_one_raises_on_any_device(device):
-    """General D (ROADMAP queue 1 item 6) raises before any work, on the
-    CPU as on CUDA."""
-    lo, la, lp = (torch.zeros(s, device=device) for s in ((2, 10, 4), (4, 4), (4,)))
-    ld2 = torch.zeros(4, 2, device=device)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        hsmm_smallk_forward(lo, la, lp, ld2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        hsmm_smallk_backward(lo, la, ld2)
+def test_duration_above_one_routes_to_the_general_kernels(device):
+    """D > 1 goes to the general-D wrappers: on the CPU their plain
+    versions (``core.hsmm``), elsewhere the CUDA kernels, which refuse a
+    device that is not CUDA before any work."""
+    shapes = ((2, 10, 4), (4, 4), (4,), (4, 3))
+    if device == "meta":
+        lo, la, lp, ld = (torch.zeros(s, device=device) for s in shapes)
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            hsmm_smallk_forward(lo, la, lp, ld)
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            hsmm_smallk_backward(lo, la, ld)
+        return
+    lo, la, lp, ld = (torch.from_numpy(x) for x in _segment_problem(2, 10, 4, 3, seed=3))
+    from pytorch_hmm_tpu_torch import core
+
+    for g, w in zip(hsmm_smallk_forward(lo, la, lp, ld), core.hsmm_forward(lo, la, lp, ld)):
+        assert torch.equal(g, w)
+    for g, w in zip(hsmm_smallk_backward(lo, la, ld), core.hsmm_backward(lo, la, ld)):
+        assert torch.equal(g, w)
 
 
 def test_wrappers_on_cpu_run_plain_versions_without_launching():
@@ -121,9 +149,14 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
 
 
 def test_hsmm_smallk_supported_bounds():
+    """The card's own limits: S <= 32, D <= 256 (the shared-memory rings),
+    any batch; the TPU's B <= 256 and VMEM budget do not carry over."""
     assert hsmm_smallk_supported(1, 1, 1) and hsmm_smallk_supported(32, 1, 4096)
+    assert hsmm_smallk_supported(10, 20, 32) and hsmm_smallk_supported(12, 128, 10_000)
+    assert hsmm_smallk_supported(32, MAX_DURATION, 1) and MAX_DURATION >= 128
     assert not hsmm_smallk_supported(33, 1, 1)
-    assert not hsmm_smallk_supported(12, 2, 32)
+    assert not hsmm_smallk_supported(12, MAX_DURATION + 1, 32)
+    assert not hsmm_smallk_supported(12, 0, 32)
 
 
 def test_auto_forward_freezes_alpha_past_each_rows_end():
@@ -152,3 +185,125 @@ def test_freeze_fill_gives_the_frozen_scan():
     running, _ = core.forward_log(lo, la, lp)
     frozen, _ = core.forward_log(lo, la, lp, lens)
     assert torch.equal(ops._freeze_past_end(running, lens), frozen)
+
+
+# -- general D: the four segment-DP kernels ---------------------------------------
+
+SEG_ATOL = 5e-4
+
+
+def _segment_problem(B, T, S, D, seed, min_duration=1):
+    rng = np.random.default_rng(seed)
+    lo = rng.normal(size=(B, T, S)).astype(np.float32)
+    a = rng.dirichlet(np.ones(S), size=S)
+    np.fill_diagonal(a, 0.0)
+    a = a / np.maximum(a.sum(axis=1, keepdims=True), 1e-30)
+    la = np.log(a + 1e-12).astype(np.float32)
+    lp = np.log(rng.dirichlet(np.ones(S))).astype(np.float32)
+    ld = np.log(rng.dirichlet(np.ones(D), size=S) + 1e-12)
+    if min_duration > 1:
+        ld[:, : min_duration - 1] = -np.inf
+    return lo, la, lp, ld.astype(np.float32)
+
+
+SEG_CASES = {
+    "basic": ((3, 40, 5, 7), {}, None),
+    "ragged": ((4, 36, 6, 9), {}, [36, 20, 2, 1]),
+    "T<D": ((2, 9, 3, 20), {}, None),
+    "min_duration=3": ((3, 30, 5, 8), {"min_duration": 3}, [30, 11, 4]),
+    "S=1": ((2, 8, 1, 10), {}, None),
+    "S=32": ((2, 24, 32, 6), {}, None),
+}
+
+
+def _seg_case(name):
+    shape, kw, lens = SEG_CASES[name]
+    arrays = _segment_problem(*shape, seed=sum(shape), **kw)
+    jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+    tl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    return arrays, lens, jl, tl
+
+
+def _close_on_valid(got, want, lens):
+    want = np.asarray(want)
+    for b, n in enumerate(_frames(lens, got.shape[0], got.shape[1])):
+        np.testing.assert_allclose(got[b, :n].numpy(), want[b, :n], atol=SEG_ATOL)
+
+
+@pytest.mark.parametrize("case", sorted(SEG_CASES))
+def test_general_forward_and_backward_match_jax_kernels(case):
+    (lo, la, lp, ld), lens, jl, tl = _seg_case(case)
+    a_j, z_j = jax_forward(*(jnp.asarray(x) for x in (lo, la, lp, ld)), jl)
+    a_t, z_t = hsmm_smallk_forward_general(*(torch.from_numpy(x) for x in (lo, la, lp, ld)), tl)
+    np.testing.assert_allclose(z_t.numpy(), np.asarray(z_j), atol=SEG_ATOL)
+    _close_on_valid(a_t, a_j, lens)
+    bs_j, bt_j = jax_backward(*(jnp.asarray(x) for x in (lo, la, ld)), jl)
+    bs_t, bt_t = hsmm_smallk_backward_general(*(torch.from_numpy(x) for x in (lo, la, ld)), tl)
+    _close_on_valid(bs_t, bs_j, lens)
+    _close_on_valid(bt_t, bt_j, lens)
+
+
+@pytest.mark.parametrize("case", sorted(SEG_CASES))
+def test_fb_matches_jax_kernels(case):
+    """Unragged against the JAX fused kernel; ragged (which the JAX fb
+    does not take) against the JAX forward and backward kernels."""
+    (lo, la, lp, ld), lens, jl, tl = _seg_case(case)
+    got = hsmm_smallk_fb(*(torch.from_numpy(x) for x in (lo, la, lp, ld)), tl)
+    if lens is None:
+        want = jax_fb(*(jnp.asarray(x) for x in (lo, la, lp, ld)))
+    else:
+        want = (*jax_forward(*(jnp.asarray(x) for x in (lo, la, lp, ld)), jl),
+                *jax_backward(*(jnp.asarray(x) for x in (lo, la, ld)), jl))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), atol=SEG_ATOL)
+    for i in (0, 2, 3):
+        _close_on_valid(got[i], want[i], lens)
+
+
+@pytest.mark.parametrize("case", sorted(SEG_CASES) + ["ties", "ties ragged"])
+def test_viterbi_matches_jax_kernel(case):
+    if case.startswith("ties"):
+        # Uniform emissions, transitions and durations: equal durations
+        # and equal predecessors everywhere.
+        B, T, S, D = 3, 40, 4, 6
+        a = np.full((S, S), 1.0 / (S - 1))
+        np.fill_diagonal(a, 1e-30)
+        arrays = (np.zeros((B, T, S), np.float32), np.log(a).astype(np.float32),
+                  np.full(S, -np.log(S), np.float32), np.full((S, D), -np.log(D), np.float32))
+        lens = None if case == "ties" else [40, 13, 1]
+        jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+        tl = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    else:
+        arrays, lens, jl, tl = _seg_case(case)
+    s_j, c_j = jax_viterbi(*(jnp.asarray(x) for x in arrays), jl)
+    s_t, c_t = hsmm_smallk_viterbi(*(torch.from_numpy(x) for x in arrays), tl)
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
+
+
+def test_general_wrappers_on_cpu_run_plain_versions_without_launching():
+    lo, la, lp, ld = (torch.from_numpy(x) for x in _segment_problem(3, 20, 5, 6, seed=2))
+    ln = torch.tensor([20, 7, 1], dtype=torch.int32)
+    fns = (hsmm_smallk_forward_general, hsmm_smallk_backward_general, hsmm_smallk_fb,
+           hsmm_smallk_viterbi)
+    before = [f.launches for f in fns]
+    pairs = [
+        (hsmm_smallk_fb(lo, la, lp, ld, ln), hsmm_smallk_fb_reference(lo, la, lp, ld, ln)),
+        (hsmm_smallk_viterbi(lo, la, lp, ld, ln), hsmm_smallk_viterbi_reference(lo, la, lp, ld, ln)),
+        (hsmm_smallk_forward(lo, la, lp, ld, ln), hsmm_smallk_forward_reference(lo, la, lp, ld, ln)),
+        (hsmm_smallk_backward(lo, la, ld, ln), hsmm_smallk_backward_reference(lo, la, ld, ln)),
+    ]
+    for got, want in pairs:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert [f.launches for f in fns] == before
+
+
+def test_general_wrappers_refuse_what_the_kernels_do_not_take():
+    lo, la, lp = (torch.empty(s, device="meta") for s in ((2, 10, 4), (4, 4), (4,)))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        hsmm_smallk_viterbi(lo, la, lp, torch.empty(4, 5, device="meta"))
+    with pytest.raises(ValueError, match="D <= 256"):
+        hsmm_smallk_fb(lo, la, lp, torch.empty(4, MAX_DURATION + 1, device="meta"))
+    with pytest.raises(ValueError, match="K <= 32"):
+        hsmm_smallk_viterbi(torch.empty(2, 10, 33, device="meta"), torch.empty(33, 33, device="meta"),
+                            torch.empty(33, device="meta"), torch.empty(33, 5, device="meta"))
