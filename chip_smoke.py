@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's GMM-HMM and duration-model paths on
-one CUDA GPU.
+"""Smoke run of the PyTorch port's GMM-HMM, duration-model and streaming
+paths on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -31,13 +31,31 @@ from the model's own means):
   layer on the CPU in float64, five ``em_step``s (fixed durations) with
   the log-likelihood non-decreasing;
 
+then streaming decode at the width of the repo's streaming configuration
+(``StreamingHMMProcessor(12, 80, chunk_size=160)``: beam width 8,
+lookahead 5, a path history of 165 frames; random weights from a seed):
+
+* the two chunk kernels against their plain versions on the card, bit
+  for bit (headline S=12, T=160 at N=1, 8 and 16 streams; mixed path
+  lengths, a short chunk, forced ties, S=128, T=1024 > H; greedy with
+  and without a previous state);
+* serving: twenty 160-frame chunks of one stream through
+  ``process_chunk`` and ``flush_buffer``, beam and greedy, against the
+  same processor on the CPU;
+* fleets: ``MultiStreamDecoder.step`` at N=8 and N=16, each stream
+  against the single-stream processor on the card; the fleet and
+  single-stream raw-PCM steps against the CPU;
+
 and times the kernels, a decode, a ``compute_loss`` step and an
-``em_step`` of each path, and a duration-model ``posteriors`` call,
-with CUDA events.
+``em_step`` of each path, a duration-model ``posteriors`` call, a
+streaming chunk, a fleet step and a PCM step with CUDA events, counts
+the launches of one call of each, and profiles ten beam chunks.
 
 Phases, one line each: card, build, each kernel vs plain, decode,
-training, duration-model decode, duration-model training, timing. Any failure exits non-zero before the last line. On
-success the last two lines are a JSON object describing each kernel and
+training, duration-model decode, duration-model training, stream
+kernels, streaming serve, fleets, timing. Any failure exits non-zero
+before the last line. On success the last two lines are a JSON object
+describing each kernel (with its bound from this run's inputs) and
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a CUDA
 device the script fails. It imports no JAX.
 """
@@ -97,6 +115,22 @@ EM_RTOL = 1e-3
 # EM never lowers the log-likelihood in exact arithmetic; allow f32
 # rounding of the ~1.5e5 sum.
 LL_SLACK = 1e-6
+# The streaming configuration's width (the JAX bench's streaming rows,
+# bench.py:264-362): states, features, chunk frames; the processor's
+# defaults give beam width 8 and a history of max(50, 160) + 5 frames.
+SS, SF, SCHUNK, SW, SH = 12, 80, 160, 8, 165
+STREAM_CHUNKS = 20
+FLEETS = (8, 16)
+HOP = 160
+# Card vs CPU: the emission MLPs round differently in their last bits,
+# so decoded states agree on at least 99.9% of frames and per-chunk
+# confidences (the geometric-mean frame probability) within 1e-5.
+STREAM_AGREE = 0.999
+STREAM_CONF_ATOL = 1e-5
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
+# outside the tensor cores, the type every kernel here computes in.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 KERNELS = {
     "diag_quadratic": {
@@ -134,6 +168,14 @@ KERNELS = {
     "hsmm_smallk_backward_general": {
         "source": "pytorch_hmm_tpu_torch/csrc/hsmm_smallk.cu",
         "replaces": "pytorch_hmm_tpu/ops/hsmm_smallk.py:903",
+    },
+    "greedy_chunk": {
+        "source": "pytorch_hmm_tpu_torch/csrc/stream_greedy.cu",
+        "replaces": "pytorch_hmm_tpu/ops/stream.py:136",
+    },
+    "beam_chunk_multi": {
+        "source": "pytorch_hmm_tpu_torch/csrc/stream_beam.cu",
+        "replaces": "pytorch_hmm_tpu/ops/stream_multi.py:289",
     },
 }
 TRAINING_KERNELS = ("diag_quadratic", "fbsum_smallk", "hsmm_smallk_forward",
@@ -317,7 +359,8 @@ def phase_decode(dev):
     for name, n in launches.items():
         check(n > 0, f"the decode path never launched {name}")
 
-    cpu = MixtureGaussianHMMLayer(S, D, num_components=C, covariance_type="diag").eval()
+    cpu = MixtureGaussianHMMLayer(S, D, num_components=C, covariance_type="diag",
+                                  device="cpu").eval()
     cpu.load_state_dict({k: v.cpu() for k, v in layer.state_dict().items()})
     obs_cpu, lengths_cpu = obs.cpu(), lengths.cpu()
     ref_full = cpu(obs_cpu, return_log_probs=True)
@@ -468,7 +511,7 @@ def phase_training(dev):
 
     def cpu64(layer):
         ref = MixtureGaussianHMMLayer(S, D, num_components=C,
-                                      covariance_type=layer.covariance_type).double()
+                                      covariance_type=layer.covariance_type, device="cpu").double()
         ref.load_state_dict({k: v.detach().cpu().double() for k, v in layer.state_dict().items()})
         return ref
 
@@ -660,7 +703,7 @@ def _make_hsmm(dev, learnable_durations=True):
 
 
 def _cpu_copy(model, cls, dtype=None, **kw):
-    ref = cls(**kw)
+    ref = cls(device="cpu", **kw)
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     if dtype is not None:
         ref = ref.to(dtype)
@@ -810,6 +853,353 @@ def phase_duration_training(dev, obs, lengths):
     return {"launches": launches, "errs": errs, "lls": lls, "layer": layer, "em_layer": em_layer}
 
 
+def _beam_problem(dev, gen, n, t, s, w, h, n_valid, path_len, ties=False):
+    """Inputs of a beam chunk: ``(log_a, log_obs (n, t, s), n_valid,
+    carry)``; streams with ``path_len`` 0 start from the uniform prior and
+    an empty history, as a fresh processor does."""
+    import torch
+    from pytorch_hmm_tpu_torch.ops.stream import log_num_states
+
+    if ties:
+        c = -log_num_states(s)
+        la, lo = torch.full((s, s), c, device=dev), torch.full((n, t, s), c, device=dev)
+    else:
+        la = torch.log_softmax(torch.randn(s, s, device=dev, generator=gen), -1)
+        lo = torch.log_softmax(torch.randn(n, t, s, device=dev, generator=gen), -1)
+    pl = torch.tensor(path_len, dtype=torch.int32, device=dev)
+    fresh = (pl == 0)[:, None]
+    sc = torch.where(fresh, -log_num_states(s), torch.randn(n, w, device=dev, generator=gen))
+    st = (torch.arange(w, dtype=torch.int32, device=dev) % s).expand(n, w).contiguous()
+    pt = torch.randint(0, s, (n, w, h), device=dev, generator=gen, dtype=torch.int32)
+    pt = torch.where(fresh[:, :, None], 0, pt)
+    return la, lo, n_valid, (sc, st, pt, pl)
+
+
+def _greedy_problem(dev, gen, t, s):
+    import torch
+
+    la = torch.log_softmax(torch.randn(s, s, device=dev, generator=gen), -1)
+    lo = torch.log_softmax(torch.randn(t, s, device=dev, generator=gen), -1)
+    return la, lo
+
+
+def phase_stream_kernels(dev, gen):
+    """Both chunk kernels against their plain versions on the card, bit
+    for bit; returns each one's max abs score error and the case names."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    beam_cases = {
+        "N=1": _beam_problem(dev, gen, 1, SCHUNK, SS, SW, SH, SCHUNK, [0]),
+        "N=8 mixed path_len": _beam_problem(dev, gen, 8, SCHUNK, SS, SW, SH, SCHUNK,
+                                            [0, SH, 3, 0, 100, SH, 1, 0]),
+        "N=16 n_valid<T": _beam_problem(dev, gen, 16, SCHUNK, SS, SW, SH, 150, [0] * 8 + [SH] * 8),
+        "per-stream n_valid": _beam_problem(
+            dev, gen, 4, SCHUNK, SS, SW, SH,
+            torch.tensor([160, 158, 1, 0], dtype=torch.int32, device=dev), [0, 0, SH, 7]),
+        "ties": _beam_problem(dev, gen, 3, 64, 6, 4, 40, 64, [0, 5, 40], ties=True),
+        "S=128": _beam_problem(dev, gen, 2, SCHUNK, 128, SW, SH, SCHUNK, [0, SH]),
+        "T=1024>H": _beam_problem(dev, gen, 2, 1024, SS, SW, SH, 1000, [0, SH]),
+    }
+    worst = {"beam_chunk_multi": 0.0, "greedy_chunk": 0.0}
+    names = ("scores", "states", "paths", "path_len")
+    for name, (la, lo, nv, carry) in beam_cases.items():
+        got = ops.beam_chunk_multi(la, lo, nv, carry)
+        want = ops.beam_chunk_multi_reference(la, lo, nv, carry)
+        torch.cuda.synchronize(dev)
+        for g, w, what in zip(got, want, names):
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"beam_chunk_multi {name}: {what} differ from the plain version")
+        worst["beam_chunk_multi"] = max(worst["beam_chunk_multi"],
+                                        (got[0] - want[0]).abs().max().item())
+    greedy_cases = []
+    for t, s, nv in ((SCHUNK, SS, SCHUNK), (SCHUNK, 128, 150), (1024, SS, 1000), (8, 3, 3)):
+        la, lo = _greedy_problem(dev, gen, t, s)
+        for has in (False, True):
+            carry = (torch.tensor(2 % s, dtype=torch.int32, device=dev), torch.tensor(has, device=dev))
+            (p1, h1), s1, c1 = ops.greedy_chunk(la, lo, nv, carry)
+            (p0, h0), s0, c0 = ops.greedy_chunk_reference(la, lo, nv, carry)
+            torch.cuda.synchronize(dev)
+            case = f"T={t} S={s} n_valid={nv} has_prev={has}"
+            check(s1.dtype == torch.int32 and torch.equal(s1, s0), f"greedy_chunk {case}: states differ")
+            check(torch.equal(c1, c0), f"greedy_chunk {case}: scores differ")
+            check(torch.equal(p1, p0) and torch.equal(h1, h0), f"greedy_chunk {case}: carry differs")
+            worst["greedy_chunk"] = max(worst["greedy_chunk"], (c1 - c0).abs().max().item())
+            greedy_cases.append(case)
+    return worst, list(beam_cases), greedy_cases
+
+
+def _stream_processor(dev, **kw):
+    import torch
+    from pytorch_hmm_tpu_torch import StreamingHMMProcessor
+
+    return StreamingHMMProcessor(SS, SF, chunk_size=SCHUNK,
+                                 generator=torch.Generator().manual_seed(SEED), device=dev, **kw)
+
+
+def _twin(proc, dev="cpu", **kw):
+    """A processor with ``proc``'s weights on ``dev``, fresh carry."""
+    twin = _stream_processor(dev, **kw)
+    twin.load_state_dict({k: v.detach().to(dev) for k, v in proc.state_dict().items()})
+    return twin
+
+
+def _stream_features(n_frames, seed, n=None):
+    """Features from a seed (numpy), ``(n_frames, SF)`` or ``(n, n_frames,
+    SF)``: a walk over 12 random directions plus noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (n_frames,) if n is None else (n, n_frames)
+    centers = rng.normal(size=(SS, SF))
+    walk = (np.arange(n_frames) // rng.integers(5, 30)) % SS
+    return (centers[walk] + rng.normal(size=(*shape, SF))).astype(np.float32)
+
+
+def _agreement(a, b) -> float:
+    return (a.cpu() == b.cpu()).float().mean().item()
+
+
+def phase_streaming_serve(dev):
+    """Serve one stream through ``process_chunk`` and ``flush_buffer`` on
+    the card, beam and greedy, counting launches, against the same
+    processor on the CPU."""
+    import torch
+
+    feats = _stream_features(STREAM_CHUNKS * SCHUNK + 37, SEED + 7)
+    chunks = [feats[i:i + SCHUNK] for i in range(0, len(feats), SCHUNK)]
+    out = {}
+    for mode, kernel in (("beam", "beam_chunk_multi"), ("greedy", "greedy_chunk")):
+        card = _stream_processor(dev, use_beam_search=mode == "beam")
+        cpu = _twin(card, use_beam_search=mode == "beam")
+        reset_launches()
+        served = [card.process_chunk(c) for c in chunks] + [card.flush_buffer()]
+        torch.cuda.synchronize(dev)
+        launches = read_launches(("greedy_chunk", "beam_chunk_multi"))
+        check(launches[kernel] > 0, f"streaming serve ({mode}) never launched {kernel}")
+        ref = [cpu.process_chunk(c) for c in chunks] + [cpu.flush_buffer()]
+        got_states, want_states, conf_err = [], [], 0.0
+        for r, w in zip(served, ref):
+            check(r.status == w.status, f"serve {mode}: status {r.status} vs CPU {w.status}")
+            if w.decoded_states is None:
+                continue
+            st = r.decoded_states
+            check(st.device.type == "cuda" and st.dtype == torch.int32, f"serve {mode}: states {st}")
+            got_states.append(st.cpu())
+            want_states.append(w.decoded_states)
+            conf_err = max(conf_err, abs(r.confidence - w.confidence))
+        got, want = torch.cat(got_states), torch.cat(want_states)
+        check(bool(((got >= 0) & (got < SS)).all()), f"serve {mode}: state out of range")
+        agree = _agreement(got, want)
+        check(agree >= STREAM_AGREE, f"serve {mode}: frame agreement {agree} < {STREAM_AGREE}")
+        check(conf_err <= STREAM_CONF_ATOL, f"serve {mode}: confidence off by {conf_err}")
+        out[mode] = {"launches": launches, "agreement": agree, "conf_err": conf_err,
+                     "frames": len(got), "chunks": sum(r.status != "buffering" for r in served)}
+    return out
+
+
+def phase_fleets(dev):
+    """``MultiStreamDecoder.step`` at N=8 and N=16, each stream against a
+    single-stream processor on the card (no lookahead, so each chunk
+    decodes all of its frames); then the fleet and single-stream PCM
+    steps against the CPU."""
+    import torch
+    from pytorch_hmm_tpu_torch import MultiStreamDecoder, make_pcm_decode_step
+
+    proc = _stream_processor(dev)
+    cpu = _twin(proc)
+    out = {"agreement": {}, "conf_err": {}}
+    reset_launches()
+    for n in FLEETS:
+        dec = MultiStreamDecoder(proc, n)
+        carry = dec.init_carry()
+        singles = [_twin(proc, dev, lookahead_frames=0) for _ in range(n)]
+        got, want, err = [], [], 0.0
+        for k in range(3):
+            feats = torch.from_numpy(_stream_features(SCHUNK, SEED + 10 + k, n)).to(dev)
+            carry, st, cf = dec.step(carry, feats)
+            for i, p in enumerate(singles):
+                r = p.process_chunk(feats[i])
+                got.append(st[i])
+                want.append(r.decoded_states)
+                err = max(err, (cf[i] - r.confidence).abs().max().item())
+        agree = _agreement(torch.cat(got), torch.cat(want))
+        check(agree >= STREAM_AGREE, f"fleet N={n}: frame agreement with single streams {agree}")
+        check(err <= STREAM_CONF_ATOL, f"fleet N={n}: confidence off by {err}")
+        out["agreement"][f"N={n}"], out["conf_err"][f"N={n}"] = agree, err
+
+    # Raw PCM: the fleet step and the single-stream step, card vs CPU.
+    import numpy as np
+
+    n = FLEETS[0]
+    rng = np.random.default_rng(SEED + 20)
+    f_card, c_card = MultiStreamDecoder(proc, n).make_pcm_step()
+    f_cpu, c_cpu = MultiStreamDecoder(cpu, n).make_pcm_step()
+    s_card, sc_card = make_pcm_decode_step(proc, chunk_frames=SCHUNK)
+    s_cpu, sc_cpu = make_pcm_decode_step(cpu, chunk_frames=SCHUNK)
+    got, want, err = [], [], 0.0
+    for k in range(3):
+        pcm = (0.1 * rng.standard_normal((n, SCHUNK * HOP))).astype(np.float32)
+        c_card, st, cf, nv = f_card(c_card, torch.from_numpy(pcm).to(dev))
+        c_cpu, st0, cf0, nv0 = f_cpu(c_cpu, torch.from_numpy(pcm))
+        sc_card, s1, c1, n1 = s_card(sc_card, torch.from_numpy(pcm[0]).to(dev))
+        sc_cpu, s10, c10, n10 = s_cpu(sc_cpu, torch.from_numpy(pcm[0]))
+        v = SCHUNK - (2 if k == 0 else 0)
+        check(nv.tolist() == nv0.tolist() == [v] * n and int(n1) == int(n10) == v,
+              f"PCM chunk {k}: n_valid {nv.tolist()} / {int(n1)}, expected {v}")
+        got += [st[:, :v].reshape(-1), s1[:v]]
+        want += [st0[:, :v].reshape(-1), s10[:v]]
+        err = max(err, (cf[:, :v].cpu() - cf0[:, :v]).abs().max().item(),
+                  (c1[:v].cpu() - c10[:v]).abs().max().item())
+    torch.cuda.synchronize(dev)
+    out["launches"] = read_launches(("beam_chunk_multi",))
+    check(out["launches"]["beam_chunk_multi"] > 0, "the fleets never launched beam_chunk_multi")
+    agree = _agreement(torch.cat([g.cpu() for g in got]), torch.cat(want))
+    check(agree >= STREAM_AGREE, f"PCM steps: frame agreement with CPU {agree}")
+    check(err <= STREAM_CONF_ATOL, f"PCM steps: confidence off by {err}")
+    out["agreement"]["PCM"], out["conf_err"]["PCM"] = agree, err
+    return out
+
+
+def phase_stream_timing(dev, gen):
+    """Kernel, plain, per-chunk, fleet and PCM times (CUDA events); the
+    launches of one call of each streaming entry point; a profile of ten
+    beam chunks. Returns ``(times, launches, profile, inputs)``."""
+    import torch
+    from pytorch_hmm_tpu_torch import MultiStreamDecoder, make_pcm_decode_step, ops
+
+    slow = dict(runs=PLAIN_SUM_RUNS, warmup=1)
+    beam = _beam_problem(dev, gen, 1, SCHUNK, SS, SW, SH, SCHUNK, [SH])
+    beam_long = _beam_problem(dev, gen, 1, 1024, SS, SW, SH, 1024, [SH])
+    fleet_in = {n: _beam_problem(dev, gen, n, SCHUNK, SS, SW, SH, SCHUNK, [SH] * n) for n in FLEETS}
+    la, lo = _greedy_problem(dev, gen, SCHUNK, SS)
+    la_l, lo_l = _greedy_problem(dev, gen, 1024, SS)
+    has = (torch.tensor(0, dtype=torch.int32, device=dev), torch.tensor(True, device=dev))
+    times = {
+        "greedy_chunk": (cuda_median_ms(lambda: ops.greedy_chunk(la, lo, SCHUNK, has)),
+                         cuda_median_ms(lambda: ops.greedy_chunk_reference(la, lo, SCHUNK, has), **slow)),
+        "beam_chunk_multi": (cuda_median_ms(lambda: ops.beam_chunk_multi(*beam)),
+                             cuda_median_ms(lambda: ops.beam_chunk_multi_reference(*beam), **slow)),
+        "greedy T=1024": cuda_median_ms(lambda: ops.greedy_chunk(la_l, lo_l, 1024, has)),
+        "beam T=1024": cuda_median_ms(lambda: ops.beam_chunk_multi(*beam_long)),
+    }
+    for n, args in fleet_in.items():
+        times[f"beam N={n}"] = cuda_median_ms(lambda args=args: ops.beam_chunk_multi(*args))
+
+    feats = _stream_features(40 * SCHUNK, SEED + 30)
+    launches, calls = {}, {}
+    for mode in ("beam", "greedy"):
+        proc = _stream_processor(dev, use_beam_search=mode == "beam")
+        it = iter(range(10 ** 9))
+
+        def chunk(proc=proc, it=it):
+            i = next(it) % 40
+            return proc.process_chunk(feats[i * SCHUNK:(i + 1) * SCHUNK])
+
+        times[f"process_chunk {mode}"] = cuda_median_ms(chunk)
+        calls[f"process_chunk {mode}"] = chunk
+    proc = _stream_processor(dev)
+    for n in (1, *FLEETS):
+        dec = MultiStreamDecoder(proc, n)
+        carry = dec.init_carry()
+        f = torch.from_numpy(_stream_features(SCHUNK, SEED + 31, n)).to(dev)
+        calls[f"fleet step N={n}"] = lambda dec=dec, carry=carry, f=f: dec.step(carry, f)
+        step, c0 = dec.make_pcm_step()
+        pcm = 0.1 * torch.randn(n, SCHUNK * HOP, device=dev, generator=gen)
+        calls[f"PCM fleet step N={n}"] = lambda step=step, c0=c0, pcm=pcm: step(c0, pcm)
+    step1, c1 = make_pcm_decode_step(proc, chunk_frames=SCHUNK)
+    pcm1 = 0.1 * torch.randn(SCHUNK * HOP, device=dev, generator=gen)
+    calls["PCM step N=1"] = lambda: step1(c1, pcm1)
+    for name, fn in calls.items():
+        if name not in times:
+            times[name] = cuda_median_ms(fn)
+        reset_launches()
+        fn()
+        torch.cuda.synchronize(dev)
+        launches[name] = {k: v for k, v in read_launches(KERNELS).items() if v}
+    return times, launches, _profile(dev, calls["process_chunk beam"]), (beam, la, lo, fleet_in)
+
+
+def _profile(dev, fn, n=10):
+    """Host wall, device busy and device-op count of ``n`` back-to-back
+    calls under ``torch.profiler``; device busy is the sum of the device
+    ops' times (one stream, so they do not overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n if kernels else None
+    top = {}
+    for e in kernels:
+        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:3])
+    return {"host_ms": wall, "device_ms": busy, "kernels": len(kernels) / n, "top_ms": top}
+
+
+def bounds(inputs):
+    """Each kernel's least time on the card for this run's timed inputs,
+    ``(ms, "bytes" or "operations")``: the larger of the bytes it must
+    move (each input read once, each output written once) over the HBM
+    rate and its float32 operations over the float32 peak. Operations
+    are counted as the algorithm needs them: one per add, compare, exp
+    or multiply."""
+    B_, T_, K_, D_, N_ = B, T, S, D, S * C
+    HB_, HT_, HS_, HD_ = HB, HT, HS, HD
+    (beam, la, lo, _fleets) = inputs
+    n_valid = beam[2]
+    beam_n, beam_t, beam_s = beam[1].shape
+    bt, bk = B_ * T_, B_ * T_ * K_
+    hbt, hbk = HB_ * HT_, HB_ * HT_ * HS_
+    f = 4   # bytes of a float32 or int32
+    work = {
+        # x, Wq, Wl, b in; (B, T, N) out. x², two products, the bias.
+        "diag_quadratic": (f * (bt * D_ + 2 * D_ * N_ + N_ + bt * N_),
+                           bt * D_ + 4 * bt * D_ * N_ + bt * N_),
+        # log-obs, log_a, log_pi in; states, score out. Add and max per
+        # predecessor, then the emission.
+        "smallk_viterbi": (f * (bk + K_ * K_ + K_ + bt + B_), 2 * bk * K_ + bk),
+        # Two chains (add, exp, sum per predecessor; log and emission per
+        # state); alpha, beta, log Z out.
+        "fbsum_smallk": (f * (bk + K_ * K_ + K_ + 2 * bk + B_), 2 * (3 * bk * K_ + 2 * bk)),
+        "hsmm_smallk_forward": (f * (bk + K_ * K_ + 2 * K_ + bk + B_), 3 * bk * K_ + 2 * bk),
+        "hsmm_smallk_backward": (f * (bk + K_ * K_ + K_ + 2 * bk), 3 * bk * K_ + 2 * bk),
+        # Segment DP at general D: per frame and state, the S-way entry
+        # over predecessors and D durations (window sum, duration score,
+        # and max or add/exp/sum).
+        "hsmm_smallk_viterbi": (f * (hbk + HS_ * HS_ + HS_ + HS_ * HD_ + hbt + HB_),
+                                hbk * (2 * HS_ + 3 * HD_)),
+        "hsmm_smallk_forward_general": (f * (hbk + HS_ * HS_ + HS_ + HS_ * HD_ + hbk + HB_),
+                                        hbk * (3 * HS_ + 4 * HD_)),
+        "hsmm_smallk_backward_general": (f * (hbk + HS_ * HS_ + HS_ * HD_ + 2 * hbk),
+                                         hbk * (3 * HS_ + 4 * HD_)),
+        "hsmm_smallk_fb": (f * (hbk + HS_ * HS_ + HS_ + HS_ * HD_ + 3 * hbk + HB_),
+                           2 * hbk * (3 * HS_ + 4 * HD_)),
+        # log_a, log-obs, n_valid and the carry in; states, scores, carry
+        # out. An add and a compare per state and frame.
+        "greedy_chunk": (f * (SS * SS + lo.numel() + 3 + 2 * lo.shape[0] + 2),
+                         2 * lo.numel()),
+        # log_a, log-obs, n_valid, scores, states, paths, path_len in, the
+        # carry out. Per valid frame: two adds and a compare per (slot,
+        # state), then W compares per state for the top W.
+        "beam_chunk_multi": (
+            f * (beam_s * beam_s + beam[1].numel() + 2 * beam_n * (2 * SW + SW * SH + 1) + beam_n),
+            beam_n * n_valid * 4 * SW * beam_s),
+    }
+    out = {}
+    for name, (nbytes, ops_) in work.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / F32_OPS_PER_S * 1e3
+        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return out
+
+
 def phase_timing(dev, gen, layer, obs, train, dur, dur_train):
     import torch
     from pytorch_hmm_tpu_torch import ops
@@ -839,7 +1229,7 @@ def phase_timing(dev, gen, layer, obs, train, dur, dur_train):
         hl.zero_grad()
         hl.compute_loss(hobs).backward()
 
-    return {
+    times = {
         "hsmm_smallk_viterbi": (
             cuda_median_ms(lambda: ops.hsmm_smallk_viterbi(hlo, hla, hlp, hld)),
             cuda_median_ms(lambda: ops.hsmm_smallk_viterbi_reference(hlo, hla, hlp, hld), **slow)),
@@ -854,10 +1244,6 @@ def phase_timing(dev, gen, layer, obs, train, dur, dur_train):
             cuda_median_ms(lambda: ops.hsmm_smallk_backward_general(hlo, hla, hld)),
             cuda_median_ms(lambda: ops.hsmm_smallk_backward_general_reference(hlo, hla, hld),
                            **slow)),
-        "HSMM decode": cuda_median_ms(lambda: hsmm(hobs)),
-        "HSMM posteriors": cuda_median_ms(lambda: hsmm.posteriors(hobs)),
-        "HSMM compute_loss step": cuda_median_ms(hsmm_step),
-        "HSMM em_step": cuda_median_ms(lambda: dur_train["em_layer"].em_step(hobs)),
         "diag_quadratic": (cuda_median_ms(lambda: ops.diag_quadratic(x, wq, wl, bias)),
                            cuda_median_ms(lambda: ops.diag_quadratic_reference(x, wq, wl, bias))),
         "smallk_viterbi": (cuda_median_ms(lambda: ops.smallk_viterbi(lo, la, lp)),
@@ -870,10 +1256,32 @@ def phase_timing(dev, gen, layer, obs, train, dur, dur_train):
         "hsmm_smallk_backward": (
             cuda_median_ms(lambda: ops.hsmm_smallk_backward(lo, la, ld)),
             cuda_median_ms(lambda: ops.hsmm_smallk_backward_reference(lo, la, ld), **slow)),
-        "decode": cuda_median_ms(lambda: layer(obs, return_log_probs=True)),
-        "compute_loss step": cuda_median_ms(step),
-        "em_step": cuda_median_ms(lambda: train["em_layer"].em_step(tobs)),
     }
+    # The library call for row 1: one torch.addmm of [x², x] @ [Wq; Wl] + b
+    # computes the same function (the port never calls it).
+    xx = torch.cat([x * x, x], dim=-1).reshape(B * T, 2 * D)
+    w2 = torch.cat([wq, wl], dim=0)
+    lib = torch.addmm(bias, xx, w2).reshape(B, T, n)
+    check(torch.allclose(lib, ops.diag_quadratic(x, wq, wl, bias), atol=DQ_ATOL, rtol=DQ_RTOL),
+          "torch.addmm disagrees with diag_quadratic")
+    times["library diag_quadratic"] = cuda_median_ms(lambda: torch.addmm(bias, xx, w2))
+    calls = {
+        "decode": lambda: layer(obs, return_log_probs=True),
+        "compute_loss step": step,
+        "em_step": lambda: train["em_layer"].em_step(tobs),
+        "HSMM decode": lambda: hsmm(hobs),
+        "HSMM posteriors": lambda: hsmm.posteriors(hobs),
+        "HSMM compute_loss step": hsmm_step,
+        "HSMM em_step": lambda: dur_train["em_layer"].em_step(hobs),
+    }
+    launches = {}
+    for name, fn in calls.items():
+        times[name] = cuda_median_ms(fn)
+        reset_launches()
+        fn()
+        torch.cuda.synchronize(dev)
+        launches[name] = {k: v for k, v in read_launches(KERNELS).items() if v}
+    return times, launches
 
 
 def main() -> int:
@@ -948,11 +1356,38 @@ def main() -> int:
           + f" (posteriors atol {HSMM_POST_ATOL}, grad rtol {HSMM_GRAD_RTOL}, "
           f"EM rtol {HSMM_EM_RTOL})", flush=True)
 
-    times = phase_timing(dev, gen, layer, obs, train, dur, dur_train)
+    stream_errs, beam_cases, greedy_cases = phase_stream_kernels(dev, gen)
+    print(f"beam_chunk_multi vs plain: ok, scores, states, paths and path_len identical on "
+          f"{len(beam_cases)} cases ({', '.join(beam_cases)}); greedy_chunk vs plain: ok, states, "
+          f"scores and carry identical on {len(greedy_cases)} cases (T, S, n_valid in "
+          f"(160, 12, 160), (160, 128, 150), (1024, 12, 1000), (8, 3, 3), with and without "
+          f"has_prev); max abs score err {stream_errs}", flush=True)
+
+    serve = phase_streaming_serve(dev)
+    for mode, r in serve.items():
+        print(f"streaming serve ({mode}, StreamingHMMProcessor({SS}, {SF}, chunk_size={SCHUNK}), "
+              f"{STREAM_CHUNKS} chunks and a flush): ok, {r['chunks']} decoded chunks, "
+              f"{r['frames']} frames, launches {r['launches']}, frame agreement with CPU "
+              f"{r['agreement']}, max confidence err {r['conf_err']:.3g}", flush=True)
+
+    fleets = phase_fleets(dev)
+    print(f"fleets (MultiStreamDecoder N={FLEETS}, 3 chunks each vs single-stream processors on the "
+          f"card; PCM fleet N={FLEETS[0]} and single-stream PCM step, 3 chunks vs CPU): ok, launches "
+          f"{fleets['launches']}, frame agreement {fleets['agreement']}, max confidence err "
+          f"{fleets['conf_err']}", flush=True)
+
+    times, launches_per_call = phase_timing(dev, gen, layer, obs, train, dur, dur_train)
+    stimes, slaunches, prof, stream_inputs = phase_stream_timing(dev, gen)
+    times.update(stimes)
+    launches_per_call.update(slaunches)
+    bound = bounds(stream_inputs)
     for name in KERNELS:
         ms, plain = times[name]
-        print(f"timing {name}: {ms:.4f} ms kernel, {plain:.4f} ms plain torch "
-              f"(median, CUDA events) on {card}", flush=True)
+        print(f"timing {name}: {ms:.4f} ms kernel, {plain:.4f} ms plain torch, bound "
+              f"{bound[name][0]:.6f} ms ({bound[name][1]}) (median, CUDA events) on {card}",
+              flush=True)
+    print(f"timing library torch.addmm for diag_quadratic: {times['library diag_quadratic']:.4f} ms "
+          f"on {card}", flush=True)
     for name, what, shape in (
             ("decode", "request", (B, T)), ("compute_loss step", "forward+backward", (B, T)),
             ("em_step", "step", (B, T)), ("HSMM decode", "request", (HB, HT)),
@@ -961,15 +1396,37 @@ def main() -> int:
             ("HSMM em_step", "step", (HB, HT))):
         print(f"timing {name}: {times[name]:.4f} ms per {what} of {shape[0]}x{shape[1]} frames "
               f"(median of {TIMED_RUNS}, CUDA events) on {card}", flush=True)
+    per_frame = {k: (times[f"{k} T=1024"] - times[t][0]) / (1024 - SCHUNK) * 1e3
+                 for k, t in (("greedy", "greedy_chunk"), ("beam", "beam_chunk_multi"))}
+    print(f"timing stream kernels (S={SS}, W={SW}, H={SH}): greedy T=160 "
+          f"{times['greedy_chunk'][0]:.4f} ms, T=1024 {times['greedy T=1024']:.4f} ms; beam N=1 "
+          f"T=160 {times['beam_chunk_multi'][0]:.4f} ms, T=1024 {times['beam T=1024']:.4f} ms, "
+          + ", ".join(f"N={n} {times[f'beam N={n}']:.4f} ms" for n in FLEETS)
+          + f"; chain per frame (T=1024 minus T=160): greedy {per_frame['greedy']:.4f} us, beam "
+          f"{per_frame['beam']:.4f} us on {card}", flush=True)
+    for name in ("process_chunk beam", "process_chunk greedy",
+                 *(f"fleet step N={n}" for n in (1, *FLEETS)),
+                 *(f"PCM fleet step N={n}" for n in (1, *FLEETS)), "PCM step N=1"):
+        print(f"timing {name}: {times[name]:.4f} ms per {SCHUNK}-frame chunk (median of "
+              f"{TIMED_RUNS}, CUDA events) on {card}", flush=True)
+    print("launches per call: " + "; ".join(f"{k} {v}" for k, v in launches_per_call.items()),
+          flush=True)
+    print(f"profile of 10 beam chunks through process_chunk: host wall {prof['host_ms']:.4f} ms, "
+          f"device busy {prof['device_ms']} ms, {prof['kernels']} device ops per chunk, top "
+          f"{prof['top_ms']} on {card}", flush=True)
 
     errs = {"diag_quadratic": dq_errs[(B, T, D, S * C)], "smallk_viterbi": vit_err, **sum_errs,
-            **hsmm_errs}
-    launches = {name: sum(run.get(name, 0) for run in (dec_launches, train["launches"],
-                                                       dur["launches"], dur_train["launches"]))
-                for name in KERNELS}
+            **hsmm_errs, **stream_errs}
+    launches = {name: sum(run.get(name, 0) for run in (
+        dec_launches, train["launches"], dur["launches"], dur_train["launches"],
+        serve["beam"]["launches"], serve["greedy"]["launches"], fleets["launches"]))
+        for name in KERNELS}
+    library = {"diag_quadratic": times["library diag_quadratic"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": times[name][0], "plain_ms": times[name][1]}
+         "max_abs_err": errs[name], "ms": times[name][0], "plain_ms": times[name][1],
+         "bound_ms": bound[name][0], "bound_by": bound[name][1],
+         "library_ms": library.get(name)}
         for name in KERNELS
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

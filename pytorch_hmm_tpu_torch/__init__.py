@@ -10,8 +10,11 @@ its emission scoring, Viterbi trellis, differentiable likelihood
 forward-backward recursions) and the duration models (``HSMMLayer``,
 ``DurationConstrainedHMM``, ``DurationModel``, ``SemiMarkovHMM``,
 ``AdaptiveDurationHSMM``: decode, likelihood, posteriors, EM and
-sampling over the ``core.hsmm`` segment DP). On CPU tensors everything
-runs as plain torch.
+sampling over the ``core.hsmm`` segment DP) and streaming decode
+(``StreamingHMMProcessor``, ``MultiStreamDecoder``, the on-device PCM
+frontend ``DeviceFramer`` and ``make_pcm_decode_step``). Models are built
+on the CUDA device unless ``device`` names another; on CPU tensors
+everything runs as plain torch.
 
 Importing the package imports neither JAX nor Triton and builds nothing.
 """
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
-from . import bridge, core, durations, emissions, models, ops, precision
+from . import bridge, core, durations, emissions, frontend, models, ops, precision, streaming
 from .core import (
     backward_log,
     forward_backward,
@@ -39,6 +42,7 @@ from .emissions import (
     gmm_log_probs,
     spherical_gaussian_log_probs,
 )
+from .frontend import DeviceFramer, device_frames, framing_tables, make_pcm_decode_step
 from .models import (
     AdaptiveDurationHSMM,
     DurationConstrainedHMM,
@@ -59,15 +63,23 @@ from .ops import (
     auto_log_likelihood,
     auto_viterbi,
 )
+from .streaming import (
+    AdaptiveLatencyController,
+    MultiStreamDecoder,
+    StreamingHMMProcessor,
+    StreamingResult,
+)
 
 __all__ = [
     "bridge",
     "core",
     "durations",
     "emissions",
+    "frontend",
     "models",
     "ops",
     "precision",
+    "streaming",
     "viterbi",
     "forward_log",
     "backward_log",
@@ -98,4 +110,12 @@ __all__ = [
     "auto_hsmm_viterbi",
     "auto_log_likelihood",
     "auto_viterbi",
+    "AdaptiveLatencyController",
+    "DeviceFramer",
+    "MultiStreamDecoder",
+    "StreamingHMMProcessor",
+    "StreamingResult",
+    "device_frames",
+    "framing_tables",
+    "make_pcm_decode_step",
 ]

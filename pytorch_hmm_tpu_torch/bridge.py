@@ -24,6 +24,8 @@ __all__ = [
     "mixture_gaussian_state_dict",
     "semi_markov_numpy",
     "semi_markov_state_dict",
+    "streaming_processor_numpy",
+    "streaming_processor_state_dict",
 ]
 
 _GMM_KEYS = (
@@ -156,3 +158,22 @@ def semi_markov_numpy(model: torch.nn.Module) -> dict[str, np.ndarray]:
     float32 numpy arrays keyed by the JAX attribute paths (the inverse of
     :func:`semi_markov_state_dict`)."""
     return _numpy(model)
+
+
+_STREAMING_ROOTS = ("transition_logits", "emission_hidden", "emission_out")
+
+
+def streaming_processor_state_dict(params: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """``StreamingHMMProcessor`` weights, keyed by the JAX attribute paths
+    (``transition_logits``, ``emission_hidden.kernel``,
+    ``emission_out.bias``, ...), as a state dict for the torch
+    processor's ``load_state_dict``; ``nnx.Linear`` kernels ``(in, out)``
+    become ``nn.Linear`` weights ``(out, in)``."""
+    return _state_dict(params, _STREAMING_ROOTS, "StreamingHMMProcessor")
+
+
+def streaming_processor_numpy(proc: torch.nn.Module) -> dict[str, np.ndarray]:
+    """A ``StreamingHMMProcessor``'s weights as float32 numpy arrays keyed
+    by the JAX attribute paths (the inverse of
+    :func:`streaming_processor_state_dict`)."""
+    return _numpy(proc)

@@ -86,8 +86,9 @@ def _transition_logits_from_counts(trans_counts: torch.Tensor) -> torch.Tensor:
 class HSMMLayer(nn.Module):
     """Hidden semi-Markov model with explicit state durations.
 
-    Parameters are initialised from ``generator`` (a ``torch.Generator``;
-    a fresh one seeded with 0 when omitted). Torch cannot reproduce the
+    Parameters are drawn from ``generator`` (a CPU ``torch.Generator``; a
+    fresh one seeded with 0 when omitted) and moved to ``device``, the
+    CUDA device unless the caller names another. Torch cannot reproduce the
     JAX package's ``nnx.Rngs`` draws, so weights are carried across with
     ``bridge.hsmm_layer_state_dict`` where the two must agree. With
     ``learnable_duration_params=False`` the duration parameters are
@@ -105,7 +106,7 @@ class HSMMLayer(nn.Module):
         normalize_durations: bool = False,
         *,
         generator: Optional[torch.Generator] = None,
-        device=None,
+        device="cuda",
     ):
         super().__init__()
         if duration_distribution not in _DURATION_PARAMS:
@@ -327,7 +328,7 @@ class DurationConstrainedHMM(nn.Module):
         duration_slack: int = 10,
         *,
         generator: Optional[torch.Generator] = None,
-        device=None,
+        device="cuda",
     ):
         super().__init__()
         self.num_states = num_states
@@ -342,10 +343,10 @@ class DurationConstrainedHMM(nn.Module):
         self.transition_logits = nn.Parameter(
             torch.randn((num_states, num_states), generator=generator).to(device) * 0.1)
         self.emission_net = nn.Sequential(
-            nn.Linear(feature_dim, hidden_dim, device=device),
+            nn.Linear(feature_dim, hidden_dim),
             nn.ReLU(),
-            nn.Linear(hidden_dim, num_states, device=device),
-        )
+            nn.Linear(hidden_dim, num_states),
+        ).to(device)
 
     def _duration_log_score(self) -> torch.Tensor:
         d = torch.arange(1, self.duration_grid + 1, dtype=torch.float32,

@@ -85,10 +85,11 @@ def _l2r_fixed(num_states: int) -> torch.Tensor:
 class MixtureGaussianHMMLayer(nn.Module):
     """GMM-HMM with diag / tied / spherical covariances.
 
-    Parameters are initialised from ``generator`` (a ``torch.Generator``;
-    a fresh one seeded with 0 when omitted). Torch cannot reproduce the
-    JAX package's ``nnx.Rngs`` draws, so weights are carried across with
-    ``bridge.mixture_gaussian_state_dict`` where the two must agree.
+    Parameters are drawn from ``generator`` (a CPU ``torch.Generator``; a
+    fresh one seeded with 0 when omitted) and moved to ``device``, the
+    CUDA device unless the caller names another. Torch cannot reproduce
+    the JAX package's ``nnx.Rngs`` draws, so weights are carried across
+    with ``bridge.mixture_gaussian_state_dict`` where the two must agree.
     """
 
     def __init__(
@@ -101,7 +102,7 @@ class MixtureGaussianHMMLayer(nn.Module):
         max_sequence_length: int = 10000,
         *,
         generator: Optional[torch.Generator] = None,
-        device=None,
+        device="cuda",
     ):
         super().__init__()
         if covariance_type == "full":

@@ -47,7 +47,7 @@ _NEURAL_OBS_TODO = ("observation_model='neural' is not ported yet: ROADMAP queue
                     "item 8 (models/neural.py)")
 
 
-def _randn(generator, *shape, device=None):
+def _randn(generator, *shape, device):
     return torch.randn(shape, generator=generator).to(device)
 
 
@@ -65,7 +65,7 @@ class DurationModel(nn.Module):
         hidden_dim: int = 128,
         *,
         generator: Optional[torch.Generator] = None,
-        device=None,
+        device="cuda",
     ):
         super().__init__()
         self.num_states = num_states
@@ -83,12 +83,13 @@ class DurationModel(nn.Module):
             self.mean_params = nn.Parameter(torch.full((S,), 10.0, device=device))
             self.std_params = nn.Parameter(torch.ones((S,), device=device))
         elif distribution_type == "neural":
-            self.state_embedding = nn.Embedding(S, hidden_dim, device=device)
+            # Drawn on the CPU and moved, so the draws are the CPU's on any device.
+            self.state_embedding = nn.Embedding(S, hidden_dim).to(device)
             self.net = nn.Sequential(
-                nn.Linear(hidden_dim, hidden_dim, device=device),
+                nn.Linear(hidden_dim, hidden_dim),
                 nn.ReLU(),
-                nn.Linear(hidden_dim, max_duration, device=device),
-            )
+                nn.Linear(hidden_dim, max_duration),
+            ).to(device)
         else:
             raise ValueError(f"Unknown distribution_type: {distribution_type}")
 
@@ -151,7 +152,7 @@ class SemiMarkovHMM(nn.Module):
         min_duration: int = 1,
         *,
         generator: Optional[torch.Generator] = None,
-        device=None,
+        device="cuda",
     ):
         super().__init__()
         if observation_model == "neural":
@@ -352,18 +353,18 @@ class AdaptiveDurationHSMM(SemiMarkovHMM):
 
     def __init__(self, num_states: int, observation_dim: int, context_dim: int,
                  hidden_dim: int = 128, *, generator: Optional[torch.Generator] = None,
-                 device=None, **kwargs):
+                 device="cuda", **kwargs):
         super().__init__(num_states, observation_dim, generator=generator, device=device,
                          **kwargs)
         self.context_dim = context_dim
-        self.state_embedding = nn.Embedding(num_states, num_states, device=device)
+        self.state_embedding = nn.Embedding(num_states, num_states).to(device)
         self.context_duration_net = nn.Sequential(
-            nn.Linear(context_dim + num_states, hidden_dim, device=device),
+            nn.Linear(context_dim + num_states, hidden_dim),
             nn.ReLU(),
-            nn.Linear(hidden_dim, hidden_dim, device=device),
+            nn.Linear(hidden_dim, hidden_dim),
             nn.ReLU(),
-            nn.Linear(hidden_dim, self.max_duration, device=device),
-        )
+            nn.Linear(hidden_dim, self.max_duration),
+        ).to(device)
 
     def compute_contextual_duration_probs(self, state_indices: torch.Tensor,
                                           context: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,12 @@ path, as the backend does in the JAX package:
   package never gives a kernel either, run the plain ``core.hsmm_*`` on
   the tensors' own device; a shape the kernels take never lands there
   because a build or launch failed, which raises.
+* The streaming chunk decoders (``auto_greedy_chunk``,
+  ``auto_beam_chunk_multi``): CUDA tensors inside the JAX kernels'
+  envelope (S ≤ 128, W ≤ min(8, S), T and H ≤ 1024; any number of
+  streams) run ``stream.greedy_chunk`` and ``stream_multi.beam_chunk_multi``.
+  Larger shapes, which the JAX package sends to its XLA scan on every
+  backend, run the plain versions on the tensors' own device.
 * CPU tensors run the plain torch versions (``core``).
 """
 
@@ -54,8 +60,18 @@ from .smallk import (
     smallk_viterbi,
     smallk_viterbi_reference,
 )
+from .stream import greedy_chunk, greedy_chunk_reference, stream_chunk_supported
+from .stream_multi import beam_chunk_multi, beam_chunk_multi_reference, multi_stream_supported
 
 __all__ = [
+    "auto_beam_chunk_multi",
+    "auto_greedy_chunk",
+    "beam_chunk_multi",
+    "beam_chunk_multi_reference",
+    "greedy_chunk",
+    "greedy_chunk_reference",
+    "multi_stream_supported",
+    "stream_chunk_supported",
     "auto_forward",
     "auto_forward_backward",
     "auto_log_likelihood",
@@ -463,3 +479,28 @@ def auto_hsmm_viterbi(log_obs, log_a, log_pi, log_dur, lengths=None):
     with torch.no_grad():
         return hsmm_smallk_viterbi(*_f32(log_obs, log_a, log_pi, log_dur),
                                    _lengths_on(lengths, log_obs.device))
+
+
+# -- streaming ------------------------------------------------------------------
+
+
+def auto_greedy_chunk(log_a, log_obs, n_valid, carry):
+    """Greedy chunk decode ``((prev, has_prev), states (T,), log-scores
+    (T,))``: ``greedy_chunk`` on CUDA tensors inside its envelope, the
+    plain version elsewhere (larger shapes on the tensors' own device)."""
+    T, S = log_obs.shape
+    if log_obs.device.type == "cpu" or not stream_chunk_supported(S, T):
+        return greedy_chunk_reference(log_a, log_obs, n_valid, carry)
+    return greedy_chunk(*_f32(log_a, log_obs), n_valid, carry)
+
+
+def auto_beam_chunk_multi(log_a, log_obs, n_valid, carry):
+    """Beam chunk decode of ``(N, T, S)`` log-obs, returning the raw
+    carry: ``beam_chunk_multi`` on CUDA tensors inside its envelope, the
+    plain version elsewhere (larger shapes on the tensors' own device)."""
+    N, T, S = log_obs.shape
+    W, H = carry[2].shape[1], carry[2].shape[2]
+    if log_obs.device.type == "cpu" or not multi_stream_supported(N, S, T, W, H):
+        return beam_chunk_multi_reference(log_a, log_obs, n_valid, carry)
+    return beam_chunk_multi(*_f32(log_a, log_obs), n_valid,
+                            (carry[0].float().contiguous(), *carry[1:]))

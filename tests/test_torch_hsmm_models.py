@@ -57,7 +57,7 @@ def _hsmm_pair(dist, learnable=True, min_duration=1):
     kw = dict(duration_distribution=dist, max_duration=D, learnable_duration_params=learnable,
               min_duration=min_duration)
     jl = JaxHSMM(S, F, rngs=nnx.Rngs(0), **kw)
-    tl = HSMMLayer(S, F, **kw)
+    tl = HSMMLayer(S, F, device="cpu", **kw)
     tl.load_state_dict(bridge.hsmm_layer_state_dict(_flat(jl)))
     return jl, tl
 
@@ -126,7 +126,7 @@ def test_get_model_info_counts_buffers_where_the_reference_raises(learnable):
 
 def test_duration_constrained_hmm_decode_matches_jax(obs):
     jm = JaxDC(S, F, min_duration=3, max_duration=6, hidden_dim=7, rngs=nnx.Rngs(1))
-    tm = DurationConstrainedHMM(S, F, min_duration=3, max_duration=6, hidden_dim=7)
+    tm = DurationConstrainedHMM(S, F, min_duration=3, max_duration=6, hidden_dim=7, device="cpu")
     tm.load_state_dict(bridge.hsmm_layer_state_dict(_flat(jm)))
     assert tm.duration_grid == 16
     np.testing.assert_array_equal(tm(torch.from_numpy(obs)).numpy(),
@@ -158,7 +158,7 @@ def _semi_pair(dist):
     from all of them leaves states with near-zero occupancy, where f32
     statistics of any two implementations part."""
     jm = JaxSemiMarkov(S, F, max_duration=D, duration_distribution=dist, rngs=nnx.Rngs(0))
-    tm = SemiMarkovHMM(S, F, max_duration=D, duration_distribution=dist)
+    tm = SemiMarkovHMM(S, F, max_duration=D, duration_distribution=dist, device="cpu")
     tm.load_state_dict(bridge.semi_markov_state_dict(_flat(jm)))
     rng = np.random.default_rng(1)
     states = (np.arange(T)[None, :] // rng.integers(3, 9, size=(B, 1))) % S
@@ -221,7 +221,7 @@ def test_semi_markov_em_step_matches_jax(dist):
 def test_adaptive_duration_contextual_log_likelihood_matches_jax(obs):
     kw = dict(context_dim=3, hidden_dim=6, max_duration=D)
     jm = JaxAdaptive(S, F, rngs=nnx.Rngs(2), **kw)
-    tm = AdaptiveDurationHSMM(S, F, **kw)
+    tm = AdaptiveDurationHSMM(S, F, device="cpu", **kw)
     tm.load_state_dict(bridge.semi_markov_state_dict(_flat(jm)))
     ctx = np.random.default_rng(3).normal(size=(3,)).astype(np.float32)
     got = tm.contextual_log_likelihood(torch.from_numpy(obs), torch.from_numpy(ctx))
@@ -235,7 +235,7 @@ def test_bridge_round_trips_nested_weights():
     jm = JaxAdaptive(S, F, context_dim=2, hidden_dim=5, max_duration=D,
                      duration_distribution="neural", rngs=nnx.Rngs(0))
     tm = AdaptiveDurationHSMM(S, F, context_dim=2, hidden_dim=5, max_duration=D,
-                              duration_distribution="neural")
+                              duration_distribution="neural", device="cpu")
     tm.load_state_dict(bridge.semi_markov_state_dict(_flat(jm)))
     out = bridge.semi_markov_numpy(tm)
     assert set(out) == set(_flat(jm))
@@ -249,7 +249,7 @@ def test_bridge_round_trips_nested_weights():
 def test_sampling_keeps_the_segment_structure():
     """Structure only (the draws are torch's, not JAX's): no
     self-transitions between segments, durations in [min, max]."""
-    layer = HSMMLayer(S, F, max_duration=6, min_duration=2)
+    layer = HSMMLayer(S, F, max_duration=6, min_duration=2, device="cpu")
     states, x = layer.generate_sequence(200, generator=torch.Generator().manual_seed(1))
     assert states.shape == (200,) and x.shape == (200, F)
     change = torch.nonzero(states[1:] != states[:-1]).flatten() + 1
@@ -259,7 +259,7 @@ def test_sampling_keeps_the_segment_structure():
     # A run may join two segments of one state only through a
     # self-transition, which the masked transitions forbid.
     assert int(runs.max()) <= 6
-    model = SemiMarkovHMM(S, F, max_duration=7, min_duration=3)
+    model = SemiMarkovHMM(S, F, max_duration=7, min_duration=3, device="cpu")
     seg_s, seg_d, x = model.sample(12, max_length=60, generator=torch.Generator().manual_seed(4))
     assert bool((seg_s[1:] != seg_s[:-1]).all())
     full = seg_d[seg_d.cumsum(0) < 60]
@@ -323,4 +323,4 @@ def test_refusals_name_their_roadmap_items(obs):
         tl.em_step(torch.from_numpy(obs), mesh=object())
     assert all(torch.equal(v, tl.state_dict()[k]) for k, v in before.items())
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        SemiMarkovHMM(S, F, observation_model="neural")
+        SemiMarkovHMM(S, F, observation_model="neural", device="cpu")

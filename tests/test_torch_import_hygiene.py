@@ -42,6 +42,7 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
         "pytorch_hmm_tpu_torch.core.viterbi",
         "pytorch_hmm_tpu_torch.durations",
         "pytorch_hmm_tpu_torch.emissions",
+        "pytorch_hmm_tpu_torch.frontend",
         "pytorch_hmm_tpu_torch.models.hsmm",
         "pytorch_hmm_tpu_torch.models.mixture_gaussian",
         "pytorch_hmm_tpu_torch.models.semi_markov",
@@ -50,7 +51,10 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
         "pytorch_hmm_tpu_torch.ops.fbsum",
         "pytorch_hmm_tpu_torch.ops.hsmm_smallk",
         "pytorch_hmm_tpu_torch.ops.smallk",
+        "pytorch_hmm_tpu_torch.ops.stream",
+        "pytorch_hmm_tpu_torch.ops.stream_multi",
         "pytorch_hmm_tpu_torch.precision",
+        "pytorch_hmm_tpu_torch.streaming",
     }
     assert expected <= set(got["modules"])
 
@@ -76,7 +80,8 @@ def test_port_never_names_jax_in_its_sources():
     assert not offenders, "\n".join(offenders)
     # The scan reaches every kernel source's wrapper module.
     wrappers = {"diag_quadratic": "emit.py", "smallk_viterbi": "smallk.py",
-                "smallk_sum": "hsmm_smallk.py", "hsmm_smallk": "hsmm_smallk.py"}
+                "smallk_sum": "hsmm_smallk.py", "hsmm_smallk": "hsmm_smallk.py",
+                "stream_greedy": "stream.py", "stream_beam": "stream_multi.py"}
     sources = {fn[:-3] for fn in os.listdir(os.path.join(pkg, "csrc")) if fn.endswith(".cu")}
     assert sources == set(wrappers)
     assert {os.path.join("ops", w) for w in wrappers.values()} <= seen

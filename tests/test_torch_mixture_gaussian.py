@@ -41,7 +41,7 @@ def _pair(cov_type, learnable):
     jl = JaxLayer(S, D, num_components=C, covariance_type=cov_type,
                   learnable_transitions=learnable, rngs=nnx.Rngs(0))
     tl = MixtureGaussianHMMLayer(S, D, num_components=C, covariance_type=cov_type,
-                                 learnable_transitions=learnable)
+                                 learnable_transitions=learnable, device="cpu")
     tl.load_state_dict(bridge.mixture_gaussian_state_dict(_jax_params(jl)))
     return jl, tl.eval()
 
@@ -93,7 +93,8 @@ def test_model_info_and_transitions_match_jax(cov_type, learnable):
 
 def test_fixed_topology_matches_jax_without_bridge():
     jl = JaxLayer(S, D, num_components=C, learnable_transitions=False, rngs=nnx.Rngs(0))
-    tl = MixtureGaussianHMMLayer(S, D, num_components=C, learnable_transitions=False)
+    tl = MixtureGaussianHMMLayer(S, D, num_components=C, learnable_transitions=False,
+                                 device="cpu")
     np.testing.assert_array_equal(tl.transition_matrix.numpy(),
                                   np.asarray(jl.transition_matrix[...]))
     assert "transition_matrix" in dict(tl.named_buffers())
@@ -102,7 +103,8 @@ def test_fixed_topology_matches_jax_without_bridge():
 
 def test_generator_seeds_initialisation():
     def make(seed):
-        return MixtureGaussianHMMLayer(S, D, C, generator=torch.Generator().manual_seed(seed))
+        return MixtureGaussianHMMLayer(S, D, C, generator=torch.Generator().manual_seed(seed),
+                                       device="cpu")
 
     a, b, c = make(1), make(1), make(2)
     assert torch.equal(a.means, b.means) and not torch.equal(a.means, c.means)
@@ -110,9 +112,9 @@ def test_generator_seeds_initialisation():
 
 def test_unported_and_unknown_covariances_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MixtureGaussianHMMLayer(S, D, C, covariance_type="full")
+        MixtureGaussianHMMLayer(S, D, C, covariance_type="full", device="cpu")
     with pytest.raises(ValueError, match="Unknown covariance_type"):
-        MixtureGaussianHMMLayer(S, D, C, covariance_type="banded")
+        MixtureGaussianHMMLayer(S, D, C, covariance_type="banded", device="cpu")
 
 
 def test_bridge_rejects_unknown_or_missing_weights():

@@ -103,7 +103,7 @@ def _pair(cov_type, learnable=True):
     names = ["mixture_weights_logits", "means", "cov_params",
              "transition_logits" if learnable else "transition_matrix"]
     tl = MixtureGaussianHMMLayer(S, D, num_components=C, covariance_type=cov_type,
-                                 learnable_transitions=learnable)
+                                 learnable_transitions=learnable, device="cpu")
     tl.load_state_dict(bridge.mixture_gaussian_state_dict(
         {n: np.asarray(getattr(jl, n)[...]) for n in names}))
     return jl, tl
@@ -212,7 +212,7 @@ def test_numpy_bridge_round_trips(obs):
     out = bridge.mixture_gaussian_numpy(tl)
     assert set(out) == {"mixture_weights_logits", "means", "cov_params", "transition_matrix"}
     back = MixtureGaussianHMMLayer(S, D, num_components=C, covariance_type="tied",
-                                   learnable_transitions=False)
+                                   learnable_transitions=False, device="cpu")
     back.load_state_dict(bridge.mixture_gaussian_state_dict(out))
     for k, v in back.state_dict().items():
         assert torch.equal(v, tl.state_dict()[k])
