@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's GMM-HMM, duration-model and streaming
-paths on one CUDA GPU.
+"""Smoke run of the PyTorch port's GMM-HMM, duration-model, streaming and
+neural-HMM paths on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -46,14 +46,35 @@ lookahead 5, a path history of 165 frames; random weights from a seed):
   against the single-stream processor on the card; the fleet and
   single-stream raw-PCM steps against the CPU;
 
+then the neural HMMs at the width of the JAX bench's NeuralHMM row
+(``NeuralHMM(12, 80, hidden_dim=256)``, B=16, T=1000, static
+transitions) and its contextual twin (``ContextualNeuralHMM(12, 80,
+phoneme_vocab_size=64)``, time-varying (16, 1000, 12, 12) transitions;
+random weights from a seed, eval mode):
+
+* the neural emission kernel against its plain version on the card
+  (headline, ragged row tiles, odd D and H, S=1, S=128, H at the top of
+  its envelope) and its autograd Function's gradients; the time-varying
+  modes of the trellis and fused forward-backward kernels against their
+  plain versions (headline, K=32, ragged with a length-1 row, ties, -inf
+  entries);
+* ``__call__``, ``viterbi_decode`` and ``compute_likelihood`` of both
+  models against the same models on the CPU, ``compute_loss`` gradients
+  against the CPU in float64, five Adam steps in training mode with the
+  loss falling; ``transformer`` and ``rnn`` transition models at T=64
+  and a neural-emission ``SemiMarkovHMM`` decode against the CPU;
+
 and times the kernels, a decode, a ``compute_loss`` step and an
 ``em_step`` of each path, a duration-model ``posteriors`` call, a
-streaming chunk, a fleet step and a PCM step with CUDA events, counts
-the launches of one call of each, and profiles ten beam chunks.
+streaming chunk, a fleet step, a PCM step and a NeuralHMM forward,
+decode and ``compute_loss`` step (static and contextual) with CUDA
+events, counts the launches of one call of each, and profiles ten beam
+chunks and ten NeuralHMM forwards.
 
 Phases, one line each: card, build, each kernel vs plain, decode,
 training, duration-model decode, duration-model training, stream
-kernels, streaming serve, fleets, timing. Any failure exits non-zero
+kernels, streaming serve, fleets, neural kernels, neural models, timing.
+Any failure exits non-zero
 before the last line. On success the last two lines are a JSON object
 describing each kernel (with its bound from this run's inputs) and
 ``{"ok": true, "device": {...}}``. There is no CPU path: without a CUDA
@@ -127,6 +148,21 @@ HOP = 160
 # confidences (the geometric-mean frame probability) within 1e-5.
 STREAM_AGREE = 0.999
 STREAM_CONF_ATOL = 1e-5
+# The neural configuration's width: the JAX bench's NeuralHMM row
+# (bench.py:468-491): batch, frames, states, features, hidden units; the
+# contextual twin's phoneme vocabulary and prosody features, and the frames
+# of the transformer / rnn transition checks.
+NB, NT, NS, ND, NH = 16, 1000, 12, 80, 256
+VOCAB, PROSODY, SMALL_T = 64, 16, 64
+# The neural emission kernel vs its plain version: rtol/atol 1e-4, the JAX
+# kernel test's own (tests/test_neural.py). The neural models on the card
+# vs the CPU in float64: posteriors atol 5e-3 (f32 chains on shifted
+# emissions, as for the duration models), gradients within 5e-3 of each
+# tensor's largest entry (sums over 16,000 frames of f32 posteriors and
+# emission products).
+EMIT_TOL = 1e-4
+NEURAL_POST_ATOL = 5e-3
+NEURAL_GRAD_RTOL = 5e-3
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
 # outside the tensor cores, the type every kernel here computes in.
 HBM_BYTES_PER_S = 3.35e12
@@ -177,12 +213,23 @@ KERNELS = {
         "source": "pytorch_hmm_tpu_torch/csrc/stream_beam.cu",
         "replaces": "pytorch_hmm_tpu/ops/stream_multi.py:289",
     },
+    "fused_gaussian_emission": {
+        "source": "pytorch_hmm_tpu_torch/csrc/emit_mlp.cu",
+        "replaces": "pytorch_hmm_tpu/ops/emit_mlp.py:133",
+    },
 }
+# Kernels with a time-varying (B, T, K, K) mode, counted apart as well.
+TIME_VARYING = ("smallk_viterbi", "fbsum_smallk")
 TRAINING_KERNELS = ("diag_quadratic", "fbsum_smallk", "hsmm_smallk_forward",
                     "hsmm_smallk_backward")
 DURATION_DECODE_KERNELS = ("diag_quadratic", "hsmm_smallk_viterbi")
 DURATION_TRAINING_KERNELS = ("diag_quadratic", "hsmm_smallk_fb", "hsmm_smallk_forward_general",
                              "hsmm_smallk_backward_general")
+NEURAL_KERNELS = {
+    "NeuralHMM": ("fused_gaussian_emission", "smallk_viterbi", "fbsum_smallk",
+                  "hsmm_smallk_forward", "hsmm_smallk_backward"),
+    "ContextualNeuralHMM": ("fused_gaussian_emission", "smallk_viterbi", "fbsum_smallk"),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -243,11 +290,18 @@ def kernel_fns():
 def reset_launches():
     for fn in kernel_fns().values():
         fn.launches = 0
+        if hasattr(fn, "time_varying_launches"):
+            fn.time_varying_launches = 0
 
 
 def read_launches(names):
     fns = kernel_fns()
     return {name: fns[name].launches for name in names}
+
+
+def read_tv_launches():
+    fns = kernel_fns()
+    return {name: fns[name].time_varying_launches for name in TIME_VARYING}
 
 
 def phase_diag_quadratic(dev, gen):
@@ -1144,16 +1198,361 @@ def _profile(dev, fn, n=10):
     return {"host_ms": wall, "device_ms": busy, "kernels": len(kernels) / n, "top_ms": top}
 
 
-def bounds(inputs):
+def _emit_inputs(dev, gen, b, t, d, h, s):
+    """Observations, weights in the ``(in, out)`` layout and the
+    parameter-only tables of ``fused_gaussian_emission``."""
+    import torch
+    from pytorch_hmm_tpu_torch.ops.emit_mlp import gaussian_tables
+
+    def w(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device=dev, generator=gen)
+
+    obs = w(b, t, d)
+    w1, b1 = w(d, h, scale=d ** -0.5), w(h, scale=0.1)
+    w2, b2 = w(h, h, scale=h ** -0.5), w(h, scale=0.1)
+    wm, bm = w(h, d, scale=h ** -0.5), w(d, scale=0.1)
+    wlv, blv = w(h, d, scale=0.3 * h ** -0.5), w(d, scale=0.1)
+    tables = gaussian_tables(w(s, h, scale=h ** -0.5), wm, wlv)
+    return [obs, w1, b1, w2, b2, wm, bm, wlv, blv] + [x.contiguous() for x in tables]
+
+
+EMIT_CASES = {
+    "headline": (NB, NT, ND, NH, NS),
+    "ragged tiles, odd D and H": (3, 77, 13, 48, 5),
+    "S=1": (2, 100, ND, NH, 1),
+    "S=128": (2, 100, ND, NH, 128),
+    "H=352 (envelope top)": (2, 50, ND, 352, NS),
+}
+
+
+def phase_emit_mlp(dev, gen):
+    """The neural emission kernel vs its plain version on the card, and
+    its Function's gradients vs autograd through the plain version;
+    returns the headline max abs error."""
+    import torch
+    from pytorch_hmm_tpu_torch.ops import emit_mlp
+
+    errs = {}
+    for name, shape in EMIT_CASES.items():
+        args = _emit_inputs(dev, gen, *shape)
+        got = emit_mlp.fused_gaussian_emission(*args)
+        want = emit_mlp.fused_gaussian_emission_reference(*args)
+        torch.cuda.synchronize(dev)
+        check(got.shape == shape[:2] + (shape[4],), f"fused_gaussian_emission {name}: shape")
+        errs[name] = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=EMIT_TOL, atol=EMIT_TOL),
+              f"fused_gaussian_emission {name} disagrees: max abs err {errs[name]}")
+    args = [a.requires_grad_(True) for a in _emit_inputs(dev, gen, 2, 100, ND, NH, NS)]
+    cot = torch.randn(2, 100, NS, device=dev, generator=gen)
+    got = torch.autograd.grad((emit_mlp.fused_gaussian_emission(*args) * cot).sum(), args)
+    want = torch.autograd.grad((emit_mlp.fused_gaussian_emission_reference(*args) * cot).sum(), args)
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(torch.allclose(g, w, rtol=EMIT_TOL, atol=EMIT_TOL * float(w.abs().max())),
+              f"fused_gaussian_emission: gradient of input {i} disagrees with autograd")
+    return errs
+
+
+def _tv_cases(dev, gen):
+    """Inputs of the time-varying checks: ``(log_obs, log_a (B, T, K, K),
+    log_pi, lengths)``."""
+    import torch
+
+    def rand(b, t, k, lengths=None, band=False):
+        lo = torch.randn(b, t, k, device=dev, generator=gen)
+        logits = torch.randn(b, t, k, k, device=dev, generator=gen)
+        if band:
+            # Self-loop and two steps forward; -inf everywhere else.
+            i = torch.arange(k, device=dev)
+            keep = (i[None, :] >= i[:, None]) & (i[None, :] <= i[:, None] + 2)
+            logits = logits.masked_fill(~keep, float("-inf"))
+        la = torch.log_softmax(logits, -1).contiguous()
+        lp = torch.log_softmax(torch.randn(k, device=dev, generator=gen), -1)
+        ln = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+        return lo, la, lp, ln
+
+    k = 6
+    c = -torch.log(torch.tensor(float(k))).item()
+    ties = (torch.zeros(2, 40, k, device=dev), torch.full((2, 40, k, k), c, device=dev),
+            torch.full((k,), c, device=dev), None)
+    return {
+        "headline": rand(NB, NT, NS),
+        "K=32": rand(8, 500, 32),
+        "ragged": rand(5, 300, 9, [300, 31, 164, 1, 129]),
+        "ties": ties,
+        "-inf band": rand(4, 300, NS, [300, 299, 7, 1], band=True),
+    }
+
+
+def phase_tv_kernels(dev, gen):
+    """The time-varying modes of ``smallk_viterbi`` and ``fbsum_smallk``
+    vs their plain versions; returns each one's headline max abs error
+    (the Viterbi's of its scores) and the case names."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    worst = {}
+    cases = _tv_cases(dev, gen)
+    for name, (lo, la, lp, ln) in cases.items():
+        s1, c1 = ops.smallk_viterbi(lo, la, lp, ln)
+        fb = ops.fbsum_smallk(lo, la, lp, ln)
+        torch.cuda.synchronize(dev)
+        s0, c0 = ops.smallk_viterbi_reference(lo, la, lp, ln)
+        fb0 = ops.fbsum_smallk_reference(lo, la, lp, ln)
+        check(torch.equal(s1, s0), f"smallk_viterbi time-varying {name}: paths differ")
+        check(torch.equal(c1, c0), f"smallk_viterbi time-varying {name}: scores differ")
+        err = max(_sum_err(g, w, ln) for g, w in zip(fb, fb0))
+        check(err != float("inf"), f"fbsum_smallk time-varying {name}: disagrees with its plain version")
+        if name == "headline":
+            worst = {"smallk_viterbi": (c1 - c0).abs().max().item(), "fbsum_smallk": err}
+    return worst, list(cases)
+
+
+def _neural_data(dev, seed):
+    """Observations ``(NB, NT, ND)`` from a walk over NS random centres
+    plus noise; phonemes ``(NB, NT)`` in segments of 3-12 frames; prosody
+    ``(NB, NT, PROSODY)`` (numpy, from a seed)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(NS, ND))
+    seg = rng.integers(5, 40, size=(NB, 1))
+    obs = centers[(np.arange(NT)[None, :] // seg) % NS] + rng.normal(size=(NB, NT, ND))
+    ph = (np.arange(NT)[None, :] // rng.integers(3, 13, size=(NB, 1))
+          + rng.integers(0, VOCAB, size=(NB, 1))) % VOCAB
+    pros = rng.normal(size=(NB, NT, PROSODY))
+    return (torch.from_numpy(obs.astype(np.float32)).to(dev), torch.from_numpy(ph).to(dev),
+            torch.from_numpy(pros.astype(np.float32)).to(dev))
+
+
+def _neural_model(cls, dev, **kw):
+    import torch
+
+    return cls(generator=torch.Generator().manual_seed(SEED), device=dev, **kw).eval()
+
+
+NEURAL_KW = {
+    "NeuralHMM": dict(num_states=NS, observation_dim=ND, hidden_dim=NH),
+    "ContextualNeuralHMM": dict(num_states=NS, observation_dim=ND, phoneme_vocab_size=VOCAB),
+}
+
+
+def phase_neural(dev):
+    """NeuralHMM (static) and ContextualNeuralHMM (time-varying) at the
+    slice's width: the inference entry points against the CPU, the
+    trellis on the CPU's inputs, ``compute_loss`` gradients against the
+    CPU in float64, five Adam steps; then the transformer and rnn
+    transition models at T=64 and a neural-emission SemiMarkovHMM decode
+    against the CPU."""
+    import torch
+    from pytorch_hmm_tpu_torch import ContextualNeuralHMM, NeuralHMM, SemiMarkovHMM, core, ops
+
+    classes = {"NeuralHMM": NeuralHMM, "ContextualNeuralHMM": ContextualNeuralHMM}
+    obs, ph, pros = _neural_data(dev, SEED + 40)
+    obs_cpu, ph_cpu, pros_cpu = obs.cpu(), ph.cpu(), pros.cpu()
+    out = {"launches": {}, "tv_launches": {}, "agreement": {}, "errs": {}, "losses": {}}
+    fails = []
+
+    def bound(key, err, limit):
+        out["errs"][key] = err
+        if not err <= limit:
+            fails.append(f"{key} off by {err:.3g} (limit {limit})")
+
+    for name, cls in classes.items():
+        kw = NEURAL_KW[name]
+        m = _neural_model(cls, dev, **kw)
+        cpu = _cpu_copy(m, cls, **kw).eval()
+        cpu64 = _cpu_copy(m, cls, torch.float64, **kw).eval()
+        contextual = name == "ContextualNeuralHMM"
+
+        def ctx_of(model, p, q):
+            return model.encode_context(p, q) if contextual else None
+
+        with torch.no_grad():
+            c, c_cpu = ctx_of(m, ph, pros), ctx_of(cpu, ph_cpu, pros_cpu)
+            c64 = ctx_of(cpu64, ph_cpu, pros_cpu.double())
+        reset_launches()
+        post, alpha, beta = (m.forward_with_context(obs, ph, pros) if contextual else m(obs))
+        states, score = m.viterbi_decode(obs, c)
+        ll = m.compute_likelihood(obs, c)
+        # compute_loss gradients in eval mode (the fused emission's
+        # Function), checked against the CPU in float64 below.
+        m.zero_grad()
+        m.compute_loss(obs, ctx_of(m, ph, pros)).backward()
+        torch.cuda.synchronize(dev)
+        out["launches"][name] = read_launches(NEURAL_KERNELS[name])
+        out["tv_launches"][name] = read_tv_launches()
+        for k, n in out["launches"][name].items():
+            check(n > 0, f"the {name} path never launched {k}")
+        if contextual:
+            for k, n in out["tv_launches"][name].items():
+                check(n > 0, f"the {name} path never launched the time-varying {k}")
+        for t in (post, alpha, beta, ll):
+            check(bool(torch.isfinite(t).all()), f"{name}: outputs not finite")
+        check(post.shape == (NB, NT, NS) and states.shape == (NB, NT) and ll.shape == (NB,),
+              f"{name}: shapes {tuple(post.shape)} {tuple(states.shape)} {tuple(ll.shape)}")
+        # Rows sum to 1 up to the f32 rounding of log Z (~1e3-1e4 here).
+        check(bool(((post.sum(-1) - 1.0).abs() <= 1e-3).all()), f"{name}: posteriors do not sum to 1")
+
+        st0, sc0 = cpu.viterbi_decode(obs_cpu, c_cpu)
+        out["agreement"][name] = (states.cpu() == st0).float().mean().item()
+        check(out["agreement"][name] >= 0.999, f"{name}: frame agreement {out['agreement'][name]}")
+        check(torch.allclose(score.cpu(), sc0, rtol=1e-5, atol=0.0), f"{name}: decode scores differ")
+        post64 = cpu64(obs_cpu.double(), c64)[0]
+        bound(f"{name} posteriors", (post.cpu().double() - post64).abs().max().item(),
+              NEURAL_POST_ATOL)
+        ll64 = cpu64.compute_likelihood(obs_cpu.double(), c64).detach()
+        bound(f"{name} log-likelihood", ((ll.detach().cpu().double() - ll64).abs()
+                                         / ll64.abs()).max().item(), LOSS_RTOL)
+        # The card's trellis on the CPU's inputs gives the CPU's paths.
+        with torch.no_grad():
+            lo, la, lp = cpu._dp_args(obs_cpu, c_cpu, None)
+        rs, rc = core.viterbi(lo, la, lp)
+        gs, gc = ops.smallk_viterbi(lo.to(dev), la.to(dev).contiguous(), lp.to(dev))
+        check(torch.equal(gs.cpu(), rs) and torch.equal(gc.cpu(), rc),
+              f"{name}: card trellis on CPU inputs differs")
+
+        ref_loss = cpu64.compute_loss(obs_cpu.double(), ctx_of(cpu64, ph_cpu, pros_cpu.double()))
+        ref_loss.backward()
+        for (pn, p), (_, q) in zip(m.named_parameters(), cpu64.named_parameters()):
+            if q.grad is None:
+                check(p.grad is None, f"{name}: {pn} has a gradient the CPU lacks")
+                continue
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                  f"{name}: gradient of {pn} missing or not finite")
+            bound(f"{name} d{pn}", _grad_err(p.grad.cpu(), q.grad), NEURAL_GRAD_RTOL)
+
+        # Five Adam steps in training mode, dropout on.
+        tm = _neural_model(cls, dev, **kw).train()
+        opt = torch.optim.Adam(tm.parameters(), lr=1e-3)
+        losses = []
+        for _ in range(ADAM_STEPS):
+            opt.zero_grad()
+            loss = tm.compute_loss(obs, ctx_of(tm, ph, pros))
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        check(losses[-1] < losses[0], f"{name} Adam: the loss did not fall: {losses}")
+        out["losses"][name] = losses
+        out[name] = m
+
+    # Transformer and rnn transition models at T=64 against the CPU.
+    for tt in ("transformer", "rnn"):
+        kw = dict(num_states=NS, observation_dim=ND, context_dim=PROSODY, hidden_dim=NH,
+                  transition_type=tt)
+        m = _neural_model(NeuralHMM, dev, **kw)
+        cpu = _cpu_copy(m, NeuralHMM, **kw).eval()
+        cpu64 = _cpu_copy(m, NeuralHMM, torch.float64, **kw).eval()
+        x, c = obs[:4, :SMALL_T].contiguous(), pros[:4, :SMALL_T].contiguous()
+        reset_launches()
+        post = m(x, c)[0]
+        st, sc = m.viterbi_decode(x, c)
+        ll = m.compute_likelihood(x, c)
+        torch.cuda.synchronize(dev)
+        tv = read_tv_launches()
+        check(all(n > 0 for n in tv.values()), f"{tt}: no time-varying launches {tv}")
+        st0, sc0 = cpu.viterbi_decode(x.cpu(), c.cpu())
+        out["agreement"][tt] = (st.cpu() == st0).float().mean().item()
+        check(out["agreement"][tt] >= 0.99, f"{tt}: frame agreement {out['agreement'][tt]}")
+        check(torch.allclose(sc.cpu(), sc0, rtol=1e-5, atol=0.0), f"{tt}: decode scores differ")
+        with torch.no_grad():
+            lo, la, lp = cpu._dp_args(x.cpu(), c.cpu(), None)
+        rs, rc = core.viterbi(lo, la, lp)
+        gs, gc = ops.smallk_viterbi(lo.to(dev), la.to(dev).contiguous(), lp.to(dev))
+        check(torch.equal(gs.cpu(), rs) and torch.equal(gc.cpu(), rc),
+              f"{tt}: card trellis on CPU inputs differs")
+        x64, c64 = x.cpu().double(), c.cpu().double()
+        bound(f"{tt} posteriors", (post.cpu().double() - cpu64(x64, c64)[0]).abs().max().item(),
+              NEURAL_POST_ATOL)
+        bound(f"{tt} log-likelihood", ((ll.detach().cpu().double()
+                                        - cpu64.compute_likelihood(x64, c64).detach()).abs()
+                                       / ll.detach().cpu().double().abs()).max().item(), LOSS_RTOL)
+
+    # SemiMarkovHMM with neural emissions: decode against the CPU.
+    kw = dict(num_states=HS, observation_dim=HF, max_duration=HD, observation_model="neural")
+    semi = SemiMarkovHMM(generator=torch.Generator().manual_seed(SEED), device=dev, **kw).eval()
+    semi_cpu = _cpu_copy(semi, SemiMarkovHMM, **kw).eval()
+    x = obs[:, :SEMI_T, :HF].contiguous()
+    reset_launches()
+    path, _, sc = semi.viterbi_decode(x)
+    torch.cuda.synchronize(dev)
+    out["launches"]["SemiMarkovHMM neural"] = read_launches(("fused_gaussian_emission",
+                                                             "hsmm_smallk_viterbi"))
+    for k, n in out["launches"]["SemiMarkovHMM neural"].items():
+        check(n > 0, f"the neural SemiMarkovHMM decode never launched {k}")
+    path0, _, sc0 = semi_cpu.viterbi_decode(x.cpu())
+    out["agreement"]["SemiMarkovHMM neural"] = (path.cpu() == path0).float().mean().item()
+    check(out["agreement"]["SemiMarkovHMM neural"] >= 0.999, "neural SemiMarkovHMM: agreement")
+    check(torch.allclose(sc.cpu(), sc0, rtol=1e-5, atol=0.0), "neural SemiMarkovHMM: scores")
+    check(not fails, "neural models vs CPU float64: " + "; ".join(fails) + f" (all: {out['errs']})")
+    out["obs"], out["ph"], out["pros"] = obs, ph, pros
+    return out
+
+
+def phase_neural_timing(dev, gen, neural):
+    """Row 16 and the time-varying modes against their plain versions;
+    a NeuralHMM forward, decode and compute_loss step, static and
+    contextual; launches per call; a profile of ten NeuralHMM forwards.
+    Returns ``(times, launches, profile, inputs)``."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    slow = dict(runs=PLAIN_SUM_RUNS, warmup=1)
+    emit = _emit_inputs(dev, gen, NB, NT, ND, NH, NS)
+    lo, la, lp, _ = _tv_cases(dev, gen)["headline"]
+    times = {
+        "fused_gaussian_emission": (
+            cuda_median_ms(lambda: ops.fused_gaussian_emission(*emit)),
+            cuda_median_ms(lambda: ops.fused_gaussian_emission_reference(*emit))),
+        "smallk_viterbi tv": (cuda_median_ms(lambda: ops.smallk_viterbi(lo, la, lp)),
+                              cuda_median_ms(lambda: ops.smallk_viterbi_reference(lo, la, lp),
+                                             **slow)),
+        "fbsum_smallk tv": (cuda_median_ms(lambda: ops.fbsum_smallk(lo, la, lp)),
+                            cuda_median_ms(lambda: ops.fbsum_smallk_reference(lo, la, lp), **slow)),
+    }
+    obs, ph, pros = neural["obs"], neural["ph"], neural["pros"]
+    static, ctx = neural["NeuralHMM"], neural["ContextualNeuralHMM"]
+    with torch.no_grad():
+        context = ctx.encode_context(ph, pros)
+
+    def step(m, c):
+        m.zero_grad()
+        m.compute_loss(obs, c() if c else None).backward()
+
+    calls = {
+        "NeuralHMM forward": lambda: static(obs),
+        "NeuralHMM decode": lambda: static.viterbi_decode(obs),
+        "NeuralHMM compute_loss step": lambda: step(static, None),
+        "ContextualNeuralHMM forward": lambda: ctx.forward_with_context(obs, ph, pros),
+        "ContextualNeuralHMM decode": lambda: ctx.viterbi_decode(obs, context),
+        "ContextualNeuralHMM compute_loss step": lambda: step(
+            ctx, lambda: ctx.encode_context(ph, pros)),
+    }
+    launches = {}
+    for name, fn in calls.items():
+        times[name] = cuda_median_ms(fn)
+        reset_launches()
+        fn()
+        torch.cuda.synchronize(dev)
+        launches[name] = {k: v for k, v in read_launches(KERNELS).items() if v}
+        tv = {k: v for k, v in read_tv_launches().items() if v}
+        if tv:
+            launches[name]["time-varying"] = tv
+    return times, launches, _profile(dev, calls["NeuralHMM forward"]), (emit, lo, la)
+
+
+def bounds(inputs, neural_inputs):
     """Each kernel's least time on the card for this run's timed inputs,
     ``(ms, "bytes" or "operations")``: the larger of the bytes it must
     move (each input read once, each output written once) over the HBM
     rate and its float32 operations over the float32 peak. Operations
     are counted as the algorithm needs them: one per add, compare, exp
-    or multiply."""
+    or multiply; a product's multiply-add counts two."""
     B_, T_, K_, D_, N_ = B, T, S, D, S * C
     HB_, HT_, HS_, HD_ = HB, HT, HS, HD
     (beam, la, lo, _fleets) = inputs
+    emit, tv_lo, tv_la = neural_inputs
+    er, es = emit[0].shape[0] * emit[0].shape[1], emit[9].shape[1]   # rows, states
     n_valid = beam[2]
     beam_n, beam_t, beam_s = beam[1].shape
     bt, bk = B_ * T_, B_ * T_ * K_
@@ -1192,6 +1591,18 @@ def bounds(inputs):
         "beam_chunk_multi": (
             f * (beam_s * beam_s + beam[1].numel() + 2 * beam_n * (2 * SW + SW * SH + 1) + beam_n),
             beam_n * n_valid * 4 * SW * beam_s),
+        # obs, the 13 weights and tables in; (R, S) scores out. The four
+        # layers' and three head products' multiply-adds, then per row and
+        # feature the centring, exp and products (about 8), and per score
+        # the clamp and the sums (about 6).
+        "fused_gaussian_emission": (
+            f * (sum(t.numel() for t in emit) + er * es),
+            2 * er * (ND * NH + NH * NH + 2 * NH * ND + 3 * ND * es) + 8 * er * ND + 6 * er * es),
+        # The time-varying modes read a (K, K) matrix a frame as well.
+        "smallk_viterbi tv": (f * (tv_lo.numel() + tv_la.numel() + NS + NB * NT + NB),
+                              2 * tv_lo.numel() * NS + tv_lo.numel()),
+        "fbsum_smallk tv": (f * (tv_lo.numel() + tv_la.numel() + NS + 2 * tv_lo.numel() + NB),
+                            2 * (3 * tv_lo.numel() * NS + 2 * tv_lo.numel())),
     }
     out = {}
     for name, (nbytes, ops_) in work.items():
@@ -1376,16 +1787,51 @@ def main() -> int:
           f"{fleets['launches']}, frame agreement {fleets['agreement']}, max confidence err "
           f"{fleets['conf_err']}", flush=True)
 
+    emit_errs = phase_emit_mlp(dev, gen)
+    print(f"fused_gaussian_emission vs plain: ok on {len(EMIT_CASES)} cases (B, T, D, H, S): "
+          + ", ".join(f"{k} {EMIT_CASES[k]}: {v:.3g}" for k, v in emit_errs.items())
+          + f" max abs err (rtol/atol {EMIT_TOL}, TF32 off); its Function's gradients vs autograd "
+          "through the plain version: ok", flush=True)
+    tv_errs, tv_cases = phase_tv_kernels(dev, gen)
+    print(f"smallk_viterbi time-varying vs plain: ok, paths and scores identical on {len(tv_cases)} "
+          f"cases ({', '.join(tv_cases)}); fbsum_smallk time-varying vs plain: ok on the same "
+          f"cases; headline max abs err {tv_errs} (atol {SUM_ATOL} + rtol {SUM_RTOL})", flush=True)
+    neural = phase_neural(dev)
+    for name in NEURAL_KERNELS:
+        print(f"{name} (B={NB}, T={NT}, S={NS}, D={ND}, H={NH}): ok, launches "
+              f"{neural['launches'][name]}, time-varying launches {neural['tv_launches'][name]}, "
+              f"decode frame agreement with CPU {neural['agreement'][name]}, Adam losses "
+              f"{neural['losses'][name]}", flush=True)
+    print(f"transformer / rnn transitions (B=4, T={SMALL_T}) and SemiMarkovHMM neural emissions "
+          f"(B={NB}, T={SEMI_T}, S={HS}, D={HD}): ok, launches "
+          f"{neural['launches']['SemiMarkovHMM neural']}, decode frame agreement "
+          + ", ".join(f"{k}: {v}" for k, v in neural["agreement"].items()
+                      if k not in NEURAL_KERNELS), flush=True)
+    print("neural models vs CPU float64 (posteriors max abs; log-likelihood max rel; gradients "
+          "relative to each tensor's max): "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in neural["errs"].items())
+          + f" (posteriors atol {NEURAL_POST_ATOL}, ll rtol {LOSS_RTOL}, grad rtol "
+          f"{NEURAL_GRAD_RTOL})", flush=True)
+
     times, launches_per_call = phase_timing(dev, gen, layer, obs, train, dur, dur_train)
     stimes, slaunches, prof, stream_inputs = phase_stream_timing(dev, gen)
+    ntimes, nlaunches, nprof, neural_inputs = phase_neural_timing(dev, gen, neural)
     times.update(stimes)
+    times.update(ntimes)
     launches_per_call.update(slaunches)
-    bound = bounds(stream_inputs)
+    launches_per_call.update(nlaunches)
+    bound = bounds(stream_inputs, neural_inputs)
     for name in KERNELS:
         ms, plain = times[name]
         print(f"timing {name}: {ms:.4f} ms kernel, {plain:.4f} ms plain torch, bound "
               f"{bound[name][0]:.6f} ms ({bound[name][1]}) (median, CUDA events) on {card}",
               flush=True)
+    for name in TIME_VARYING:
+        ms, plain = times[f"{name} tv"]
+        b_ms, b_by = bound[f"{name} tv"]
+        print(f"timing {name} time-varying (B={NB}, T={NT}, K={NS}): {ms:.4f} ms kernel, "
+              f"{plain:.4f} ms plain torch, bound {b_ms:.6f} ms ({b_by}) (median, CUDA events) "
+              f"on {card}", flush=True)
     print(f"timing library torch.addmm for diag_quadratic: {times['library diag_quadratic']:.4f} ms "
           f"on {card}", flush=True)
     for name, what, shape in (
@@ -1414,19 +1860,34 @@ def main() -> int:
     print(f"profile of 10 beam chunks through process_chunk: host wall {prof['host_ms']:.4f} ms, "
           f"device busy {prof['device_ms']} ms, {prof['kernels']} device ops per chunk, top "
           f"{prof['top_ms']} on {card}", flush=True)
+    for name in (f"{m} {c}" for m in NEURAL_KERNELS
+                 for c in ("forward", "decode", "compute_loss step")):
+        what = "forward+backward" if "step" in name else "call"
+        print(f"timing {name}: {times[name]:.4f} ms per {what} of {NB}x{NT} frames (median of "
+              f"{TIMED_RUNS}, CUDA events) on {card}", flush=True)
+    print(f"profile of 10 NeuralHMM forwards (B={NB}, T={NT}): host wall {nprof['host_ms']:.4f} ms, "
+          f"device busy {nprof['device_ms']} ms, {nprof['kernels']} device ops per call, top "
+          f"{nprof['top_ms']} on {card}", flush=True)
 
     errs = {"diag_quadratic": dq_errs[(B, T, D, S * C)], "smallk_viterbi": vit_err, **sum_errs,
-            **hsmm_errs, **stream_errs}
+            **hsmm_errs, **stream_errs, "fused_gaussian_emission": emit_errs["headline"]}
     launches = {name: sum(run.get(name, 0) for run in (
         dec_launches, train["launches"], dur["launches"], dur_train["launches"],
-        serve["beam"]["launches"], serve["greedy"]["launches"], fleets["launches"]))
+        serve["beam"]["launches"], serve["greedy"]["launches"], fleets["launches"],
+        *neural["launches"].values()))
         for name in KERNELS}
     library = {"diag_quadratic": times["library diag_quadratic"]}
+    time_varying = {name: {
+        "launches": sum(run[name] for run in neural["tv_launches"].values()),
+        "max_abs_err": tv_errs[name], "ms": times[f"{name} tv"][0],
+        "plain_ms": times[f"{name} tv"][1], "bound_ms": bound[f"{name} tv"][0],
+        "bound_by": bound[f"{name} tv"][1]} for name in TIME_VARYING}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bound[name][0], "bound_by": bound[name][1],
-         "library_ms": library.get(name)}
+         "library_ms": library.get(name),
+         **({"time_varying": time_varying[name]} if name in time_varying else {})}
         for name in KERNELS
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,12 @@ forward-backward recursions) and the duration models (``HSMMLayer``,
 ``AdaptiveDurationHSMM``: decode, likelihood, posteriors, EM and
 sampling over the ``core.hsmm`` segment DP) and streaming decode
 (``StreamingHMMProcessor``, ``MultiStreamDecoder``, the on-device PCM
-frontend ``DeviceFramer`` and ``make_pcm_decode_step``). Models are built
-on the CUDA device unless ``device`` names another; on CPU tensors
-everything runs as plain torch.
+frontend ``DeviceFramer`` and ``make_pcm_decode_step``) and the neural
+HMMs (``NeuralHMM``, ``ContextualNeuralHMM``, ``NeuralObservationModel``,
+``NeuralTransitionModel``, and ``SemiMarkovHMM`` with neural emissions:
+static or time-varying transitions, the fused neural emission kernel).
+Models are built on the CUDA device unless ``device`` names another; on
+CPU tensors everything runs as plain torch.
 
 Importing the package imports neither JAX nor Triton and builds nothing.
 """
@@ -45,10 +48,14 @@ from .emissions import (
 from .frontend import DeviceFramer, device_frames, framing_tables, make_pcm_decode_step
 from .models import (
     AdaptiveDurationHSMM,
+    ContextualNeuralHMM,
     DurationConstrainedHMM,
     DurationModel,
     HSMMLayer,
     MixtureGaussianHMMLayer,
+    NeuralHMM,
+    NeuralObservationModel,
+    NeuralTransitionModel,
     PreparedGMMDecoder,
     SemiMarkovHMM,
 )
@@ -95,10 +102,14 @@ __all__ = [
     "gmm_log_probs",
     "spherical_gaussian_log_probs",
     "AdaptiveDurationHSMM",
+    "ContextualNeuralHMM",
     "DurationConstrainedHMM",
     "DurationModel",
     "HSMMLayer",
     "MixtureGaussianHMMLayer",
+    "NeuralHMM",
+    "NeuralObservationModel",
+    "NeuralTransitionModel",
     "PreparedGMMDecoder",
     "SemiMarkovHMM",
     "auto_forward",

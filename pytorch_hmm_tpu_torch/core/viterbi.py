@@ -1,11 +1,13 @@
 """Viterbi decoding as a plain torch loop (max-product semiring).
 
 Port of ``pytorch_hmm_tpu.core.viterbi.viterbi`` for static ``(K, K)``
-transitions. The add order per frame is the reference's —
-``max_k(delta[k] + log_a[k, j]) + log_obs[t, j]`` — so paths and scores
-are bit-identical to it, ties included (lowest predecessor index).
-This is the plain version the CUDA trellis kernel
-(``ops.smallk.smallk_viterbi``) is held against.
+and time-varying ``(B, T, K, K)`` transitions. The add order per frame
+is the reference's — ``max_k(delta[k] + log_a[k, j]) + log_obs[t, j]``
+— so paths and scores are bit-identical to it, ties included (lowest
+predecessor index). This is the plain version the CUDA trellis kernel
+(``ops.smallk.smallk_viterbi``) is held against. The reference's
+``viterbi_associative`` and ``viterbi_blocked`` (static only, used by
+``hmm.py``) come with ROADMAP queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ def viterbi(
 
     Args:
         log_obs: ``(B, T, K)`` per-state observation log-likelihoods.
-        log_a: ``(K, K)`` log transition matrix.
+        log_a: ``(K, K)`` static or ``(B, T, K, K)`` time-varying log
+            transitions (entry ``[:, t]`` governs the step into frame
+            ``t``; ``[:, 0]`` is ignored).
         log_pi: ``(K,)`` initial log-probabilities.
         lengths: optional ``(B,)`` valid lengths; the path for padded
             frames repeats the row's final valid state.
@@ -40,16 +44,18 @@ def viterbi(
         ``states (B, T) int32`` and, if requested, ``score (B,)`` — the
         log joint probability of the best path.
     """
-    if log_a.ndim != 2:
-        raise ValueError(
-            f"viterbi takes static (K, K) transitions, got {tuple(log_a.shape)}"
-        )
     B, T, K = log_obs.shape
+    tv = log_a.ndim != 2
+    if tv and tuple(log_a.shape) != (B, T, K, K):
+        raise ValueError(
+            f"viterbi takes (K, K) or (B, T, K, K) = {(B, T, K, K)} transitions, "
+            f"got {tuple(log_a.shape)}"
+        )
     states_k = torch.arange(K, device=log_obs.device)
     delta = log_pi + log_obs[:, 0]
     psis = []
     for t in range(1, T):
-        best, psi = max_matvec(delta, log_a)
+        best, psi = max_matvec(delta, log_a[:, t] if tv else log_a)
         best = best + log_obs[:, t]
         if lengths is not None:
             keep = (t < lengths)[:, None]

@@ -49,6 +49,20 @@
 // one chain's time, which is the point of the TPU's fused kernel.
 // Outputs go straight to device memory, one coalesced row of K floats
 // per frame, off the critical path.
+//
+// Time-varying mode (fbsum_smallk_tv_f32): log_a is (B, T, K, K), and
+// the step into frame t reads log_a[b, t] (log_a[b, 0] is never read):
+//
+//     alpha_t[j] = o_t[j] + lse_k(alpha_{t-1}[k] + log_a[t][k, j])
+//     beta_t[i]  = lse_j(log_a[t+1][i, j] + o_{t+1}[j] + beta_{t+1}[j])
+//
+// with the same -1e30 clamp. Each chain stages its sequence's matrices
+// with its log-obs, TV_CHUNK(KP) frames at a time (32, 16 or 8 for
+// KP = 8, 16, 32), into a cp.async double buffer in dynamic shared
+// memory. The forward lane j reads column j of its frame's matrix; the
+// backward lane i reads row i of frame t's matrix into registers after
+// frame t, for frame t-1, so a chunk never reads its neighbour's
+// buffer.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -63,6 +77,13 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG = -1e30f;     // the TPU kernels' _NEG
 
 using Stage = float[2][CH * KMAX];
+
+// Frames per staged chunk in time-varying mode: two chunks of
+// TV_CHUNK * KP * KP floats are 16, 32 or 64 KB a chain.
+template <int KP>
+__host__ __device__ constexpr int tv_chunk() {
+    return KP == 8 ? 32 : (KP == 16 ? 16 : 8);
+}
 
 template <int KP, int S>
 __device__ __forceinline__ void max_level(float (&w)[KP]) {
@@ -117,35 +138,45 @@ __device__ __forceinline__ int row_length(const int* lengths, int b, int T) {
 }
 
 // The forward chain of one sequence, run by one warp: alpha (T, K) and
-// log_z. lo is the sequence's (T, K) log-obs.
-template <int KP>
+// log_z. lo is the sequence's (T, K) log-obs; log_a is (K, K), or in
+// time-varying mode (TV) the sequence's (T, K, K) staged through la_s
+// (two chunks of tv_chunk<KP>() frames).
+template <int KP, bool TV>
 __device__ void forward_chain(const float* __restrict__ lo,
                               const float* __restrict__ log_a,
                               const float* __restrict__ log_pi,
                               const float* __restrict__ ld0,
                               int len, int T, int K, int lane,
                               float* __restrict__ alpha,
-                              float* __restrict__ log_z, Stage& lo_s) {
+                              float* __restrict__ log_z, Stage& lo_s, float* la_s) {
+    constexpr int C = TV ? tv_chunk<KP>() : CH;
+    const int KK = K * K;
     const bool live = lane < K;
     // a_col[k] = log_a[k, lane]; predecessors k >= K and dead lanes
-    // carry NEG, which exp() turns into exact zeros.
+    // carry NEG, which exp() turns into exact zeros. TV reloads it each
+    // frame.
     float a_col[KP];
 #pragma unroll
     for (int k = 0; k < KP; ++k)
-        a_col[k] = (live && k < K) ? fmaxf(log_a[k * K + lane], NEG) : NEG;
+        a_col[k] = (!TV && live && k < K) ? fmaxf(log_a[k * K + lane], NEG) : NEG;
     const float d0 = (live && ld0) ? fmaxf(ld0[lane], NEG) : 0.f;
     const float pi = live ? fmaxf(log_pi[lane], NEG) : NEG;
 
     float a = NEG;      // alpha_{t-1}[lane]
     float afin = NEG;   // alpha_{len-1}[lane]
     int buf = 0;
-    stage(lo_s[0], lo, min(CH, T) * K, lane);
-    for (int t0 = 0; t0 < T; t0 += CH, buf ^= 1) {
-        const int n = min(CH, T - t0);
+    stage(lo_s[0], lo, min(C, T) * K, lane);
+    if constexpr (TV) stage(la_s, log_a, min(C, T) * KK, lane);
+    for (int t0 = 0; t0 < T; t0 += C, buf ^= 1) {
+        const int n = min(C, T - t0);
         wait_staged();
-        if (t0 + CH < T)
-            stage(lo_s[buf ^ 1], lo + static_cast<long long>(t0 + CH) * K,
-                  min(CH, T - t0 - CH) * K, lane);
+        if (t0 + C < T) {
+            stage(lo_s[buf ^ 1], lo + static_cast<long long>(t0 + C) * K,
+                  min(C, T - t0 - C) * K, lane);
+            if constexpr (TV)
+                stage(la_s + (buf ^ 1) * C * KK, log_a + static_cast<long long>(t0 + C) * KK,
+                      min(C, T - t0 - C) * KK, lane);
+        }
         for (int tf = 0; tf < n; ++tf) {
             const int t = t0 + tf;
             const float o = live ? lo_s[buf][tf * K + lane] + d0 : 0.f;
@@ -153,6 +184,13 @@ __device__ void forward_chain(const float* __restrict__ lo,
             if (t == 0) {
                 nxt = pi + o;
             } else {
+                if constexpr (TV) {
+                    // Column `lane` of log_a[t].
+                    const float* m = la_s + (buf * C + tf) * KK + lane;
+#pragma unroll
+                    for (int k = 0; k < KP; ++k)
+                        a_col[k] = (live && k < K) ? fmaxf(m[k * K], NEG) : NEG;
+                }
                 float v[KP];
 #pragma unroll
                 for (int k = 0; k < KP; ++k) v[k] = __shfl_sync(FULL, a, k) + a_col[k];
@@ -171,33 +209,43 @@ __device__ void forward_chain(const float* __restrict__ lo,
 }
 
 // The backward chain of one sequence, run by one warp: beta (T, K) and,
-// when beta_start is given, o_t + beta_t (T, K).
-template <int KP>
+// when beta_start is given, o_t + beta_t (T, K). log_a and la_s as for
+// forward_chain.
+template <int KP, bool TV>
 __device__ void backward_chain(const float* __restrict__ lo,
                                const float* __restrict__ log_a,
                                const float* __restrict__ ld0,
                                int len, int T, int K, int lane,
                                float* __restrict__ beta,
-                               float* __restrict__ beta_start, Stage& lo_s) {
+                               float* __restrict__ beta_start, Stage& lo_s, float* la_s) {
+    constexpr int C = TV ? tv_chunk<KP>() : CH;
+    const int KK = K * K;
     const bool live = lane < K;
-    // a_row[j] = log_a[lane, j].
+    // a_row[j] = log_a[lane, j]; TV: of log_a[t + 1], loaded after frame
+    // t + 1 (before the first use at t = len - 2).
     float a_row[KP];
 #pragma unroll
     for (int j = 0; j < KP; ++j)
-        a_row[j] = (live && j < K) ? fmaxf(log_a[lane * K + j], NEG) : NEG;
+        a_row[j] = (!TV && live && j < K) ? fmaxf(log_a[lane * K + j], NEG) : NEG;
     const float d0 = (live && ld0) ? fmaxf(ld0[lane], NEG) : 0.f;
 
     float bn = NEG;     // o_{t+1}[lane] + beta_{t+1}[lane]
     int buf = 0;
     // The chunk grid is the forward chain's, walked newest first, so the
     // first chunk staged may be short.
-    const int last0 = ((T - 1) / CH) * CH;
+    const int last0 = ((T - 1) / C) * C;
     stage(lo_s[0], lo + static_cast<long long>(last0) * K, (T - last0) * K, lane);
-    for (int t0 = last0; t0 >= 0; t0 -= CH, buf ^= 1) {
-        const int n = min(CH, T - t0);
+    if constexpr (TV)
+        stage(la_s, log_a + static_cast<long long>(last0) * KK, (T - last0) * KK, lane);
+    for (int t0 = last0; t0 >= 0; t0 -= C, buf ^= 1) {
+        const int n = min(C, T - t0);
         wait_staged();
-        if (t0 > 0)
-            stage(lo_s[buf ^ 1], lo + static_cast<long long>(t0 - CH) * K, CH * K, lane);
+        if (t0 > 0) {
+            stage(lo_s[buf ^ 1], lo + static_cast<long long>(t0 - C) * K, C * K, lane);
+            if constexpr (TV)
+                stage(la_s + (buf ^ 1) * C * KK, log_a + static_cast<long long>(t0 - C) * KK,
+                      C * KK, lane);
+        }
         for (int tf = n - 1; tf >= 0; --tf) {
             const int t = t0 + tf;
             float b = 0.f;
@@ -214,6 +262,12 @@ __device__ void backward_chain(const float* __restrict__ lo,
                 beta[at] = b;
                 if (beta_start) beta_start[at] = bn;
             }
+            if constexpr (TV) {
+                // Row `lane` of log_a[t], for the step into t from t - 1.
+                const float* m = la_s + (buf * C + tf) * KK + lane * K;
+#pragma unroll
+                for (int j = 0; j < KP; ++j) a_row[j] = (live && j < K) ? fmaxf(m[j], NEG) : NEG;
+            }
         }
     }
 }
@@ -227,8 +281,8 @@ hmm_forward_kernel(const float* __restrict__ log_obs, const float* __restrict__ 
     __shared__ Stage lo_s;
     const int b = blockIdx.x;
     const long long row = static_cast<long long>(b) * T * K;
-    forward_chain<KP>(log_obs + row, log_a, log_pi, ld0, row_length(lengths, b, T), T, K,
-                      threadIdx.x, alpha + row, log_z + b, lo_s);
+    forward_chain<KP, false>(log_obs + row, log_a, log_pi, ld0, row_length(lengths, b, T), T, K,
+                             threadIdx.x, alpha + row, log_z + b, lo_s, nullptr);
 }
 
 template <int KP>
@@ -239,29 +293,48 @@ hmm_backward_kernel(const float* __restrict__ log_obs, const float* __restrict__
     __shared__ Stage lo_s;
     const int b = blockIdx.x;
     const long long row = static_cast<long long>(b) * T * K;
-    backward_chain<KP>(log_obs + row, log_a, ld0, row_length(lengths, b, T), T, K,
-                       threadIdx.x, beta + row, beta_start + row, lo_s);
+    backward_chain<KP, false>(log_obs + row, log_a, ld0, row_length(lengths, b, T), T, K,
+                              threadIdx.x, beta + row, beta_start + row, lo_s, nullptr);
 }
 
-// Warp 0 runs the forward chain, warp 1 the backward chain.
-template <int KP>
+// Warp 0 runs the forward chain, warp 1 the backward chain. TV: log_a
+// is (B, T, K, K), staged through dynamic shared memory, two chunks of
+// tv_chunk<KP>() frames for each warp.
+template <int KP, bool TV = false>
 __global__ void __launch_bounds__(2 * KMAX)
 fbsum_kernel(const float* __restrict__ log_obs, const float* __restrict__ log_a,
              const float* __restrict__ log_pi, const int* __restrict__ lengths,
              float* __restrict__ alpha, float* __restrict__ beta,
              float* __restrict__ log_z, int T, int K) {
     __shared__ Stage lo_s[2];
+    extern __shared__ float la_s[];
     const int b = blockIdx.x;
     const int warp = threadIdx.x / KMAX;
     const int lane = threadIdx.x % KMAX;
     const long long row = static_cast<long long>(b) * T * K;
     const int len = row_length(lengths, b, T);
+    const int KK = K * K;
+    const float* la = TV ? log_a + static_cast<long long>(b) * T * KK : log_a;
+    float* mine = TV ? la_s + warp * 2 * tv_chunk<KP>() * KK : nullptr;
     if (warp == 0)
-        forward_chain<KP>(log_obs + row, log_a, log_pi, nullptr, len, T, K, lane,
-                          alpha + row, log_z + b, lo_s[0]);
+        forward_chain<KP, TV>(log_obs + row, la, log_pi, nullptr, len, T, K, lane,
+                              alpha + row, log_z + b, lo_s[0], mine);
     else
-        backward_chain<KP>(log_obs + row, log_a, nullptr, len, T, K, lane,
-                           beta + row, nullptr, lo_s[1]);
+        backward_chain<KP, TV>(log_obs + row, la, nullptr, len, T, K, lane,
+                               beta + row, nullptr, lo_s[1], mine);
+}
+
+template <int KP>
+cudaError_t launch_fbsum_tv(const float* log_obs, const float* log_a, const float* log_pi,
+                            const int* lengths, float* alpha, float* beta, float* log_z,
+                            int B, int T, int K, cudaStream_t st) {
+    const int bytes = 2 * 2 * tv_chunk<KP>() * K * K * static_cast<int>(sizeof(float));
+    cudaError_t err = cudaFuncSetAttribute(fbsum_kernel<KP, true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    fbsum_kernel<KP, true><<<B, 2 * KMAX, bytes, st>>>(log_obs, log_a, log_pi, lengths,
+                                                       alpha, beta, log_z, T, K);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -319,4 +392,21 @@ extern "C" int fbsum_smallk_f32(const float* log_obs, const float* log_a,
     LAUNCH_KP(fbsum_kernel, B, 2 * KMAX, st, log_obs, log_a, log_pi, lengths,
               alpha, beta, log_z, T, K);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The time-varying mode: as fbsum_smallk_f32, with log_a (B, T, K, K).
+extern "C" int fbsum_smallk_tv_f32(const float* log_obs, const float* log_a,
+                                   const float* log_pi, const int* lengths,
+                                   float* alpha, float* beta, float* log_z,
+                                   int B, int T, int K, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (K <= 8)
+        err = launch_fbsum_tv<8>(log_obs, log_a, log_pi, lengths, alpha, beta, log_z, B, T, K, st);
+    else if (K <= 16)
+        err = launch_fbsum_tv<16>(log_obs, log_a, log_pi, lengths, alpha, beta, log_z, B, T, K, st);
+    else
+        err = launch_fbsum_tv<32>(log_obs, log_a, log_pi, lengths, alpha, beta, log_z, B, T, K, st);
+    return static_cast<int>(err);
 }

@@ -7,14 +7,19 @@ no counterpart here: ``nn.Module.register_buffer`` and
 
 from .hsmm import DurationConstrainedHMM, HSMMLayer
 from .mixture_gaussian import MixtureGaussianHMMLayer, PreparedGMMDecoder
+from .neural import ContextualNeuralHMM, NeuralHMM, NeuralObservationModel, NeuralTransitionModel
 from .semi_markov import AdaptiveDurationHSMM, DurationModel, SemiMarkovHMM
 
 __all__ = [
     "AdaptiveDurationHSMM",
+    "ContextualNeuralHMM",
     "DurationConstrainedHMM",
     "DurationModel",
     "HSMMLayer",
     "MixtureGaussianHMMLayer",
+    "NeuralHMM",
+    "NeuralObservationModel",
+    "NeuralTransitionModel",
     "PreparedGMMDecoder",
     "SemiMarkovHMM",
 ]

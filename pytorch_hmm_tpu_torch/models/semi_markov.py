@@ -14,7 +14,9 @@ card), the likelihood through
 posteriors through ``ops.auto_hsmm_posteriors`` (the JAX package calls
 its plain ``core.hsmm_forward`` scan for the forward tables and the
 likelihood; the values are the same). The ``neural`` observation model
-comes with ROADMAP queue 1 item 8 (``models/neural.py``).
+is a gaussian ``NeuralObservationModel`` (``models/neural.py``; in eval
+mode its scores come from the ``fused_gaussian_emission`` kernel on the
+card).
 """
 
 from __future__ import annotations
@@ -40,12 +42,9 @@ from .hsmm import (
     _posterior_duration_moments,
     _transition_logits_from_counts,
 )
+from .neural import NeuralObservationModel
 
 __all__ = ["DurationModel", "SemiMarkovHMM", "AdaptiveDurationHSMM"]
-
-_NEURAL_OBS_TODO = ("observation_model='neural' is not ported yet: ROADMAP queue 1 "
-                    "item 8 (models/neural.py)")
-
 
 def _randn(generator, *shape, device):
     return torch.randn(shape, generator=generator).to(device)
@@ -139,8 +138,9 @@ class DurationModel(nn.Module):
 
 
 class SemiMarkovHMM(nn.Module):
-    """Segment HMM with a duration model and a Gaussian observation
-    model."""
+    """Segment HMM with a duration model and a Gaussian (per-state means
+    and log-variances) or neural (``NeuralObservationModel``, gaussian
+    head) observation model."""
 
     def __init__(
         self,
@@ -155,9 +155,7 @@ class SemiMarkovHMM(nn.Module):
         device="cuda",
     ):
         super().__init__()
-        if observation_model == "neural":
-            raise NotImplementedError(_NEURAL_OBS_TODO)
-        if observation_model != "gaussian":
+        if observation_model not in ("gaussian", "neural"):
             raise ValueError(f"Unknown observation_model: {observation_model}")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -172,10 +170,15 @@ class SemiMarkovHMM(nn.Module):
         self.transition_logits = nn.Parameter(_randn(generator, num_states, num_states,
                                                      device=device))
         self.initial_logits = nn.Parameter(torch.zeros((num_states,), device=device))
-        self.observation_means = nn.Parameter(_randn(generator, num_states, observation_dim,
-                                                     device=device))
-        self.observation_logvars = nn.Parameter(
-            torch.zeros((num_states, observation_dim), device=device))
+        if observation_model == "gaussian":
+            self.observation_means = nn.Parameter(_randn(generator, num_states, observation_dim,
+                                                         device=device))
+            self.observation_logvars = nn.Parameter(
+                torch.zeros((num_states, observation_dim), device=device))
+        else:
+            self.neural_obs_model = NeuralObservationModel(
+                num_states, observation_dim, model_type="gaussian", generator=generator,
+                device=device)
 
     # -- parameter views ------------------------------------------------------
     def _log_a(self) -> torch.Tensor:
@@ -186,7 +189,9 @@ class SemiMarkovHMM(nn.Module):
         return torch.log_softmax(self.initial_logits, dim=-1)
 
     def observation_log_probs(self, observations: torch.Tensor) -> torch.Tensor:
-        """(B, T, S) per-frame scores."""
+        """(B, T, S) per-frame scores from the configured emission model."""
+        if self.observation_model_type == "neural":
+            return self.neural_obs_model.log_probs(observations)
         return diag_gaussian_log_probs(observations, self.observation_means,
                                        self.observation_logvars)
 
@@ -258,6 +263,8 @@ class SemiMarkovHMM(nn.Module):
         The M-step mirrors ``HSMMLayer.em_step`` and also re-estimates
         the initial distribution; a Gaussian duration model takes the
         posterior duration mean and standard deviation."""
+        if self.observation_model_type != "gaussian":
+            raise NotImplementedError("em_step requires gaussian emissions")
         if self.duration_model.distribution_type == "neural":
             raise NotImplementedError("em_step requires a parametric duration model")
         if mesh is not None:
@@ -321,6 +328,8 @@ class SemiMarkovHMM(nn.Module):
         capped at ``max_length`` (durations past the cap are cut,
         trailing segments get duration 0). Segment chains obey the
         no-self-transition structure the DP scores with."""
+        if self.observation_model_type != "gaussian":
+            raise NotImplementedError("sampling requires the gaussian observation model")
         dev = self.transition_logits.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)

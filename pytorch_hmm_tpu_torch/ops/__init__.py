@@ -3,16 +3,20 @@
 Port of ``pytorch_hmm_tpu/ops/__init__.py``. The device decides the
 path, as the backend does in the JAX package:
 
-* CUDA tensors with K ≤ 32 and static ``(K, K)`` transitions run the
-  hand kernels: ``emit.diag_quadratic`` for diag/tied emissions,
-  ``smallk.smallk_viterbi`` for decode, ``hsmm_smallk`` (forward and
-  backward sum recursions at D = 1) for the likelihood and its gradient,
-  ``fbsum.fbsum_smallk`` for posteriors and the ragged likelihood. Every
-  K ≤ 32 goes to them at any T, ragged or not: the TPU kernels' VMEM
-  gates (fbsum's 16 states and T < 1024) and the long-T switch to the
-  prob-space kernels are TPU matters. A CUDA case this package has no
-  kernel for yet raises ``NotImplementedError`` naming its ROADMAP item;
-  it never falls back to the plain torch path.
+* CUDA tensors with K ≤ 32 run the hand kernels: ``emit.diag_quadratic``
+  for diag/tied emissions, ``emit_mlp.fused_gaussian_emission`` for the
+  neural gaussian head, ``smallk.smallk_viterbi`` for decode,
+  ``hsmm_smallk`` (forward and backward sum recursions at D = 1) for the
+  likelihood and its gradient, ``fbsum.fbsum_smallk`` for posteriors and
+  the ragged likelihood. Time-varying ``(B, T, K, K)`` transitions (the
+  neural HMMs'), which the JAX package sends to its XLA scans, run the
+  time-varying modes of ``smallk_viterbi`` and ``fbsum_smallk``, the
+  likelihood too. Every K ≤ 32 goes to them at any T, ragged or not: the
+  TPU kernels' VMEM gates (fbsum's 16 states and T < 1024) and the
+  long-T switch to the prob-space kernels are TPU matters. A CUDA case
+  this package has no kernel for yet (K > 32) raises
+  ``NotImplementedError`` naming its ROADMAP row; it never falls back to
+  the plain torch path.
 * The duration models' segment DP (``auto_hsmm_viterbi``,
   ``auto_hsmm_log_z``, ``auto_hsmm_posteriors``): CUDA tensors with
   S ≤ 32 states and D ≤ 256 durations run the ``hsmm_smallk`` kernels,
@@ -37,6 +41,11 @@ import torch
 
 from .. import core
 from .emit import diag_quadratic, diag_quadratic_reference
+from .emit_mlp import (
+    fused_emission_supported,
+    fused_gaussian_emission,
+    fused_gaussian_emission_reference,
+)
 from .fbsum import fbsum_smallk, fbsum_smallk_reference, fbsum_supported
 from .hsmm_smallk import (
     MAX_DURATION,
@@ -85,6 +94,9 @@ __all__ = [
     "pallas_log_likelihood",
     "diag_quadratic",
     "diag_quadratic_reference",
+    "fused_emission_supported",
+    "fused_gaussian_emission",
+    "fused_gaussian_emission_reference",
     "fbsum_smallk",
     "fbsum_smallk_reference",
     "fbsum_supported",
@@ -116,18 +128,9 @@ def _unported_trellis(K: int) -> NotImplementedError:
     )
 
 
-def _unported_time_varying() -> NotImplementedError:
-    return NotImplementedError(
-        "no CUDA kernel for time-varying (B, T, K, K) transitions yet: "
-        "ROADMAP queue 1 item 8 (NeuralHMM)"
-    )
-
-
-def _check_sum_path(log_obs: torch.Tensor, log_a: torch.Tensor) -> None:
+def _check_sum_path(log_obs: torch.Tensor) -> None:
     """Raise for a CUDA sum-recursion problem no kernel takes yet."""
     K = log_obs.shape[-1]
-    if log_a.ndim != 2:
-        raise _unported_time_varying()
     if not fbsum_supported(K, log_obs.shape[0]):
         raise NotImplementedError(
             f"no CUDA sum-recursion kernel for K={K} > {MAX_SMALLK} states yet: "
@@ -204,12 +207,14 @@ class _LogLikelihood(torch.autograd.Function):
         return d_log_obs, d_log_a, d_log_pi
 
 
-class _LogLikelihoodMasked(torch.autograd.Function):
-    """Ragged ``log Z (B,)``: ``fbsum_smallk`` gives alpha and beta in
-    one launch (the backward always needs beta); the gradients are the
+class _FBLogLikelihood(torch.autograd.Function):
+    """``log Z (B,)`` of ragged rows, time-varying ``(B, T, K, K)``
+    transitions, or both: ``fbsum_smallk`` gives alpha and beta in one
+    launch (the backward always needs beta). The gradients are the
     posteriors of valid frames and of transitions that land inside each
-    row (``t + 1 < lengths[b]``), zero elsewhere. Max-shifted as
-    :class:`_LogLikelihood` is."""
+    row (``t + 1 < lengths[b]``), zero elsewhere; for time-varying
+    ``log_a`` the per-frame ξ ``(B, T, K, K)``, zero at ``t = 0``.
+    Max-shifted as :class:`_LogLikelihood` is."""
 
     @staticmethod
     def forward(ctx, log_obs, log_a, log_pi, lengths):
@@ -223,18 +228,26 @@ class _LogLikelihoodMasked(torch.autograd.Function):
     def backward(ctx, g):
         lo_hat, log_a, lengths, alpha_hat, beta_hat, lz_hat = ctx.saved_tensors
         T = lo_hat.shape[1]
+        tv = log_a.ndim == 4
         log_gamma = alpha_hat + beta_hat - lz_hat[:, None, None]
-        gamma = torch.where(_valid_frames(lengths, T)[..., None], torch.exp(log_gamma), 0.0)
+        gamma = torch.exp(log_gamma)
+        if lengths is not None:
+            gamma = torch.where(_valid_frames(lengths, T)[..., None], gamma, 0.0)
         d_log_obs = g[:, None, None] * gamma
         d_log_pi = torch.sum(g[:, None] * torch.exp(log_gamma[:, 0]), dim=0)
         lxi = (
             alpha_hat[:, :-1, :, None]
-            + log_a
+            + (log_a[:, 1:] if tv else log_a)
             + (lo_hat + beta_hat)[:, 1:, None, :]
             - lz_hat[:, None, None, None]
         )
-        xi = torch.where(_valid_frames(lengths, T, 1)[..., None, None], torch.exp(lxi), 0.0)
-        d_log_a = torch.sum(g[:, None, None] * torch.sum(xi, dim=1), dim=0)
+        xi = torch.exp(lxi)
+        if lengths is not None:
+            xi = torch.where(_valid_frames(lengths, T, 1)[..., None, None], xi, 0.0)
+        if tv:
+            d_log_a = torch.cat([torch.zeros_like(xi[:, :1]), g[:, None, None, None] * xi], 1)
+        else:
+            d_log_a = torch.sum(g[:, None, None] * torch.sum(xi, dim=1), dim=0)
         return d_log_obs, d_log_a, d_log_pi, None
 
 
@@ -245,9 +258,10 @@ def pallas_log_likelihood(log_obs, log_a, log_pi):
 
 
 def _pallas_ll_masked(log_obs, log_a, log_pi, lengths):
-    """Ragged twin of :func:`pallas_log_likelihood` on ``fbsum_smallk``;
-    ``lengths`` is int32 ``(B,)`` on the tensors' device."""
-    return _LogLikelihoodMasked.apply(log_obs, log_a, log_pi, lengths)
+    """Ragged or time-varying twin of :func:`pallas_log_likelihood` on
+    ``fbsum_smallk``; ``lengths`` is None or int32 ``(B,)`` on the
+    tensors' device."""
+    return _FBLogLikelihood.apply(log_obs, log_a, log_pi, lengths)
 
 
 def auto_log_likelihood(
@@ -257,13 +271,15 @@ def auto_log_likelihood(
     lengths: Optional[torch.Tensor] = None,
 ):
     """Differentiable ``log Z (B,)``: the sum kernels with closed-form
-    posterior gradients on CUDA tensors (K ≤ 32, static transitions),
-    autograd through the plain ``core.log_likelihood`` scan on CPU."""
+    posterior gradients on CUDA tensors (K ≤ 32; static and unragged on
+    the D = 1 forward and backward kernels, ragged or time-varying on
+    ``fbsum_smallk``), autograd through the plain ``core.log_likelihood``
+    scan on CPU."""
     if log_obs.device.type == "cpu":
         return core.log_likelihood(log_obs, log_a, log_pi, lengths)
-    _check_sum_path(log_obs, log_a)
+    _check_sum_path(log_obs)
     args = _f32(log_obs, log_a, log_pi)
-    if lengths is None:
+    if lengths is None and log_a.ndim == 2:
         return pallas_log_likelihood(*args)
     return _pallas_ll_masked(*args, _lengths_on(lengths, log_obs.device))
 
@@ -275,14 +291,19 @@ def auto_forward(
     lengths: Optional[torch.Tensor] = None,
 ):
     """``(log_alpha, log_z)`` — the D = 1 forward sum kernel on CUDA
-    tensors, ``core.forward_log`` on CPU. Past each row's end alpha holds
-    its final valid value, as ``core`` freezes it."""
+    tensors (for time-varying transitions alpha and log Z of one
+    ``fbsum_smallk`` launch), ``core.forward_log`` on CPU. Past each
+    row's end alpha holds its final valid value, as ``core`` freezes
+    it."""
     if log_obs.device.type == "cpu":
         return core.forward_log(log_obs, log_a, log_pi, lengths)
-    _check_sum_path(log_obs, log_a)
+    _check_sum_path(log_obs)
     ln = _lengths_on(lengths, log_obs.device)
-    log_alpha, log_z = hsmm_smallk_forward(*_f32(log_obs, log_a, log_pi),
-                                           _unit_durations(log_obs), ln)
+    if log_a.ndim == 2:
+        log_alpha, log_z = hsmm_smallk_forward(*_f32(log_obs, log_a, log_pi),
+                                               _unit_durations(log_obs), ln)
+    else:
+        log_alpha, _, log_z = fbsum_smallk(*_f32(log_obs, log_a, log_pi), ln)
     if ln is not None:
         log_alpha = _freeze_past_end(log_alpha, ln)
     return log_alpha, log_z
@@ -323,10 +344,11 @@ def auto_forward_backward(
 ):
     """``(log_gamma, log_alpha, log_beta, log_z)`` — ``fbsum_smallk`` on
     max-shifted emissions on CUDA tensors, ``core.forward_backward`` on
-    CPU. The posterior normalization matches ``core`` exactly."""
+    CPU. The posterior normalization matches ``core`` exactly. Static or
+    time-varying transitions."""
     if log_obs.device.type == "cpu":
         return core.forward_backward(log_obs, log_a, log_pi, lengths)
-    _check_sum_path(log_obs, log_a)
+    _check_sum_path(log_obs)
     return _shifted_forward_backward(*_f32(log_obs, log_a, log_pi),
                                      _lengths_on(lengths, log_obs.device))
 
@@ -338,13 +360,12 @@ def auto_viterbi(
     lengths: Optional[torch.Tensor] = None,
 ):
     """``(states (B, T) int32, score (B,))`` — the CUDA trellis kernel
-    on CUDA tensors (K ≤ 32), the plain ``core.viterbi`` on CPU. Paths
-    are identical on both, tie-breaks included."""
+    on CUDA tensors (K ≤ 32, static or time-varying transitions), the
+    plain ``core.viterbi`` on CPU. Paths are identical on both,
+    tie-breaks included."""
     K = log_obs.shape[-1]
     if log_obs.device.type == "cpu":
         return core.viterbi(log_obs, log_a, log_pi, lengths)
-    if log_a.ndim != 2:
-        raise _unported_time_varying()
     if not smallk_supported(K):
         raise _unported_trellis(K)
     return smallk_viterbi(*_f32(log_obs, log_a, log_pi), _lengths_on(lengths, log_obs.device))

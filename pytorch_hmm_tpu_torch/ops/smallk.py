@@ -3,7 +3,8 @@
 Port of ``pytorch_hmm_tpu/ops/smallk.py``. On CUDA tensors
 :func:`smallk_viterbi` launches the hand-written kernel in
 ``csrc/smallk_viterbi.cu``: one warp per sequence, trellis and
-backtrace in one launch, any batch size. On CPU tensors it runs
+backtrace in one launch, any batch size, static ``(K, K)`` or
+time-varying ``(B, T, K, K)`` transitions. On CPU tensors it runs
 :func:`smallk_viterbi_reference`, the ported ``core.viterbi``. Both give
 the same paths and scores as ``pytorch_hmm_tpu.core.viterbi``, ties
 (lowest state index) and ragged padding included.
@@ -25,14 +26,13 @@ __all__ = ["smallk_viterbi", "smallk_viterbi_reference", "smallk_supported",
 # One warp lane per state.
 MAX_SMALLK = 32
 
-_SIGNATURES = {
-    "smallk_viterbi_f32": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ],
-}
+_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p,
+]
+_SIGNATURES = {"smallk_viterbi_f32": _ARGS, "smallk_viterbi_tv_f32": _ARGS}
 
 
 def smallk_supported(num_states: int) -> bool:
@@ -40,17 +40,22 @@ def smallk_supported(num_states: int) -> bool:
     return 1 <= num_states <= MAX_SMALLK
 
 
-def check_problem(what: str, log_obs, log_a, log_pi=None, lengths=None):
+def check_problem(what: str, log_obs, log_a, log_pi=None, lengths=None,
+                  time_varying: bool = False):
     """Validate the shapes of a small-K problem for a CUDA kernel
-    (``log_pi`` may be omitted); returns ``(B, T, K, lengths)`` with
-    ``lengths`` None or contiguous int32 ``(B,)`` on ``log_obs``'s
-    device."""
+    (``log_pi`` may be omitted; ``log_a`` is ``(K, K)``, or ``(B, T, K,
+    K)`` where the kernel has a ``time_varying`` mode); returns ``(B, T,
+    K, lengths)`` with ``lengths`` None or contiguous int32 ``(B,)`` on
+    ``log_obs``'s device."""
     if log_obs.ndim != 3:
         raise ValueError(f"{what}: log_obs must be (B, T, K), got {tuple(log_obs.shape)}")
     B, T, K = log_obs.shape
-    if tuple(log_a.shape) != (K, K) or (log_pi is not None and tuple(log_pi.shape) != (K,)):
+    shapes = [(K, K)] + ([(B, T, K, K)] if time_varying else [])
+    if tuple(log_a.shape) not in shapes or (log_pi is not None and tuple(log_pi.shape) != (K,)):
         raise ValueError(
-            f"{what}: K={K} needs log_a (K, K) and log_pi (K,), got {tuple(log_a.shape)}"
+            f"{what}: log_obs {tuple(log_obs.shape)} needs log_a "
+            + " or ".join(str(s) for s in shapes) + f" and log_pi ({K},), got "
+            + str(tuple(log_a.shape))
             + ("" if log_pi is None else f" and {tuple(log_pi.shape)}")
         )
     if not 1 <= K <= MAX_SMALLK:
@@ -87,17 +92,21 @@ def smallk_viterbi(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact batched Viterbi for K ≤ 32 states.
 
-    Args: ``(B, T, K)`` log-obs, static ``(K, K)`` / ``(K,)`` log
-    transitions and prior, optional ``(B,)`` lengths. Returns
-    ``(states (B, T) int32, score (B,) float32)``.
+    Args: ``(B, T, K)`` log-obs, static ``(K, K)`` or time-varying
+    ``(B, T, K, K)`` log transitions (entry ``[:, t]`` governs the step
+    into frame ``t``; ``[:, 0]`` is never read), ``(K,)`` log prior,
+    optional ``(B,)`` lengths. Returns ``(states (B, T) int32, score (B,)
+    float32)``.
 
-    CUDA tensors run the kernel (counted in ``smallk_viterbi.launches``):
+    CUDA tensors run the kernel (counted in ``smallk_viterbi.launches``,
+    the time-varying mode also in ``smallk_viterbi.time_varying_launches``):
     float32 and contiguous, ``lengths`` int32, all on one device; anything
     else raises. CPU tensors run the plain version.
     """
     if log_obs.device.type == "cpu":
         return smallk_viterbi_reference(log_obs, log_a, log_pi, lengths)
-    B, T, K, lengths = check_problem("smallk_viterbi", log_obs, log_a, log_pi, lengths)
+    B, T, K, lengths = check_problem("smallk_viterbi", log_obs, log_a, log_pi, lengths,
+                                     time_varying=True)
     _build.check_tensors("smallk_viterbi", log_obs.device,
                          log_obs=log_obs, log_a=log_a, log_pi=log_pi)
     dev = log_obs.device
@@ -105,10 +114,12 @@ def smallk_viterbi(
         lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
 
     lib = _build.load("smallk_viterbi", _SIGNATURES)
+    tv = log_a.ndim == 4
     psi = torch.empty((B, T, K), dtype=torch.uint8, device=dev)
     states = torch.empty((B, T), dtype=torch.int32, device=dev)
     score = torch.empty((B,), dtype=torch.float32, device=dev)
-    rc = lib.smallk_viterbi_f32(
+    launch = lib.smallk_viterbi_tv_f32 if tv else lib.smallk_viterbi_f32
+    rc = launch(
         log_obs.data_ptr(), log_a.data_ptr(), log_pi.data_ptr(),
         lengths.data_ptr(), psi.data_ptr(), states.data_ptr(),
         score.data_ptr(), B, T, K, dev.index,
@@ -116,7 +127,9 @@ def smallk_viterbi(
     )
     _build.check(rc, "smallk_viterbi")
     smallk_viterbi.launches += 1
+    smallk_viterbi.time_varying_launches += tv
     return states, score
 
 
 smallk_viterbi.launches = 0
+smallk_viterbi.time_varying_launches = 0

@@ -10,11 +10,15 @@ import torch
 
 from pytorch_hmm_tpu_torch import (
     AdaptiveDurationHSMM,
+    ContextualNeuralHMM,
     DeviceFramer,
     DurationConstrainedHMM,
     DurationModel,
     HSMMLayer,
     MixtureGaussianHMMLayer,
+    NeuralHMM,
+    NeuralObservationModel,
+    NeuralTransitionModel,
     SemiMarkovHMM,
     StreamingHMMProcessor,
 )
@@ -27,6 +31,10 @@ CONSTRUCTORS = {
     "SemiMarkovHMM": (SemiMarkovHMM, (3, 2)),
     "AdaptiveDurationHSMM": (AdaptiveDurationHSMM, (3, 2, 2)),
     "StreamingHMMProcessor": (StreamingHMMProcessor, (3, 2)),
+    "NeuralHMM": (NeuralHMM, (3, 2)),
+    "ContextualNeuralHMM": (ContextualNeuralHMM, (3, 2, 5)),
+    "NeuralObservationModel": (NeuralObservationModel, (3, 2)),
+    "NeuralTransitionModel": (NeuralTransitionModel, (3, 2)),
     "DeviceFramer": (DeviceFramer, ()),
 }
 

@@ -45,9 +45,11 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
         "pytorch_hmm_tpu_torch.frontend",
         "pytorch_hmm_tpu_torch.models.hsmm",
         "pytorch_hmm_tpu_torch.models.mixture_gaussian",
+        "pytorch_hmm_tpu_torch.models.neural",
         "pytorch_hmm_tpu_torch.models.semi_markov",
         "pytorch_hmm_tpu_torch.ops._build",
         "pytorch_hmm_tpu_torch.ops.emit",
+        "pytorch_hmm_tpu_torch.ops.emit_mlp",
         "pytorch_hmm_tpu_torch.ops.fbsum",
         "pytorch_hmm_tpu_torch.ops.hsmm_smallk",
         "pytorch_hmm_tpu_torch.ops.smallk",
@@ -79,7 +81,7 @@ def test_port_never_names_jax_in_its_sources():
                         offenders.append(f"{path}:{lineno}: {line.strip()}")
     assert not offenders, "\n".join(offenders)
     # The scan reaches every kernel source's wrapper module.
-    wrappers = {"diag_quadratic": "emit.py", "smallk_viterbi": "smallk.py",
+    wrappers = {"diag_quadratic": "emit.py", "emit_mlp": "emit_mlp.py", "smallk_viterbi": "smallk.py",
                 "smallk_sum": "hsmm_smallk.py", "hsmm_smallk": "hsmm_smallk.py",
                 "stream_greedy": "stream.py", "stream_beam": "stream_multi.py"}
     sources = {fn[:-3] for fn in os.listdir(os.path.join(pkg, "csrc")) if fn.endswith(".cu")}

@@ -17,6 +17,7 @@ import pytest
 import torch
 from flax import nnx
 
+from pytorch_hmm_tpu import core as jcore
 from pytorch_hmm_tpu import ops as jops
 from pytorch_hmm_tpu.models import MixtureGaussianHMMLayer as JaxLayer
 from pytorch_hmm_tpu_torch import MixtureGaussianHMMLayer, bridge, core, ops, precision
@@ -179,16 +180,53 @@ def test_em_step_refuses_a_mesh_before_any_work(obs):
 
 @pytest.mark.parametrize("fn", ["auto_log_likelihood", "auto_forward", "auto_forward_backward"])
 def test_cuda_dispatch_raises_where_no_kernel_exists(fn):
-    """Off the CPU, K > 32 and time-varying transitions raise naming
-    their ROADMAP rows before any work (meta tensors stand in for CUDA
-    ones: the check comes before any device work)."""
+    """Off the CPU, K > 32 raises naming its ROADMAP rows before any
+    work, static or time-varying (meta tensors stand in for CUDA ones:
+    the check comes before any device work). Time-varying K <= 32 goes
+    to the kernel wrapper, which refuses the meta device."""
     f = getattr(ops, fn)
-    with pytest.raises(NotImplementedError, match="rows 8 .* 9 .* 12"):
-        f(torch.empty(2, 5, 33, device="meta"), torch.empty(33, 33, device="meta"),
-          torch.empty(33, device="meta"))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    for la_shape in ((33, 33), (2, 5, 33, 33)):
+        with pytest.raises(NotImplementedError, match="rows 8 .* 9 .* 12"):
+            f(torch.empty(2, 5, 33, device="meta"), torch.empty(*la_shape, device="meta"),
+              torch.empty(33, device="meta"))
+    with pytest.raises(ValueError, match="fbsum_smallk runs on CPU or CUDA"):
         f(torch.empty(2, 5, 4, device="meta"), torch.empty(2, 5, 4, 4, device="meta"),
           torch.empty(4, device="meta"))
+
+
+@pytest.mark.parametrize("lengths", [None, [30, 17, 1]])
+@pytest.mark.parametrize("neg_inf", [False, True], ids=["dense", "-inf band"])
+def test_time_varying_likelihood_function_matches_jax_autodiff(lengths, neg_inf):
+    """The time-varying likelihood Function (``fbsum_smallk`` forward,
+    closed-form per-frame ξ backward) against ``jax.value_and_grad`` of
+    ``core.log_likelihood``: values and gradients in log_obs, the
+    ``(B, T, K, K)`` log_a (zero at t = 0 and past each row's end) and
+    log_pi. atol 1e-4 (f32 posteriors of 30 frames in another order)."""
+    B_, T_, K = 3, 30, 5
+    rng = np.random.default_rng(7)
+    lo = rng.normal(size=(B_, T_, K)).astype(np.float32)
+    logits = rng.normal(size=(B_, T_, K, K))
+    if neg_inf:
+        i = np.arange(K)
+        logits = np.where((i[None, :] >= i[:, None]) & (i[None, :] <= i[:, None] + 1),
+                          logits, -np.inf)
+    la = (logits - np.log(np.exp(logits).sum(-1, keepdims=True))).astype(np.float32)
+    lp = np.log(rng.dirichlet(np.ones(K))).astype(np.float32)
+    ln_j = None if lengths is None else jnp.asarray(lengths, jnp.int32)
+    want_v, want_g = jax.value_and_grad(
+        lambda *a: jnp.sum(jcore.log_likelihood(*a, ln_j)), argnums=(0, 1, 2)
+    )(jnp.asarray(lo), jnp.asarray(la), jnp.asarray(lp))
+    ln_t = None if lengths is None else torch.tensor(lengths, dtype=torch.int32)
+    got_v, got_g = _torch_value_and_grads(ops._pallas_ll_masked, [lo, la, lp], ln_t)
+    np.testing.assert_allclose(got_v.sum(), float(want_v), atol=1e-4)
+    for g, w in zip(got_g, want_g):
+        w = np.where(np.isfinite(w), np.asarray(w), 0.0)
+        np.testing.assert_allclose(g, w, atol=1e-4)
+    d_la = got_g[1]
+    assert np.all(d_la[:, 0] == 0)
+    if lengths is not None:
+        for b, n in enumerate(lengths):
+            assert np.all(d_la[b, n:] == 0)
 
 
 def test_checkpointing_changes_no_gradient(obs):

@@ -82,10 +82,62 @@ def test_viterbi_single_frame_batch():
 
 
 def test_viterbi_rejects_time_varying_transitions():
+    """Time-varying transitions must be ``(B, T, K, K)`` for ``(B, T, K)``
+    log-obs; any other batched shape is refused before any work."""
     lo, la, lp = _k_problem(2, 5, 3)
-    la_tv = np.broadcast_to(la, (2, 5, 3, 3)).copy()
-    with pytest.raises(ValueError, match="static"):
-        tcore.viterbi(torch.from_numpy(lo), torch.from_numpy(la_tv), torch.from_numpy(lp))
+    for shape in ((2, 4, 3, 3), (1, 5, 3, 3), (5, 3, 3)):
+        la_tv = np.broadcast_to(la, shape).copy()
+        with pytest.raises(ValueError, match=r"\(K, K\) or \(B, T, K, K\)"):
+            tcore.viterbi(torch.from_numpy(lo), torch.from_numpy(la_tv), torch.from_numpy(lp))
+
+
+def _tv_problem(B, T, K, seed, neg_inf=False):
+    """Log-obs and per-frame log transitions ``(B, T, K, K)``; with
+    ``neg_inf`` a left-to-right band (self-loop, one step and two steps
+    forward) whose other entries are -inf, one band per frame."""
+    rng = np.random.default_rng(seed)
+    lo = rng.normal(size=(B, T, K)).astype(np.float32)
+    logits = rng.normal(size=(B, T, K, K))
+    if neg_inf:
+        i = np.arange(K)
+        band = (i[None, :] >= i[:, None]) & (i[None, :] <= i[:, None] + 2)
+        logits = np.where(band, logits, -np.inf)
+    la = logits - np.log(np.sum(np.exp(logits), axis=-1, keepdims=True))
+    lp = np.log(rng.dirichlet(np.ones(K))).astype(np.float32)
+    return lo, la.astype(np.float32), lp
+
+
+@pytest.mark.parametrize("case", ["plain", "ragged", "K=32", "-inf band", "T=1"])
+def test_time_varying_viterbi_matches_jax(case):
+    """Time-varying transitions, bit-identical to the JAX scan: paths and
+    scores, with ragged lengths (a length-1 row) and -inf entries."""
+    B, T, K, lengths, neg = {
+        "plain": (3, 60, 7, None, False),
+        "ragged": (5, 40, 9, [40, 3, 1, 39, 17], False),
+        "K=32": (2, 30, 32, None, False),
+        "-inf band": (3, 50, 6, [50, 20, 49], True),
+        "T=1": (2, 1, 4, None, False),
+    }[case]
+    lo, la, lp = _tv_problem(B, T, K, seed=B * T * K, neg_inf=neg)
+    s_t, sc_t = assert_same_decode(lo, la, lp, lengths)
+    jl = None if lengths is None else jnp.asarray(lengths, jnp.int32)
+    _, sc_j = jcore.viterbi(jnp.asarray(lo), jnp.asarray(la), jnp.asarray(lp), jl)
+    np.testing.assert_array_equal(sc_t.numpy(), np.asarray(sc_j))
+
+
+def test_time_varying_viterbi_ties_and_frame_zero():
+    """All-tie frames keep the lowest predecessor; frame 0's matrix is
+    never read, so changing it changes nothing."""
+    K = 5
+    lo = np.zeros((2, 30, K), np.float32)
+    la = np.full((2, 30, K, K), -np.log(K), np.float32)
+    lp = np.full((K,), -np.log(K), np.float32)
+    s_t, sc_t = assert_same_decode(lo, la, lp)
+    la2 = la.copy()
+    la2[:, 0] = np.random.default_rng(0).normal(size=(2, K, K))
+    s2, sc2 = assert_same_decode(lo, la2, lp)
+    assert torch.equal(s_t, s2) and torch.equal(sc_t, sc2)
+    assert int(s_t.max()) == 0
 
 
 def test_semiring_matches_jax():
