@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's GMM-HMM, duration-model, streaming and
-neural-HMM paths on one CUDA GPU.
+"""Smoke run of the PyTorch port's GMM-HMM, duration-model, streaming,
+neural-HMM and general-K paths on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -64,16 +64,37 @@ random weights from a seed, eval mode):
   loss falling; ``transformer`` and ``rnn`` transition models at T=64
   and a neural-emission ``SemiMarkovHMM`` decode against the CPU;
 
+then the general-K path (more than 32 states) at the width of the JAX
+bench's K>32 row, ``GaussianHMMLayer(64, 80)``, diag, at B=32, T=1000
+(random weights from a seed, features from left-to-right walks over its
+means):
+
+* the forward, backward and Viterbi kernels of ``csrc/scan_bigk.cu``
+  against their plain versions (headline K=64, K=33, 128, 256, 1024 at
+  B=4 T=256, ragged with a length-1 row, T=1, all ties, a left-to-right
+  ``safe_log`` matrix; Viterbi paths and scores identical) and the
+  fused GMM decode of ``csrc/fused_gmm.cu`` against its plain version
+  (S=64 C=2 D=80, S=128 C=1, S=40 C=2 D=13, ragged);
+* ``GaussianHMMLayer``: training-mode posteriors, ``compute_loss``
+  gradients against its CPU twin in float64, five Adam steps with the
+  loss falling, eval decode against the CPU; ``HMMLayer(64)`` and
+  ``HMM`` at K=64 the same way; ``MixtureGaussianHMMLayer(64, 80)`` at
+  C=2 (the fused decode) and C=4: decode, a ``compute_loss`` step and an
+  ``em_step`` against the CPU;
+
 and times the kernels, a decode, a ``compute_loss`` step and an
 ``em_step`` of each path, a duration-model ``posteriors`` call, a
-streaming chunk, a fleet step, a PCM step and a NeuralHMM forward,
-decode and ``compute_loss`` step (static and contextual) with CUDA
-events, counts the launches of one call of each, and profiles ten beam
-chunks and ten NeuralHMM forwards.
+streaming chunk, a fleet step, a PCM step, a NeuralHMM forward, decode
+and ``compute_loss`` step (static and contextual) and the general-K
+entry points with CUDA events, counts the launches of one call of each,
+and profiles ten beam chunks, ten NeuralHMM forwards and ten calls each
+of a ``GaussianHMMLayer`` decode and ``compute_loss`` step and a fused
+``MixtureGaussianHMMLayer`` decode.
 
 Phases, one line each: card, build, each kernel vs plain, decode,
 training, duration-model decode, duration-model training, stream
-kernels, streaming serve, fleets, neural kernels, neural models, timing.
+kernels, streaming serve, fleets, neural kernels, neural models,
+general-K kernels, general-K slice, timing.
 Any failure exits non-zero
 before the last line. On success the last two lines are a JSON object
 describing each kernel (with its bound from this run's inputs) and
@@ -163,6 +184,30 @@ VOCAB, PROSODY, SMALL_T = 64, 16, 64
 EMIT_TOL = 1e-4
 NEURAL_POST_ATOL = 5e-3
 NEURAL_GRAD_RTOL = 5e-3
+# The general-K slice's width: GaussianHMMLayer(64, 80), diag, at the
+# headline B and T (the JAX bench's K>32 row, bench.py:497; D, B and T of
+# bench.py:633-653); MixtureGaussianHMMLayer at the same S and D with
+# C=2 (inside the fused decode's envelope) and C=4 (outside it).
+GK, GD = 64, 80
+GMM_CS = (2, 4)
+# The general-K sum kernels vs their plain versions (the same prob-space
+# step): atol 5e-4, the JAX kernel tests' own (tests/test_ops.py), plus
+# rtol 1e-6 of the running magnitude. The fused decode vs its plain
+# version (the emission summed in another order): frames agree on at
+# least 99.9%, scores within rtol 1e-4, atol 5e-3 (the JAX test's own
+# against its unfused route).
+SCAN_ATOL, SCAN_RTOL = 5e-4, 1e-6
+FUSED_AGREE, FUSED_RTOL, FUSED_ATOL = 0.999, 1e-4, 5e-3
+# The slice on the card vs its CPU twin in float64: posteriors atol 5e-3
+# and gradients / EM parameters within 5e-3 of each tensor's largest
+# entry (f32 prob-space chains on max-shifted emissions, sums over 32,000
+# frames), as for the duration and neural models.
+BIGK_POST_ATOL = 5e-3
+BIGK_GRAD_RTOL = BIGK_EM_RTOL = 5e-3
+# HMM's log-likelihood on frame probabilities (floored at 1e-8) is only
+# ~1e3 in magnitude, where f32 rounding of a 1000-frame chain reaches
+# ~1e-2: rtol 1e-4.
+HMM_LL_RTOL = 1e-4
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
 # outside the tensor cores, the type every kernel here computes in.
 HBM_BYTES_PER_S = 3.35e12
@@ -217,7 +262,27 @@ KERNELS = {
         "source": "pytorch_hmm_tpu_torch/csrc/emit_mlp.cu",
         "replaces": "pytorch_hmm_tpu/ops/emit_mlp.py:133",
     },
+    "pallas_forward": {
+        "source": "pytorch_hmm_tpu_torch/csrc/scan_bigk.cu",
+        "replaces": "pytorch_hmm_tpu/ops/scan.py:227",
+    },
+    "pallas_backward": {
+        "source": "pytorch_hmm_tpu_torch/csrc/scan_bigk.cu",
+        "replaces": "pytorch_hmm_tpu/ops/scan.py:840",
+    },
+    "pallas_viterbi": {
+        "source": "pytorch_hmm_tpu_torch/csrc/scan_bigk.cu",
+        "replaces": "pytorch_hmm_tpu/ops/scan.py:1143",
+    },
+    "fused_gmm_viterbi": {
+        "source": "pytorch_hmm_tpu_torch/csrc/fused_gmm.cu",
+        "replaces": "pytorch_hmm_tpu/ops/fused.py:265",
+    },
 }
+BIGK_KERNELS = ("pallas_forward", "pallas_backward", "pallas_viterbi", "fused_gmm_viterbi")
+# General-K entry points profiled for their device-busy share.
+BIGK_PROFILED = ("GaussianHMMLayer decode", "GaussianHMMLayer compute_loss step",
+                 "MixtureGaussianHMMLayer C=2 decode")
 # Kernels with a time-varying (B, T, K, K) mode, counted apart as well.
 TIME_VARYING = ("smallk_viterbi", "fbsum_smallk")
 TRAINING_KERNELS = ("diag_quadratic", "fbsum_smallk", "hsmm_smallk_forward",
@@ -239,6 +304,15 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def must_raise(exc, fn, what: str) -> None:
+    """Fail unless ``fn()`` raises ``exc``."""
+    try:
+        fn()
+    except exc:
+        return
+    raise SmokeFailure(f"{what} did not raise {exc.__name__}")
 
 
 def card_line() -> str:
@@ -395,7 +469,6 @@ def phase_decode(dev):
     launches, and check the results against the layer on the CPU."""
     import torch
     from pytorch_hmm_tpu_torch import MixtureGaussianHMMLayer, core
-    from pytorch_hmm_tpu_torch.ops import MAX_SMALLK, auto_gmm_viterbi
     from pytorch_hmm_tpu_torch.ops.smallk import smallk_viterbi
 
     layer = MixtureGaussianHMMLayer(
@@ -448,17 +521,6 @@ def phase_decode(dev):
         check(torch.equal(gs.cpu(), rs), "card trellis on CPU log-obs: paths differ")
         check((gc.cpu() - rc).abs().max().item() <= VIT_SCORE_ATOL,
               "card trellis on CPU log-obs: scores differ")
-
-    # More states than the trellis kernel takes must raise, not fall back.
-    big = MAX_SMALLK + 1
-    try:
-        auto_gmm_viterbi(obs[:1, :8], torch.zeros(big, 1, D, device=dev),
-                         torch.zeros(big, 1, D, device=dev), torch.zeros(big, 1, device=dev),
-                         torch.zeros(big, big, device=dev), torch.zeros(big, device=dev))
-    except NotImplementedError:
-        pass
-    else:
-        raise SmokeFailure(f"S={big} on CUDA did not raise NotImplementedError")
     return layer, obs, launches, agreement
 
 
@@ -632,13 +694,11 @@ def phase_training(dev):
         check(err <= EM_RTOL, f"em_step: {name} off by {err:.3g} of its max")
         errs[f"em {name}"] = err
 
-    # Cases with no kernel yet raise before any work instead of falling back.
-    big = ops.MAX_SMALLK + 1
+    # Shapes a kernel does not take raise before any work instead of
+    # falling back.
+    big = ops.MAX_K + 1
     refusals = {
-        "K>32 likelihood": lambda: ops.auto_log_likelihood(
-            torch.zeros(1, 4, big, device=dev), torch.zeros(big, big, device=dev),
-            torch.zeros(big, device=dev)),
-        "K>32 posteriors": lambda: ops.auto_forward_backward(
+        "K>1024 pallas_forward": lambda: ops.pallas_forward(
             torch.zeros(1, 4, big, device=dev), torch.zeros(big, big, device=dev),
             torch.zeros(big, device=dev)),
         "HSMM D>256": lambda: ops.hsmm_smallk_forward(
@@ -1541,7 +1601,408 @@ def phase_neural_timing(dev, gen, neural):
     return times, launches, _profile(dev, calls["NeuralHMM forward"]), (emit, lo, la)
 
 
-def bounds(inputs, neural_inputs):
+def _scan_cases(dev, gen):
+    """Inputs of the general-K chain checks: ``(log_obs, log_a, log_pi,
+    lengths)``."""
+    import torch
+
+    def rand(b, t, k, lengths=None):
+        lo = torch.randn(b, t, k, device=dev, generator=gen)
+        la = torch.log_softmax(torch.randn(k, k, device=dev, generator=gen), -1)
+        lp = torch.log_softmax(torch.randn(k, device=dev, generator=gen), -1)
+        ln = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+        return lo, la, lp, ln
+
+    k = 40
+    c = -torch.log(torch.tensor(float(k))).item()
+    ties = (torch.zeros(2, 60, k, device=dev), torch.full((k, k), c, device=dev),
+            torch.full((k,), c, device=dev), None)
+    # A left-to-right matrix through safe_log: self-loop 0.6, 0.4 forward,
+    # 1e-8 elsewhere, as HMMLayer's initial topology.
+    from pytorch_hmm_tpu_torch import create_left_to_right_matrix
+
+    l2r = torch.log(create_left_to_right_matrix(GK, 0.6).to(dev) + 1e-8)
+    lo, _, lp, _ = rand(4, 300, GK)
+    return {
+        "headline": rand(B, T, GK),
+        "K=33": rand(8, 500, 33),
+        "K=128": rand(8, 500, 128),
+        "K=256": rand(4, 300, 256),
+        "K=1024": rand(4, 256, 1024),
+        "ragged": rand(5, 300, 40, [300, 31, 164, 1, 129]),
+        "T=1": rand(3, 1, GK),
+        "ties": ties,
+        "left-to-right": (3.0 * lo, l2r, lp, None),
+    }
+
+
+def phase_scan_kernels(dev, gen):
+    """Rows 8, 9 and 13 vs their plain versions on the same inputs;
+    returns each one's headline max abs error (the Viterbi's of its
+    scores) and the case names."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    worst = {}
+    cases = _scan_cases(dev, gen)
+    for name, (lo, la, lp, ln) in cases.items():
+        alpha, lz = ops.pallas_forward(lo, la, lp, ln)
+        beta = ops.pallas_backward(lo, la, ln)
+        st, sc = ops.pallas_viterbi(lo, la, lp, ln)
+        torch.cuda.synchronize(dev)
+        alpha0, lz0 = ops.pallas_forward_reference(lo, la, lp, ln)
+        beta0 = ops.pallas_backward_reference(lo, la, ln)
+        st0, sc0 = ops.pallas_viterbi_reference(lo, la, lp, ln)
+        check(st.dtype == torch.int32 and st.shape == lo.shape[:2],
+              f"pallas_viterbi {name}: states {st.dtype} {tuple(st.shape)}")
+        check(torch.equal(st, st0), f"pallas_viterbi {name}: paths differ")
+        check(torch.equal(sc, sc0), f"pallas_viterbi {name}: scores differ by "
+              f"{(sc - sc0).abs().max().item()}")
+        errs = {"pallas_viterbi": (sc - sc0).abs().max().item()}
+        for kernel, got, want in (("pallas_forward", (alpha, lz), (alpha0, lz0)),
+                                  ("pallas_backward", (beta,), (beta0,))):
+            # Frozen past each row's end (alpha) or zero (beta): every frame
+            # is compared.
+            errs[kernel] = max(_sum_err(g, w, None, SCAN_ATOL, SCAN_RTOL) for g, w in zip(got, want))
+            check(errs[kernel] != float("inf"), f"{kernel} {name}: disagrees with its plain version")
+        if name == "headline":
+            worst = errs
+    return worst, list(cases)
+
+
+def _gmm_inputs(dev, gen, b, t, s, c, d, lengths=None):
+    import torch
+
+    obs = torch.randn(b, t, d, device=dev, generator=gen)
+    means = torch.randn(s, c, d, device=dev, generator=gen)
+    log_vars = 0.1 * torch.randn(s, c, d, device=dev, generator=gen)
+    log_w = torch.log_softmax(torch.randn(s, c, device=dev, generator=gen), -1)
+    la = torch.log_softmax(torch.randn(s, s, device=dev, generator=gen), -1)
+    lp = torch.log_softmax(torch.randn(s, device=dev, generator=gen), -1)
+    ln = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return obs, means, log_vars, log_w, la, lp, ln
+
+
+FUSED_CASES = {
+    "S=64 C=2 D=80": (B, T, GK, 2, GD, None),
+    "S=128 C=1": (8, 300, 128, 1, GD, None),
+    "S=40 C=2 D=13": (4, 300, 40, 2, 13, None),
+    "ragged": (5, 300, GK, 2, GD, [300, 31, 164, 1, 129]),
+}
+
+
+def phase_fused_kernel(dev, gen):
+    """Row 14 vs its plain version (the emission in another summation
+    order): frame agreement and scores; returns the headline's max abs
+    score error and each case's agreement."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    agree, worst = {}, 0.0
+    for name, shape in FUSED_CASES.items():
+        args = _gmm_inputs(dev, gen, *shape)
+        st, sc = ops.fused_gmm_viterbi(*args)
+        torch.cuda.synchronize(dev)
+        st0, sc0 = ops.fused_gmm_viterbi_reference(*args)
+        check(st.dtype == torch.int32 and st.shape == shape[:2], f"fused_gmm_viterbi {name}: states")
+        agree[name] = (st == st0).float().mean().item()
+        check(agree[name] >= FUSED_AGREE, f"fused_gmm_viterbi {name}: frame agreement {agree[name]}")
+        check(torch.allclose(sc, sc0, rtol=FUSED_RTOL, atol=FUSED_ATOL),
+              f"fused_gmm_viterbi {name}: scores differ by {(sc - sc0).abs().max().item()}")
+        if name == "S=64 C=2 D=80":
+            worst = (sc - sc0).abs().max().item()
+    return worst, agree
+
+
+def _l2r_walk(means, b, t, seed):
+    """Features ``(b, t, F)`` from left-to-right walks: each row visits
+    the states in order, a random 8-24 frames each, and stays in the
+    last. Each state's frames scatter with unit noise around its mean
+    moved by half a unit per feature, so the model is near the data but
+    not at its optimum, where the mean gradients would be noise."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    n_states, n_feat = means.shape
+    seg = torch.randint(8, 25, (b, n_states), generator=g)
+    ends = torch.cumsum(seg, 1)
+    states = torch.searchsorted(ends, torch.arange(t).expand(b, t).contiguous(), right=True)
+    states = states.clamp_max(n_states - 1)
+    centers = means.detach().cpu() + 0.5 * torch.randn(n_states, n_feat, generator=g)
+    obs = centers[states] + torch.randn(b, t, n_feat, generator=g)
+    return obs.to(means.device).contiguous()
+
+
+def _max_rel(got, want) -> float:
+    return ((got.double().cpu() - want).abs() / want.abs()).max().item()
+
+
+def phase_bigk_slice(dev):
+    """The K=64 slice against its CPU twins: GaussianHMMLayer(64, 80)
+    (train-mode posteriors, compute_loss gradients in float64, five Adam
+    steps, eval decode), HMMLayer(64), HMM at K=64, and
+    MixtureGaussianHMMLayer(64, 80) at C=2 and C=4 (decode, a
+    compute_loss step and an em_step)."""
+    import torch
+    from pytorch_hmm_tpu_torch import (HMM, GaussianHMMLayer, HMMLayer, MixtureGaussianHMMLayer,
+                                       core, create_left_to_right_matrix, ops)
+    from pytorch_hmm_tpu_torch.core.semiring import safe_log
+
+    out = {"launches": {}, "agreement": {}, "errs": {}, "losses": {}}
+    fails = []
+
+    def bound(key, err, limit):
+        out["errs"][key] = err
+        if not err <= limit:
+            fails.append(f"{key} off by {err:.3g} (limit {limit})")
+
+    def grads(tag, model, ref):
+        for (name, p), (_, q) in zip(model.named_parameters(), ref.named_parameters()):
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                  f"{tag}: gradient of {name} missing or not finite")
+            bound(f"{tag} d{name}", _grad_err(p.grad.cpu(), q.grad), BIGK_GRAD_RTOL)
+
+    def launched(tag, names):
+        torch.cuda.synchronize(dev)
+        out["launches"][tag] = read_launches(names)
+        for k, n in out["launches"][tag].items():
+            check(n > 0, f"{tag} never launched {k}")
+
+    # GaussianHMMLayer(64, 80): weights from the seed, data walking its means.
+    layer = GaussianHMMLayer(GK, GD, generator=torch.Generator().manual_seed(SEED), device=dev)
+    obs = _l2r_walk(layer.means, B, T, SEED + 50)
+    obs64 = obs.cpu().double()
+    twin = _cpu_copy(layer, GaussianHMMLayer, num_states=GK, feature_dim=GD)
+    twin64 = _cpu_copy(layer, GaussianHMMLayer, torch.float64, num_states=GK, feature_dim=GD)
+    reset_launches()
+    with torch.no_grad():
+        post = layer(obs)
+    launched("GaussianHMMLayer posteriors", ("diag_quadratic", "pallas_forward", "pallas_backward"))
+    with torch.no_grad():
+        post64 = twin64(obs64)
+    check(bool(torch.isfinite(post).all()) and post.shape == (B, T, GK), "posteriors not finite")
+    bound("GaussianHMMLayer posteriors", (post.cpu().double() - post64).abs().max().item(),
+          BIGK_POST_ATOL)
+    must_raise(NotImplementedError, lambda: layer(obs), "train-mode posteriors under autograd")
+    reset_launches()
+    layer.zero_grad()
+    loss = layer.compute_loss(obs)
+    loss.backward()
+    launched("GaussianHMMLayer compute_loss", ("diag_quadratic", "pallas_forward", "pallas_backward"))
+    ref_loss = twin64.compute_loss(obs64)
+    ref_loss.backward()
+    bound("GaussianHMMLayer loss", abs(loss.item() - ref_loss.item()) / abs(ref_loss.item()),
+          LOSS_RTOL)
+    grads("GaussianHMMLayer", layer, twin64)
+    trainee = GaussianHMMLayer(GK, GD, generator=torch.Generator().manual_seed(SEED), device=dev)
+    opt = torch.optim.Adam(trainee.parameters(), lr=1e-2)
+    losses = []
+    for _ in range(ADAM_STEPS):
+        opt.zero_grad()
+        step_loss = trainee.compute_loss(obs)
+        step_loss.backward()
+        opt.step()
+        losses.append(step_loss.item())
+    check(losses[-1] < losses[0], f"GaussianHMMLayer Adam: the loss did not fall: {losses}")
+    out["losses"]["GaussianHMMLayer"] = losses
+    layer.eval()
+    twin.eval()
+    reset_launches()
+    onehot = layer(obs)
+    launched("GaussianHMMLayer decode", ("diag_quadratic", "pallas_viterbi"))
+    check(bool((onehot.sum(-1) == 1).all()), "decode: not one-hot")
+    out["agreement"]["GaussianHMMLayer"] = (onehot.argmax(-1).cpu() == twin(obs.cpu()).argmax(-1)
+                                            ).float().mean().item()
+    check(out["agreement"]["GaussianHMMLayer"] >= 0.999,
+          f"GaussianHMMLayer decode: frame agreement {out['agreement']['GaussianHMMLayer']}")
+    # The card's trellis on the CPU's log-obs gives the CPU's paths and
+    # scores, bit for bit.
+    with torch.no_grad():
+        lo_cpu = twin._compute_gaussian_log_probs(obs.cpu())
+        la_cpu, lp_cpu = twin.hmm_layer._log_params()
+        rs, rc = core.viterbi(lo_cpu, la_cpu, lp_cpu)
+        gs, gc = ops.pallas_viterbi(lo_cpu.to(dev), la_cpu.to(dev), lp_cpu.to(dev))
+    check(torch.equal(gs.cpu(), rs) and torch.equal(gc.cpu(), rc),
+          "GaussianHMMLayer: card trellis on CPU log-obs differs")
+    out["layer"], out["obs"] = layer, obs
+
+    # HMMLayer(64) over per-state scores: the layer's log-obs, rescaled.
+    with torch.no_grad():
+        scores = (layer._compute_gaussian_log_probs(obs) / GD).contiguous()
+    hl = HMMLayer(GK, device=dev)
+    hl64 = _cpu_copy(hl, HMMLayer, torch.float64, num_states=GK)
+    reset_launches()
+    with torch.no_grad():
+        hpost = hl(scores)
+    hl.zero_grad()
+    hloss = hl.compute_loss(scores)
+    hloss.backward()
+    launched("HMMLayer", ("pallas_forward", "pallas_backward"))
+    with torch.no_grad():
+        bound("HMMLayer posteriors", (hpost.cpu().double() - hl64(scores.cpu().double())).abs()
+              .max().item(), BIGK_POST_ATOL)
+    ref = hl64.compute_loss(scores.cpu().double())
+    ref.backward()
+    bound("HMMLayer loss", abs(hloss.item() - ref.item()) / abs(ref.item()), LOSS_RTOL)
+    grads("HMMLayer", hl, hl64)
+    must_raise(NotImplementedError,
+               lambda: hl.compute_loss(scores, torch.zeros(B, T, dtype=torch.long, device=dev)),
+               "supervised HMMLayer loss under autograd")
+    hl.eval()
+    reset_launches()
+    hs, hsc = hl.align(scores)
+    launched("HMMLayer align", ("pallas_viterbi",))
+    hl_cpu = _cpu_copy(hl, HMMLayer, num_states=GK).eval()
+    rs, rsc = hl_cpu.align(scores.cpu())
+    out["agreement"]["HMMLayer"] = (hs.cpu() == rs).float().mean().item()
+    check(out["agreement"]["HMMLayer"] >= 0.999, f"HMMLayer align: agreement {out['agreement']}")
+    check(torch.allclose(hsc.cpu(), rsc, rtol=1e-5, atol=0.0), "HMMLayer align: scores differ")
+
+    # HMM(create_left_to_right_matrix(64)) on the layer's frame probabilities.
+    P = create_left_to_right_matrix(GK)
+    with torch.no_grad():
+        probs = torch.softmax(layer._compute_gaussian_log_probs(obs), -1).contiguous()
+    hmm = HMM(P, device=dev)
+    hmm64 = HMM(P, dtype=torch.float64, device="cpu")
+    hmm32 = HMM(P, device="cpu")
+    reset_launches()
+    gamma, _, _ = hmm.forward_backward(probs)
+    vs, vsc = hmm.viterbi_decode(probs)
+    ll = hmm.compute_likelihood(probs)
+    launched("HMM", ("pallas_forward", "pallas_backward", "pallas_viterbi"))
+    p64 = probs.cpu().double()
+    bound("HMM posteriors", (gamma.cpu().double() - hmm64.forward_backward(p64)[0]).abs().max()
+          .item(), BIGK_POST_ATOL)
+    bound("HMM log-likelihood", _max_rel(ll, hmm64.compute_likelihood(p64)), HMM_LL_RTOL)
+    rs, rsc = hmm32.viterbi_decode(probs.cpu())
+    out["agreement"]["HMM"] = (vs.cpu() == rs).float().mean().item()
+    check(out["agreement"]["HMM"] >= 0.999, f"HMM decode: agreement {out['agreement']['HMM']}")
+    check(torch.allclose(vsc.cpu(), rsc, rtol=1e-5, atol=0.0), "HMM decode: scores differ")
+    gs, gc = ops.pallas_viterbi(safe_log(probs.cpu()).to(dev), hmm32.log_P.to(dev),
+                                hmm32.log_p0.to(dev))
+    check(torch.equal(gs.cpu(), rs) and torch.equal(gc.cpu(), rsc),
+          "HMM: card trellis on CPU log-obs differs")
+    out["hmm"], out["probs"] = hmm, probs
+
+    # MixtureGaussianHMMLayer(64, 80) at C=2 (fused decode) and C=4.
+    gobs, glen = None, None
+    for c in GMM_CS:
+        tag = f"MixtureGaussianHMMLayer C={c}"
+        gmm = MixtureGaussianHMMLayer(GK, GD, num_components=c,
+                                      generator=torch.Generator().manual_seed(SEED), device=dev)
+        if gobs is None:
+            gobs = _l2r_walk(gmm.means[:, 0], B, T, SEED + 51)
+            glen = torch.randint(1, T + 1, (B,), generator=torch.Generator().manual_seed(SEED + 52),
+                                 dtype=torch.int32).to(dev)
+            glen[0], glen[1] = T, 1
+        kw = dict(num_states=GK, feature_dim=GD, num_components=c)
+        cpu = _cpu_copy(gmm, MixtureGaussianHMMLayer, **kw).eval()
+        cpu64 = _cpu_copy(gmm, MixtureGaussianHMMLayer, torch.float64, **kw)
+        decode = "fused_gmm_viterbi" if c == 2 else "pallas_viterbi"
+        reset_launches()
+        full = gmm(gobs, return_log_probs=True)
+        ragged = gmm(gobs, return_log_probs=True, lengths=glen)
+        launched(f"{tag} decode", (decode,) if c == 2 else ("diag_quadratic", decode))
+        for name, (st, sc), ln in (("full", full, None), ("ragged", ragged, glen.cpu())):
+            rst, rsc = cpu(gobs.cpu(), return_log_probs=True, lengths=ln)
+            agree = (st.cpu() == rst).float().mean().item()
+            out["agreement"][f"{tag} {name}"] = agree
+            check(agree >= 0.999, f"{tag} {name}: frame agreement {agree}")
+            check(torch.allclose(sc.cpu(), rsc, rtol=1e-5, atol=0.0), f"{tag} {name}: scores differ")
+        reset_launches()
+        gmm.zero_grad()
+        gl = gmm.compute_loss(gobs)
+        gl.backward()
+        launched(f"{tag} compute_loss", ("diag_quadratic", "pallas_forward", "pallas_backward"))
+        rl = cpu64.compute_loss(gobs.cpu().double())
+        rl.backward()
+        bound(f"{tag} loss", abs(gl.item() - rl.item()) / abs(rl.item()), LOSS_RTOL)
+        grads(tag, gmm, cpu64)
+        em = _cpu_copy(gmm, MixtureGaussianHMMLayer, torch.float64, **kw)
+        reset_launches()
+        ll = gmm.em_step(gobs).item()
+        launched(f"{tag} em_step", ("diag_quadratic", "pallas_forward", "pallas_backward"))
+        ref_ll = em.em_step(gobs.cpu().double()).item()
+        bound(f"{tag} em ll", abs(ll - ref_ll) / abs(ref_ll), LOSS_RTOL)
+        for (name, p), (_, q) in zip(gmm.named_parameters(), em.named_parameters()):
+            p, q = p.detach().cpu(), q.detach()
+            check(bool(torch.isfinite(p).all()), f"{tag} em_step: {name} not finite")
+            if name.endswith("_logits"):
+                p, q = torch.softmax(p, -1), torch.softmax(q, -1)
+            bound(f"{tag} em {name}", _grad_err(p, q), BIGK_EM_RTOL)
+        out[f"gmm C={c}"] = gmm
+    out["gobs"] = gobs
+    check(not fails, "general-K slice vs CPU: " + "; ".join(fails) + f" (all: {out['errs']})")
+    return out
+
+
+def phase_bigk_timing(dev, gen, slice_out):
+    """Rows 8, 9, 13 and 14 against their plain versions at the slice's
+    width, the chains at K=256 and 1024 as well; the slice's entry
+    points; launches per call. Returns ``(times, launches, profiles of the
+    BIGK_PROFILED calls, inputs)``."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    slow = dict(runs=PLAIN_SUM_RUNS, warmup=1)
+    cases = _scan_cases(dev, gen)
+    lo, la, lp, _ = cases["headline"]
+    gmm_in = _gmm_inputs(dev, gen, B, T, GK, 2, GD)
+    times = {
+        "pallas_forward": (cuda_median_ms(lambda: ops.pallas_forward(lo, la, lp)),
+                           cuda_median_ms(lambda: ops.pallas_forward_reference(lo, la, lp), **slow)),
+        "pallas_backward": (cuda_median_ms(lambda: ops.pallas_backward(lo, la)),
+                            cuda_median_ms(lambda: ops.pallas_backward_reference(lo, la), **slow)),
+        "pallas_viterbi": (cuda_median_ms(lambda: ops.pallas_viterbi(lo, la, lp)),
+                           cuda_median_ms(lambda: ops.pallas_viterbi_reference(lo, la, lp), **slow)),
+        "fused_gmm_viterbi": (cuda_median_ms(lambda: ops.fused_gmm_viterbi(*gmm_in)),
+                              cuda_median_ms(lambda: ops.fused_gmm_viterbi_reference(*gmm_in),
+                                             **slow)),
+    }
+    for k in ("K=256", "K=1024"):
+        klo, kla, klp, _ = cases[k]
+        times[f"pallas_forward {k}"] = cuda_median_ms(lambda: ops.pallas_forward(klo, kla, klp))
+        times[f"pallas_backward {k}"] = cuda_median_ms(lambda: ops.pallas_backward(klo, kla))
+        times[f"pallas_viterbi {k}"] = cuda_median_ms(lambda: ops.pallas_viterbi(klo, kla, klp))
+    layer, obs, gobs = slice_out["layer"], slice_out["obs"], slice_out["gobs"]
+    hmm, probs = slice_out["hmm"], slice_out["probs"]
+    trainee = slice_out["layer"]
+
+    def loss_step(model, x):
+        model.zero_grad()
+        model.compute_loss(x).backward()
+
+    def posteriors():
+        trainee.train()
+        with torch.no_grad():
+            out = trainee(obs)
+        trainee.eval()
+        return out
+
+    calls = {
+        "GaussianHMMLayer decode": lambda: layer(obs),
+        "GaussianHMMLayer posteriors": posteriors,
+        "GaussianHMMLayer compute_loss step": lambda: loss_step(layer, obs),
+        "HMM forward_backward": lambda: hmm.forward_backward(probs),
+    }
+    for c in GMM_CS:
+        gmm = slice_out[f"gmm C={c}"]
+        calls[f"MixtureGaussianHMMLayer C={c} decode"] = lambda gmm=gmm: gmm(gobs, True)
+        calls[f"MixtureGaussianHMMLayer C={c} compute_loss step"] = (
+            lambda gmm=gmm: loss_step(gmm, gobs))
+        calls[f"MixtureGaussianHMMLayer C={c} em_step"] = lambda gmm=gmm: gmm.em_step(gobs)
+    launches = {}
+    for name, fn in calls.items():
+        times[name] = cuda_median_ms(fn)
+        reset_launches()
+        fn()
+        torch.cuda.synchronize(dev)
+        launches[name] = {k: v for k, v in read_launches(KERNELS).items() if v}
+    profiles = {name: _profile(dev, calls[name]) for name in BIGK_PROFILED}
+    return times, launches, profiles, {"scan": (lo, la, lp), "gmm": gmm_in}
+
+
+def bounds(inputs, neural_inputs, bigk_inputs):
     """Each kernel's least time on the card for this run's timed inputs,
     ``(ms, "bytes" or "operations")``: the larger of the bytes it must
     move (each input read once, each output written once) over the HBM
@@ -1552,6 +2013,12 @@ def bounds(inputs, neural_inputs):
     HB_, HT_, HS_, HD_ = HB, HT, HS, HD
     (beam, la, lo, _fleets) = inputs
     emit, tv_lo, tv_la = neural_inputs
+    glo = bigk_inputs["scan"][0]
+    gb, gt, gk = glo.shape
+    gbt, gbk = gb * gt, glo.numel()
+    fobs, fmeans = bigk_inputs["gmm"][0], bigk_inputs["gmm"][1]
+    fb, ft, _ = fobs.shape
+    fs, fc, _ = fmeans.shape
     er, es = emit[0].shape[0] * emit[0].shape[1], emit[9].shape[1]   # rows, states
     n_valid = beam[2]
     beam_n, beam_t, beam_s = beam[1].shape
@@ -1603,6 +2070,20 @@ def bounds(inputs, neural_inputs):
                               2 * tv_lo.numel() * NS + tv_lo.numel()),
         "fbsum_smallk tv": (f * (tv_lo.numel() + tv_la.numel() + NS + 2 * tv_lo.numel() + NB),
                             2 * (3 * tv_lo.numel() * NS + 2 * tv_lo.numel())),
+        # log-obs, P (or log_a), log_pi in; alpha and log Z, beta, or states
+        # and score out. Per frame and state a K-long multiply-add (sum
+        # chains) or add-and-compare (trellis), then the exp, log and
+        # emission (sum chains) or the emission (trellis).
+        "pallas_forward": (f * (gbk + gk * gk + gk + gbk + gb), 2 * gbk * gk + 3 * gbk),
+        "pallas_backward": (f * (gbk + gk * gk + gbk), 2 * gbk * gk + 3 * gbk),
+        "pallas_viterbi": (f * (gbk + gk * gk + gk + gbt + gb), 2 * gbk * gk + gbk),
+        # obs, the diag parameters, log_a, log_pi in; states and score out.
+        # The emission's x² and two multiply-adds per (frame, state,
+        # component, feature), the C-way logsumexp (max, exp, add), then
+        # the trellis.
+        "fused_gmm_viterbi": (f * (fobs.numel() + 2 * fmeans.numel() + fs * fc + fs * fs + fs
+                                   + fb * ft + fb),
+                              fb * ft * fs * fc * (4 * fmeans.shape[-1] + 3) + 2 * fb * ft * fs * fs),
     }
     out = {}
     for name, (nbytes, ops_) in work.items():
@@ -1813,14 +2294,38 @@ def main() -> int:
           + f" (posteriors atol {NEURAL_POST_ATOL}, ll rtol {LOSS_RTOL}, grad rtol "
           f"{NEURAL_GRAD_RTOL})", flush=True)
 
+    scan_errs, scan_cases = phase_scan_kernels(dev, gen)
+    print(f"pallas_viterbi vs plain: ok, paths and scores identical on {len(scan_cases)} cases "
+          f"({', '.join(scan_cases)}); pallas_forward / pallas_backward vs plain: ok on the same "
+          f"cases; headline (B={B}, T={T}, K={GK}) max abs err "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in scan_errs.items())
+          + f" (atol {SCAN_ATOL} + rtol {SCAN_RTOL})", flush=True)
+    fused_err, fused_agree = phase_fused_kernel(dev, gen)
+    print(f"fused_gmm_viterbi vs plain: ok on {len(FUSED_CASES)} cases, frame agreement "
+          f"{fused_agree} (>= {FUSED_AGREE}), headline max abs score err {fused_err:.3g} "
+          f"(rtol {FUSED_RTOL}, atol {FUSED_ATOL})", flush=True)
+    bigk = phase_bigk_slice(dev)
+    print(f"general-K slice (GaussianHMMLayer({GK}, {GD}), HMMLayer({GK}), HMM K={GK}, "
+          f"MixtureGaussianHMMLayer({GK}, {GD}, C={GMM_CS}); B={B}, T={T}): ok, launches "
+          f"{bigk['launches']}, decode frame agreement with CPU {bigk['agreement']}, Adam losses "
+          f"{bigk['losses']}", flush=True)
+    print("general-K slice vs CPU float64 (posteriors max abs; loss / log-likelihood max rel; "
+          "gradients and EM relative to each tensor's max): "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in bigk["errs"].items())
+          + f" (posteriors atol {BIGK_POST_ATOL}, loss rtol {LOSS_RTOL}, HMM log-likelihood rtol "
+          f"{HMM_LL_RTOL}, grad rtol {BIGK_GRAD_RTOL}, EM rtol {BIGK_EM_RTOL})", flush=True)
+
     times, launches_per_call = phase_timing(dev, gen, layer, obs, train, dur, dur_train)
     stimes, slaunches, prof, stream_inputs = phase_stream_timing(dev, gen)
     ntimes, nlaunches, nprof, neural_inputs = phase_neural_timing(dev, gen, neural)
+    btimes, blaunches, bprof, bigk_inputs = phase_bigk_timing(dev, gen, bigk)
     times.update(stimes)
     times.update(ntimes)
+    times.update(btimes)
     launches_per_call.update(slaunches)
     launches_per_call.update(nlaunches)
-    bound = bounds(stream_inputs, neural_inputs)
+    launches_per_call.update(blaunches)
+    bound = bounds(stream_inputs, neural_inputs, bigk_inputs)
     for name in KERNELS:
         ms, plain = times[name]
         print(f"timing {name}: {ms:.4f} ms kernel, {plain:.4f} ms plain torch, bound "
@@ -1868,13 +2373,25 @@ def main() -> int:
     print(f"profile of 10 NeuralHMM forwards (B={NB}, T={NT}): host wall {nprof['host_ms']:.4f} ms, "
           f"device busy {nprof['device_ms']} ms, {nprof['kernels']} device ops per call, top "
           f"{nprof['top_ms']} on {card}", flush=True)
+    print("timing general-K chains (B=4): "
+          + ", ".join(f"{k} {times[k]:.4f} ms" for k in btimes if " K=" in k)
+          + f" (K=256 at T=300, K=1024 at T=256; median, CUDA events) on {card}", flush=True)
+    for name in (k for k in btimes if k not in BIGK_KERNELS and " K=" not in k):
+        what = "forward+backward" if "step" in name else "call"
+        print(f"timing {name}: {times[name]:.4f} ms per {what} of {B}x{T} frames (median of "
+              f"{TIMED_RUNS}, CUDA events) on {card}", flush=True)
+    for name, p in bprof.items():
+        print(f"profile of 10 calls of {name} (B={B}, T={T}): host wall {p['host_ms']:.4f} ms, "
+              f"device busy {p['device_ms']} ms, {p['kernels']} device ops per call, top "
+              f"{p['top_ms']} on {card}", flush=True)
 
-    errs = {"diag_quadratic": dq_errs[(B, T, D, S * C)], "smallk_viterbi": vit_err, **sum_errs,
-            **hsmm_errs, **stream_errs, "fused_gaussian_emission": emit_errs["headline"]}
+    errs ={"diag_quadratic": dq_errs[(B, T, D, S * C)], "smallk_viterbi": vit_err, **sum_errs,
+            **hsmm_errs, **stream_errs, "fused_gaussian_emission": emit_errs["headline"],
+            **scan_errs, "fused_gmm_viterbi": fused_err}
     launches = {name: sum(run.get(name, 0) for run in (
         dec_launches, train["launches"], dur["launches"], dur_train["launches"],
         serve["beam"]["launches"], serve["greedy"]["launches"], fleets["launches"],
-        *neural["launches"].values()))
+        *neural["launches"].values(), *bigk["launches"].values()))
         for name in KERNELS}
     library = {"diag_quadratic": times["library diag_quadratic"]}
     time_varying = {name: {

@@ -15,8 +15,10 @@ sampling over the ``core.hsmm`` segment DP) and streaming decode
 frontend ``DeviceFramer`` and ``make_pcm_decode_step``) and the neural
 HMMs (``NeuralHMM``, ``ContextualNeuralHMM``, ``NeuralObservationModel``,
 ``NeuralTransitionModel``, and ``SemiMarkovHMM`` with neural emissions:
-static or time-varying transitions, the fused neural emission kernel).
-Models are built on the CUDA device unless ``device`` names another; on
+static or time-varying transitions, the fused neural emission kernel)
+and the general-K path (``HMM``, ``HMMLayer``, ``GaussianHMMLayer`` and
+every model above 32 states, to 1024: the general-K forward, backward
+and Viterbi kernels, and the fused GMM decode). Models are built on the CUDA device unless ``device`` names another; on
 CPU tensors everything runs as plain torch.
 
 Importing the package imports neither JAX nor Triton and builds nothing.
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
-from . import bridge, core, durations, emissions, frontend, models, ops, precision, streaming
+from . import bridge, core, durations, emissions, frontend, models, ops, precision, streaming, utils
 from .core import (
     backward_log,
     forward_backward,
@@ -37,20 +39,28 @@ from .core import (
     hsmm_posteriors,
     hsmm_viterbi,
     log_likelihood,
+    sample_one_hot,
+    sample_states,
     viterbi,
+    viterbi_associative,
+    viterbi_blocked,
 )
 from .emissions import (
     diag_gaussian_log_probs,
+    gaussian_log_probs,
     gmm_component_log_probs,
     gmm_log_probs,
     spherical_gaussian_log_probs,
 )
 from .frontend import DeviceFramer, device_frames, framing_tables, make_pcm_decode_step
+from .hmm import HMM, HMMJax, HMMPyTorch
 from .models import (
     AdaptiveDurationHSMM,
     ContextualNeuralHMM,
     DurationConstrainedHMM,
     DurationModel,
+    GaussianHMMLayer,
+    HMMLayer,
     HSMMLayer,
     MixtureGaussianHMMLayer,
     NeuralHMM,
@@ -76,6 +86,7 @@ from .streaming import (
     StreamingHMMProcessor,
     StreamingResult,
 )
+from .utils import create_left_to_right_matrix, create_transition_matrix
 
 __all__ = [
     "bridge",
@@ -87,7 +98,12 @@ __all__ = [
     "ops",
     "precision",
     "streaming",
+    "utils",
     "viterbi",
+    "viterbi_associative",
+    "viterbi_blocked",
+    "sample_one_hot",
+    "sample_states",
     "forward_log",
     "backward_log",
     "forward_backward",
@@ -98,6 +114,7 @@ __all__ = [
     "hsmm_posteriors",
     "hsmm_viterbi",
     "diag_gaussian_log_probs",
+    "gaussian_log_probs",
     "gmm_component_log_probs",
     "gmm_log_probs",
     "spherical_gaussian_log_probs",
@@ -105,6 +122,11 @@ __all__ = [
     "ContextualNeuralHMM",
     "DurationConstrainedHMM",
     "DurationModel",
+    "GaussianHMMLayer",
+    "HMM",
+    "HMMJax",
+    "HMMLayer",
+    "HMMPyTorch",
     "HSMMLayer",
     "MixtureGaussianHMMLayer",
     "NeuralHMM",
@@ -129,4 +151,6 @@ __all__ = [
     "device_frames",
     "framing_tables",
     "make_pcm_decode_step",
+    "create_left_to_right_matrix",
+    "create_transition_matrix",
 ]

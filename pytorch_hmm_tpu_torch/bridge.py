@@ -24,6 +24,10 @@ import numpy as np
 import torch
 
 __all__ = [
+    "gaussian_hmm_layer_numpy",
+    "gaussian_hmm_layer_state_dict",
+    "hmm_layer_numpy",
+    "hmm_layer_state_dict",
     "hsmm_layer_numpy",
     "hsmm_layer_state_dict",
     "mixture_gaussian_numpy",
@@ -82,6 +86,10 @@ def mixture_gaussian_numpy(layer: torch.nn.Module) -> dict[str, np.ndarray]:
     }
 
 
+# Top-level JAX attributes of HMMLayer (transition_matrix is the Buffer
+# of fixed transitions) and GaussianHMMLayer.
+_HMM_LAYER_ROOTS = ("transition_logits", "transition_matrix", "initial_logits")
+_GAUSSIAN_HMM_ROOTS = ("hmm_layer", "means", "log_scales")
 # Top-level JAX attributes of HSMMLayer and DurationConstrainedHMM.
 _HSMM_ROOTS = (
     "transition_logits", "observation_means", "observation_log_vars",
@@ -161,6 +169,32 @@ def _state_dict(params: Mapping[str, np.ndarray], roots, what) -> dict[str, torc
 def _numpy(module: torch.nn.Module) -> dict[str, np.ndarray]:
     return dict(_to_jax(k, v.detach().cpu().numpy().astype(np.float32), module)
                 for k, v in module.state_dict().items())
+
+
+def hmm_layer_state_dict(params: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """``HMMLayer`` weights, keyed by the JAX attribute names
+    (``transition_logits`` or, with fixed transitions, the
+    ``transition_matrix`` Buffer; ``initial_logits``), as a state dict
+    for the torch layer's ``load_state_dict``."""
+    return _state_dict(params, _HMM_LAYER_ROOTS, "HMMLayer")
+
+
+def hmm_layer_numpy(layer: torch.nn.Module) -> dict[str, np.ndarray]:
+    """The inverse of :func:`hmm_layer_state_dict`."""
+    return _numpy(layer)
+
+
+def gaussian_hmm_layer_state_dict(params: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """``GaussianHMMLayer`` weights, keyed by the JAX attribute paths
+    (``means``, ``log_scales``, ``hmm_layer.transition_logits`` or the
+    ``hmm_layer.transition_matrix`` Buffer, ``hmm_layer.initial_logits``),
+    as a state dict for the torch layer's ``load_state_dict``."""
+    return _state_dict(params, _GAUSSIAN_HMM_ROOTS, "GaussianHMMLayer")
+
+
+def gaussian_hmm_layer_numpy(layer: torch.nn.Module) -> dict[str, np.ndarray]:
+    """The inverse of :func:`gaussian_hmm_layer_state_dict`."""
+    return _numpy(layer)
 
 
 def hsmm_layer_state_dict(params: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:

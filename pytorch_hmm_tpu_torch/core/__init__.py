@@ -6,6 +6,7 @@ from .fb import (
     forward_log,
     log_likelihood,
     xi_expectations,
+    xi_sum,
 )
 from .hsmm import (
     hsmm_backward,
@@ -27,7 +28,8 @@ from .semiring import (
     normalize_log,
     safe_log,
 )
-from .viterbi import viterbi
+from .sample import sample_one_hot, sample_states
+from .viterbi import viterbi, viterbi_associative, viterbi_blocked
 
 __all__ = [
     "LOG_ZERO",
@@ -44,7 +46,12 @@ __all__ = [
     "forward_log",
     "log_likelihood",
     "xi_expectations",
+    "xi_sum",
+    "sample_one_hot",
+    "sample_states",
     "viterbi",
+    "viterbi_associative",
+    "viterbi_blocked",
     "hsmm_backward",
     "hsmm_forward",
     "hsmm_grads_from_tables",

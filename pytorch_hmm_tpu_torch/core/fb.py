@@ -32,6 +32,7 @@ __all__ = [
     "forward_backward",
     "log_likelihood",
     "xi_expectations",
+    "xi_sum",
 ]
 
 
@@ -210,3 +211,51 @@ def xi_expectations(
         - log_z[:, None, None, None]
     )
     return logsumexp(lxi, dim=1)
+
+
+def xi_sum(
+    log_alpha: torch.Tensor,
+    log_beta: torch.Tensor,
+    log_obs: torch.Tensor,
+    log_a: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``Σ_b w_b Σ_t ξ_bt`` in probability space, ``(K, K)``, for static
+    ``(K, K)`` transitions, without the ``(B, T-1, K, K)`` table that
+    :func:`xi_expectations` forms (0.52 GB at B=32, T=1000, K=64).
+
+    ``ξ_t[i, j] ∝ exp(alpha_t[i]) P[i, j] exp(log_obs_{t+1}[j] +
+    beta_{t+1}[j])`` factors into two shifted tables per frame,
+    ``A_t = exp(alpha_t - max alpha_t)`` and ``N_t = exp((log_obs +
+    beta)_{t+1} - max)``, each at most 1; the sum over (b, t) is ``P ⊙
+    (Aᵀ diag(w / z) N)``, one ``(K, B·T) @ (B·T, K)`` product, where
+    ``z_t = A_t P N_tᵀ`` normalizes each frame's ξ to 1. That is the
+    forward-backward identity ``Σ_ij ξ_t[i, j] = 1``; taking it per frame
+    instead of dividing by ``Z`` cancels the rounding that f32 alpha and
+    beta accumulate over T frames, which is common to a frame's states
+    (at K=64, T=1000 it put 5e-3 into the gradients, the per-frame form
+    1e-12 into γ). A frame whose ``z_t`` underflows (no transition joins
+    its likeliest states and every path between them lies beyond 87
+    nats) contributes nothing.
+
+    ``weights (B,)`` scales each sequence (the likelihood gradient's
+    cotangent); ``lengths (B,)`` keep only transitions into frames
+    ``t + 1 < lengths[b]``.
+    """
+    K = log_a.shape[-1]
+    a = log_alpha[:, :-1]
+    q = (log_obs + log_beta)[:, 1:]
+    ea = torch.exp(a - a.amax(dim=-1, keepdim=True).clamp_min(LOG_ZERO))
+    eq = torch.exp(q - q.amax(dim=-1, keepdim=True).clamp_min(LOG_ZERO))
+    p = torch.exp(log_a)
+    z = torch.sum(ea * (eq @ p.T), dim=-1, keepdim=True)
+    w = torch.where(z > 0, 1.0 / z, torch.zeros_like(z))
+    if weights is not None:
+        w = w * weights[:, None, None]
+    if lengths is not None:
+        T = log_obs.shape[1]
+        keep = torch.arange(1, T, device=w.device)[None, :] < _as_lengths(lengths, w.device)[:, None]
+        w = torch.where(keep[..., None], w, torch.zeros_like(w))
+    prod = (ea * w).reshape(-1, K).T @ eq.reshape(-1, K)
+    return torch.where(p > 0, p * prod, torch.zeros_like(prod))

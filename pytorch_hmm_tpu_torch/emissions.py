@@ -11,8 +11,9 @@ which ``ops.emit.diag_quadratic`` evaluates with one read of the
 observations (the hand kernel on CUDA, plain torch on CPU). Its
 autograd Function carries gradients back to the means and
 log-variances on both devices, so the diag and tied scores train as
-they decode. Full covariance is not ported yet and raises
-``NotImplementedError``.
+they decode. ``gaussian_log_probs`` is ``GaussianHMMLayer``'s entry,
+parameterized by log standard deviations. Full covariance is not ported
+yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from .ops.emit import diag_quadratic
 
 __all__ = [
     "diag_gaussian_log_probs",
+    "gaussian_log_probs",
     "spherical_gaussian_log_probs",
     "gmm_component_log_probs",
     "gmm_log_probs",
@@ -75,6 +77,24 @@ def spherical_gaussian_log_probs(
     mahal = (x2[..., None] - 2.0 * xm + m2) * inv_var
     log_norm = -0.5 * D * (_LOG_2PI + log_vars)
     return log_norm - 0.5 * mahal
+
+
+def gaussian_log_probs(
+    obs: torch.Tensor,
+    means: torch.Tensor,
+    log_scales: torch.Tensor,
+    covariance_type: str = "diag",
+) -> torch.Tensor:
+    """``GaussianHMMLayer``'s scores ``(B, T, K)``: ``log_scales`` are
+    log standard deviations, ``(K, D)`` for diag and ``(K, 1)`` for
+    spherical, so ``log_var = 2 · log_scales``."""
+    if covariance_type == "diag":
+        return diag_gaussian_log_probs(obs, means, 2.0 * log_scales)
+    if covariance_type == "spherical":
+        return spherical_gaussian_log_probs(obs, means, 2.0 * log_scales[..., 0])
+    if covariance_type == "full":
+        raise NotImplementedError(_FULL_COV_TODO)
+    raise ValueError(f"Unknown covariance_type: {covariance_type}")
 
 
 def gmm_component_log_probs(

@@ -5,6 +5,7 @@ no counterpart here: ``nn.Module.register_buffer`` and
 ``nn.Module.train()`` / ``eval()`` already do its job.
 """
 
+from .hmm_layer import GaussianHMMLayer, HMMLayer
 from .hsmm import DurationConstrainedHMM, HSMMLayer
 from .mixture_gaussian import MixtureGaussianHMMLayer, PreparedGMMDecoder
 from .neural import ContextualNeuralHMM, NeuralHMM, NeuralObservationModel, NeuralTransitionModel
@@ -15,6 +16,8 @@ __all__ = [
     "ContextualNeuralHMM",
     "DurationConstrainedHMM",
     "DurationModel",
+    "GaussianHMMLayer",
+    "HMMLayer",
     "HSMMLayer",
     "MixtureGaussianHMMLayer",
     "NeuralHMM",

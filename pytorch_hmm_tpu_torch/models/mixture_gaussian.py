@@ -12,7 +12,12 @@ On CUDA tensors decoding goes through ``ops.emit.diag_quadratic`` and
 ``ops.smallk.smallk_viterbi``; the likelihood through
 ``diag_quadratic`` (an autograd Function) and the forward and backward
 sum kernels (``ops.hsmm_smallk``, or ``ops.fbsum`` when ragged); EM
-through ``diag_quadratic`` and ``ops.fbsum.fbsum_smallk``.
+through ``diag_quadratic`` and ``ops.fbsum.fbsum_smallk``. With more
+than 32 states, diag decode inside the fused envelope runs
+``ops.fused.fused_gmm_viterbi`` and other decodes
+``ops.scan.pallas_viterbi``; the likelihood and EM run
+``ops.scan.pallas_forward`` / ``pallas_backward``, EM's transition
+statistic as the product ``core.xi_sum``.
 
 Full covariance comes with ROADMAP queue 1 item 2, and distributed EM
 (``em_step(mesh=...)``) with item 12.
@@ -29,7 +34,8 @@ from torch import nn
 from .. import core
 from ..core.semiring import logsumexp, safe_log
 from ..emissions import _FULL_COV_TODO, gmm_component_log_probs, gmm_log_probs
-from ..ops import auto_forward_backward, auto_gmm_viterbi, auto_log_likelihood, auto_viterbi
+from ..ops import (MAX_SMALLK, auto_forward_backward, auto_gmm_viterbi, auto_log_likelihood,
+                   auto_viterbi)
 from ..precision import maybe_remat
 
 __all__ = ["MixtureGaussianHMMLayer", "PreparedGMMDecoder"]
@@ -320,8 +326,12 @@ def _em_update(
         "mixture_logits": torch.log(new_w + 1e-10),
     }
     if learnable_transitions:
-        xi = core.xi_expectations(alpha_hat, beta_hat, lo_hat, log_a, lz_hat)
-        a_new = torch.sum(torch.exp(xi), dim=0)              # Σ_b Σ_t ξ_t
+        if log_obs.shape[-1] > MAX_SMALLK:
+            # The product form: no (B, T-1, S, S) table.
+            a_new = core.xi_sum(alpha_hat, beta_hat, lo_hat, log_a)
+        else:
+            xi = core.xi_expectations(alpha_hat, beta_hat, lo_hat, log_a, lz_hat)
+            a_new = torch.sum(torch.exp(xi), dim=0)          # Σ_b Σ_t ξ_t
         a_new = a_new / (torch.sum(a_new, dim=-1, keepdim=True) + 1e-10)
         new["transition_logits"] = torch.log(a_new + 1e-10)
     return torch.mean(lz_hat + shift.sum(dim=(1, 2))), new

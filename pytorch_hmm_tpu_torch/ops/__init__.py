@@ -3,7 +3,7 @@
 Port of ``pytorch_hmm_tpu/ops/__init__.py``. The device decides the
 path, as the backend does in the JAX package:
 
-* CUDA tensors with K ≤ 32 run the hand kernels: ``emit.diag_quadratic``
+* CUDA tensors with K ≤ 32 run the small-K kernels: ``emit.diag_quadratic``
   for diag/tied emissions, ``emit_mlp.fused_gaussian_emission`` for the
   neural gaussian head, ``smallk.smallk_viterbi`` for decode,
   ``hsmm_smallk`` (forward and backward sum recursions at D = 1) for the
@@ -12,18 +12,27 @@ path, as the backend does in the JAX package:
   neural HMMs'), which the JAX package sends to its XLA scans, run the
   time-varying modes of ``smallk_viterbi`` and ``fbsum_smallk``, the
   likelihood too. Every K ≤ 32 goes to them at any T, ragged or not: the
-  TPU kernels' VMEM gates (fbsum's 16 states and T < 1024) and the
-  long-T switch to the prob-space kernels are TPU matters. A CUDA case
-  this package has no kernel for yet (K > 32) raises
-  ``NotImplementedError`` naming its ROADMAP row; it never falls back to
-  the plain torch path.
+  TPU kernels' VMEM gates (fbsum's 16 states and T < 1024) are TPU
+  matters.
+* CUDA tensors with 33 ≤ K ≤ 1024 and static ``(K, K)`` transitions run
+  the general-K kernels of ``scan`` (rows 8, 9 and 13 of the JAX
+  package's kernels): ``pallas_forward`` for alpha and the likelihood,
+  ``pallas_backward`` for beta and the likelihood's gradient (with the
+  transition statistic as the product ``core.xi_sum``, no ``(B, T, K,
+  K)`` table), ``pallas_viterbi`` for decode. At 32 < K ≤ 128, unragged,
+  T ≥ 1024 the JAX package switches to its prob-space kernels (rows
+  10-12), which are not ported yet; these kernels compute the same
+  tables there. Diag GMM decode inside the JAX fused kernel's envelope
+  (S ≤ 128, ``next_pow2(C) · ceil8(S) ≤ 128``) runs ``fused.fused_gmm_viterbi``.
+* Cases the JAX package has no TPU kernel for either (K > 1024, or
+  time-varying transitions with K > 32) run the plain ``core`` on the
+  tensors' own device.
 * The duration models' segment DP (``auto_hsmm_viterbi``,
   ``auto_hsmm_log_z``, ``auto_hsmm_posteriors``): CUDA tensors with
   S ≤ 32 states and D ≤ 256 durations run the ``hsmm_smallk`` kernels,
   the sum chains on max-shifted emissions. Larger shapes, which the JAX
   package never gives a kernel either, run the plain ``core.hsmm_*`` on
-  the tensors' own device; a shape the kernels take never lands there
-  because a build or launch failed, which raises.
+  the tensors' own device.
 * The streaming chunk decoders (``auto_greedy_chunk``,
   ``auto_beam_chunk_multi``): CUDA tensors inside the JAX kernels'
   envelope (S ≤ 128, W ≤ min(8, S), T and H ≤ 1024; any number of
@@ -31,6 +40,13 @@ path, as the backend does in the JAX package:
   Larger shapes, which the JAX package sends to its XLA scan on every
   backend, run the plain versions on the tensors' own device.
 * CPU tensors run the plain torch versions (``core``).
+
+A shape a kernel takes never lands on a plain path because a build or
+launch failed: that raises. Kernel launches record no gradient: the
+likelihood runs them inside autograd Functions with closed-form
+backwards; posteriors and decodes of tensors that require a gradient
+raise on CUDA (the JAX kernels have no VJP either), and differentiate
+through the plain ``core`` on CPU.
 """
 
 from __future__ import annotations
@@ -47,6 +63,7 @@ from .emit_mlp import (
     fused_gaussian_emission_reference,
 )
 from .fbsum import fbsum_smallk, fbsum_smallk_reference, fbsum_supported
+from .fused import fused_gmm_supported, fused_gmm_viterbi, fused_gmm_viterbi_reference
 from .hsmm_smallk import (
     MAX_DURATION,
     hsmm_smallk_backward,
@@ -62,6 +79,16 @@ from .hsmm_smallk import (
     hsmm_smallk_supported,
     hsmm_smallk_viterbi,
     hsmm_smallk_viterbi_reference,
+)
+from .scan import (
+    MAX_K,
+    pallas_backward,
+    pallas_backward_reference,
+    pallas_forward,
+    pallas_forward_reference,
+    pallas_viterbi,
+    pallas_viterbi_reference,
+    scan_supported,
 )
 from .smallk import (
     MAX_SMALLK,
@@ -97,6 +124,9 @@ __all__ = [
     "fused_emission_supported",
     "fused_gaussian_emission",
     "fused_gaussian_emission_reference",
+    "fused_gmm_supported",
+    "fused_gmm_viterbi",
+    "fused_gmm_viterbi_reference",
     "fbsum_smallk",
     "fbsum_smallk_reference",
     "fbsum_supported",
@@ -114,6 +144,14 @@ __all__ = [
     "hsmm_smallk_viterbi",
     "hsmm_smallk_viterbi_reference",
     "MAX_DURATION",
+    "MAX_K",
+    "pallas_backward",
+    "pallas_backward_reference",
+    "pallas_forward",
+    "pallas_forward_reference",
+    "pallas_viterbi",
+    "pallas_viterbi_reference",
+    "scan_supported",
     "smallk_viterbi",
     "smallk_viterbi_reference",
     "smallk_supported",
@@ -121,22 +159,18 @@ __all__ = [
 ]
 
 
-def _unported_trellis(K: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"no CUDA trellis kernel for K={K} > {MAX_SMALLK} states yet: "
-        "ROADMAP queue 2 rows 13 (pallas_viterbi) and 14 (fused_gmm_viterbi)"
-    )
-
-
-def _check_sum_path(log_obs: torch.Tensor) -> None:
-    """Raise for a CUDA sum-recursion problem no kernel takes yet."""
+def _sum_route(log_obs: torch.Tensor, log_a: torch.Tensor) -> str:
+    """The sum-recursion path of a problem off the CPU: ``"smallk"``
+    (K ≤ 32, static or time-varying), ``"scan"`` (33 ≤ K ≤ 1024, static)
+    or ``"plain"`` (no kernel in either package: ``core`` on the
+    tensors' device). The prob-space rows 10-12 will take 32 < K ≤ 128,
+    unragged, T ≥ 1024 from ``"scan"`` under the gate their port chooses."""
     K = log_obs.shape[-1]
-    if not fbsum_supported(K, log_obs.shape[0]):
-        raise NotImplementedError(
-            f"no CUDA sum-recursion kernel for K={K} > {MAX_SMALLK} states yet: "
-            "ROADMAP queue 2 rows 8 (pallas_forward), 9 (pallas_backward) and "
-            "12 (pallas_fb_prob)"
-        )
+    if fbsum_supported(K, log_obs.shape[0]):
+        return "smallk"
+    if log_a.ndim == 2 and scan_supported(K):
+        return "scan"
+    return "plain"
 
 
 def _f32(*tensors):
@@ -178,41 +212,71 @@ def _frame_shift(log_obs: torch.Tensor, lengths=None) -> torch.Tensor:
     return shift
 
 
+def _frame_posteriors(alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """``log γ`` normalized per frame, ``alpha + beta - logsumexp_j(alpha +
+    beta)``: equal to ``alpha + beta - log Z`` in exact arithmetic, but
+    free of the rounding that f32 alpha and beta accumulate over T
+    frames, which is common to a frame's states (5e-3 in γ at K=64,
+    T=1000 with ``log Z``; 1e-12 per frame)."""
+    lg = alpha + beta
+    return lg - core.logsumexp(lg, dim=-1, keepdim=True)
+
+
+def _big_k(log_obs: torch.Tensor) -> bool:
+    return log_obs.shape[-1] > MAX_SMALLK
+
+
 class _LogLikelihood(torch.autograd.Function):
     """``log Z (B,)`` with the closed-form posterior gradients
     (``∂ log Z/∂ log_obs = γ``, ``∂/∂ log_a = Σ_t ξ_t``,
-    ``∂/∂ log_pi = γ_0``). Forward: the D = 1 forward sum kernel;
-    backward: the D = 1 backward sum kernel, then ``γ`` and
-    ``core.fb.xi_expectations`` in plain torch (XLA in the JAX package).
-    Both chains run on max-shifted emissions (:func:`_frame_shift`),
-    which the shift cancels out of every posterior."""
+    ``∂/∂ log_pi = γ_0``), static transitions, unragged. Forward: the
+    D = 1 forward sum kernel (K ≤ 32) or ``pallas_forward``; backward:
+    the matching backward kernel, then ``γ`` and the ξ sum in plain
+    torch (XLA in the JAX package): ``core.fb.xi_expectations`` at
+    K ≤ 32, the product ``core.fb.xi_sum`` above. Both chains run on
+    max-shifted emissions (:func:`_frame_shift`), which the shift
+    cancels out of every posterior, and γ is normalized per frame
+    (:func:`_frame_posteriors`)."""
 
     @staticmethod
     def forward(ctx, log_obs, log_a, log_pi):
         shift = _frame_shift(log_obs)
         lo_hat = (log_obs - shift).contiguous()
-        alpha_hat, lz_hat = hsmm_smallk_forward(lo_hat, log_a, log_pi, _unit_durations(log_obs))
+        if _big_k(log_obs):
+            alpha_hat, lz_hat = pallas_forward(lo_hat, log_a, log_pi)
+        else:
+            alpha_hat, lz_hat = hsmm_smallk_forward(lo_hat, log_a, log_pi,
+                                                    _unit_durations(log_obs))
         ctx.save_for_backward(lo_hat, log_a, alpha_hat, lz_hat)
         return lz_hat + shift.sum(dim=(1, 2))
 
     @staticmethod
     def backward(ctx, g):
         lo_hat, log_a, alpha_hat, lz_hat = ctx.saved_tensors
-        beta_hat = hsmm_smallk_backward(lo_hat, log_a, _unit_durations(lo_hat))[0]
-        log_gamma = alpha_hat + beta_hat - lz_hat[:, None, None]
+        big = _big_k(lo_hat)
+        if big:
+            beta_hat = pallas_backward(lo_hat, log_a)
+        else:
+            beta_hat = hsmm_smallk_backward(lo_hat, log_a, _unit_durations(lo_hat))[0]
+        log_gamma = _frame_posteriors(alpha_hat, beta_hat)
         d_log_obs = g[:, None, None] * torch.exp(log_gamma)
         d_log_pi = torch.sum(g[:, None] * torch.exp(log_gamma[:, 0]), dim=0)
-        lxi = core.fb.xi_expectations(alpha_hat, beta_hat, lo_hat, log_a, lz_hat)
-        d_log_a = torch.sum(g[:, None, None] * torch.exp(lxi), dim=0)
+        if big:
+            d_log_a = core.fb.xi_sum(alpha_hat, beta_hat, lo_hat, log_a, weights=g)
+        else:
+            lxi = core.fb.xi_expectations(alpha_hat, beta_hat, lo_hat, log_a, lz_hat)
+            d_log_a = torch.sum(g[:, None, None] * torch.exp(lxi), dim=0)
         return d_log_obs, d_log_a, d_log_pi
 
 
 class _FBLogLikelihood(torch.autograd.Function):
     """``log Z (B,)`` of ragged rows, time-varying ``(B, T, K, K)``
-    transitions, or both: ``fbsum_smallk`` gives alpha and beta in one
-    launch (the backward always needs beta). The gradients are the
-    posteriors of valid frames and of transitions that land inside each
-    row (``t + 1 < lengths[b]``), zero elsewhere; for time-varying
+    transitions, or both. K ≤ 32: ``fbsum_smallk`` gives alpha and beta
+    in one launch (the backward always needs beta); K > 32 (static):
+    ``pallas_forward`` in the forward pass, ``pallas_backward`` in the
+    backward, as the JAX package's ragged VJP does. The gradients are
+    the posteriors of valid frames and of transitions that land inside
+    each row (``t + 1 < lengths[b]``), zero elsewhere; for time-varying
     ``log_a`` the per-frame ξ ``(B, T, K, K)``, zero at ``t = 0``.
     Max-shifted as :class:`_LogLikelihood` is."""
 
@@ -220,21 +284,30 @@ class _FBLogLikelihood(torch.autograd.Function):
     def forward(ctx, log_obs, log_a, log_pi, lengths):
         shift = _frame_shift(log_obs, lengths)
         lo_hat = (log_obs - shift).contiguous()
-        alpha_hat, beta_hat, lz_hat = fbsum_smallk(lo_hat, log_a, log_pi, lengths)
-        ctx.save_for_backward(lo_hat, log_a, lengths, alpha_hat, beta_hat, lz_hat)
+        if _big_k(log_obs):
+            alpha_hat, lz_hat = pallas_forward(lo_hat, log_a, log_pi, lengths)
+            ctx.save_for_backward(lo_hat, log_a, lengths, alpha_hat, lz_hat)
+        else:
+            alpha_hat, beta_hat, lz_hat = fbsum_smallk(lo_hat, log_a, log_pi, lengths)
+            ctx.save_for_backward(lo_hat, log_a, lengths, alpha_hat, lz_hat, beta_hat)
         return lz_hat + shift.sum(dim=(1, 2))
 
     @staticmethod
     def backward(ctx, g):
-        lo_hat, log_a, lengths, alpha_hat, beta_hat, lz_hat = ctx.saved_tensors
+        lo_hat, log_a, lengths, alpha_hat, lz_hat, *beta = ctx.saved_tensors
+        beta_hat = beta[0] if beta else pallas_backward(lo_hat, log_a, lengths)
         T = lo_hat.shape[1]
         tv = log_a.ndim == 4
-        log_gamma = alpha_hat + beta_hat - lz_hat[:, None, None]
+        log_gamma = _frame_posteriors(alpha_hat, beta_hat)
         gamma = torch.exp(log_gamma)
         if lengths is not None:
             gamma = torch.where(_valid_frames(lengths, T)[..., None], gamma, 0.0)
         d_log_obs = g[:, None, None] * gamma
         d_log_pi = torch.sum(g[:, None] * torch.exp(log_gamma[:, 0]), dim=0)
+        if _big_k(lo_hat):
+            d_log_a = core.fb.xi_sum(alpha_hat, beta_hat, lo_hat, log_a, weights=g,
+                                     lengths=lengths)
+            return d_log_obs, d_log_a, d_log_pi, None
         lxi = (
             alpha_hat[:, :-1, :, None]
             + (log_a[:, 1:] if tv else log_a)
@@ -258,9 +331,8 @@ def pallas_log_likelihood(log_obs, log_a, log_pi):
 
 
 def _pallas_ll_masked(log_obs, log_a, log_pi, lengths):
-    """Ragged or time-varying twin of :func:`pallas_log_likelihood` on
-    ``fbsum_smallk``; ``lengths`` is None or int32 ``(B,)`` on the
-    tensors' device."""
+    """Ragged or time-varying twin of :func:`pallas_log_likelihood`;
+    ``lengths`` is None or int32 ``(B,)`` on the tensors' device."""
     return _FBLogLikelihood.apply(log_obs, log_a, log_pi, lengths)
 
 
@@ -271,13 +343,12 @@ def auto_log_likelihood(
     lengths: Optional[torch.Tensor] = None,
 ):
     """Differentiable ``log Z (B,)``: the sum kernels with closed-form
-    posterior gradients on CUDA tensors (K ≤ 32; static and unragged on
-    the D = 1 forward and backward kernels, ragged or time-varying on
-    ``fbsum_smallk``), autograd through the plain ``core.log_likelihood``
-    scan on CPU."""
-    if log_obs.device.type == "cpu":
+    posterior gradients off the CPU (:class:`_LogLikelihood` for static
+    unragged problems, :class:`_FBLogLikelihood` for ragged or
+    time-varying ones), autograd through the plain
+    ``core.log_likelihood`` scan on CPU and where no kernel exists."""
+    if log_obs.device.type == "cpu" or _sum_route(log_obs, log_a) == "plain":
         return core.log_likelihood(log_obs, log_a, log_pi, lengths)
-    _check_sum_path(log_obs)
     args = _f32(log_obs, log_a, log_pi)
     if lengths is None and log_a.ndim == 2:
         return pallas_log_likelihood(*args)
@@ -290,15 +361,17 @@ def auto_forward(
     log_pi: torch.Tensor,
     lengths: Optional[torch.Tensor] = None,
 ):
-    """``(log_alpha, log_z)`` — the D = 1 forward sum kernel on CUDA
-    tensors (for time-varying transitions alpha and log Z of one
-    ``fbsum_smallk`` launch), ``core.forward_log`` on CPU. Past each
-    row's end alpha holds its final valid value, as ``core`` freezes
-    it."""
-    if log_obs.device.type == "cpu":
+    """``(log_alpha, log_z)``: off the CPU the D = 1 forward sum kernel
+    (K ≤ 32; for time-varying transitions alpha and log Z of one
+    ``fbsum_smallk`` launch) or ``pallas_forward`` (33 ≤ K ≤ 1024);
+    ``core.forward_log`` on CPU and where no kernel exists. Past each
+    row's end alpha holds its final valid value, as ``core`` freezes it."""
+    route = "plain" if log_obs.device.type == "cpu" else _sum_route(log_obs, log_a)
+    if route == "plain":
         return core.forward_log(log_obs, log_a, log_pi, lengths)
-    _check_sum_path(log_obs)
     ln = _lengths_on(lengths, log_obs.device)
+    if route == "scan":
+        return pallas_forward(*_f32(log_obs, log_a, log_pi), ln)
     if log_a.ndim == 2:
         log_alpha, log_z = hsmm_smallk_forward(*_f32(log_obs, log_a, log_pi),
                                                _unit_durations(log_obs), ln)
@@ -319,15 +392,18 @@ def _freeze_past_end(log_alpha: torch.Tensor, lengths: torch.Tensor) -> torch.Te
 
 
 def _shifted_forward_backward(log_obs, log_a, log_pi, lengths=None):
-    """``fbsum_smallk`` on max-shifted emissions (:func:`_frame_shift`),
-    with the cumulative shift re-added to alpha, beta and log Z so the
-    outputs stay raw."""
+    """Alpha and beta on max-shifted emissions (:func:`_frame_shift`):
+    one ``fbsum_smallk`` launch at K ≤ 32, ``pallas_forward`` and
+    ``pallas_backward`` above; the cumulative shift is re-added to alpha,
+    beta and log Z so the outputs stay raw."""
     shift = _frame_shift(log_obs, lengths)
-    alpha_hat, beta_hat, lz_hat = fbsum_smallk(
-        (log_obs - shift).contiguous(), log_a, log_pi, lengths
-    )
-    lg = alpha_hat + beta_hat
-    log_gamma = lg - core.logsumexp(lg, dim=-1, keepdim=True)
+    lo_hat = (log_obs - shift).contiguous()
+    if _big_k(log_obs):
+        alpha_hat, lz_hat = pallas_forward(lo_hat, log_a, log_pi, lengths)
+        beta_hat = pallas_backward(lo_hat, log_a, lengths)
+    else:
+        alpha_hat, beta_hat, lz_hat = fbsum_smallk(lo_hat, log_a, log_pi, lengths)
+    log_gamma = _frame_posteriors(alpha_hat, beta_hat)
     csh = torch.cumsum(shift, dim=1)                           # Σ_{u<=t} shift
     total = csh[:, -1]                                         # padded frames add 0
     log_alpha = alpha_hat + csh
@@ -342,13 +418,14 @@ def auto_forward_backward(
     log_pi: torch.Tensor,
     lengths: Optional[torch.Tensor] = None,
 ):
-    """``(log_gamma, log_alpha, log_beta, log_z)`` — ``fbsum_smallk`` on
-    max-shifted emissions on CUDA tensors, ``core.forward_backward`` on
-    CPU. The posterior normalization matches ``core`` exactly. Static or
-    time-varying transitions."""
-    if log_obs.device.type == "cpu":
+    """``(log_gamma, log_alpha, log_beta, log_z)``: off the CPU the sum
+    kernels on max-shifted emissions (``fbsum_smallk`` at K ≤ 32, static
+    or time-varying; ``pallas_forward`` and ``pallas_backward`` at
+    33 ≤ K ≤ 1024, static), ``core.forward_backward`` on CPU and where
+    no kernel exists. The posterior normalization matches ``core``
+    exactly. No gradient: CUDA tensors that require one raise."""
+    if log_obs.device.type == "cpu" or _sum_route(log_obs, log_a) == "plain":
         return core.forward_backward(log_obs, log_a, log_pi, lengths)
-    _check_sum_path(log_obs)
     return _shifted_forward_backward(*_f32(log_obs, log_a, log_pi),
                                      _lengths_on(lengths, log_obs.device))
 
@@ -359,16 +436,19 @@ def auto_viterbi(
     log_pi: torch.Tensor,
     lengths: Optional[torch.Tensor] = None,
 ):
-    """``(states (B, T) int32, score (B,))`` — the CUDA trellis kernel
-    on CUDA tensors (K ≤ 32, static or time-varying transitions), the
-    plain ``core.viterbi`` on CPU. Paths are identical on both,
-    tie-breaks included."""
+    """``(states (B, T) int32, score (B,))``: off the CPU
+    ``smallk_viterbi`` (K ≤ 32, static or time-varying transitions) or
+    ``pallas_viterbi`` (33 ≤ K ≤ 1024, static); the plain ``core.viterbi``
+    on CPU and where no kernel exists. Paths are identical on every
+    route, tie-breaks included."""
     K = log_obs.shape[-1]
-    if log_obs.device.type == "cpu":
-        return core.viterbi(log_obs, log_a, log_pi, lengths)
-    if not smallk_supported(K):
-        raise _unported_trellis(K)
-    return smallk_viterbi(*_f32(log_obs, log_a, log_pi), _lengths_on(lengths, log_obs.device))
+    dev = log_obs.device
+    if dev.type != "cpu":
+        if smallk_supported(K):
+            return smallk_viterbi(*_f32(log_obs, log_a, log_pi), _lengths_on(lengths, dev))
+        if log_a.ndim == 2 and scan_supported(K):
+            return pallas_viterbi(*_f32(log_obs, log_a, log_pi), _lengths_on(lengths, dev))
+    return core.viterbi(log_obs, log_a, log_pi, lengths)
 
 
 def auto_gmm_viterbi(
@@ -381,19 +461,21 @@ def auto_gmm_viterbi(
     lengths: Optional[torch.Tensor] = None,
     covariance_type: str = "diag",
 ):
-    """GMM-HMM decode ``(states, score)`` — the decode path.
-
-    Emission scoring (``emissions.gmm_log_probs``: the ``diag_quadratic``
-    kernel for diag and tied covariances on CUDA) into
-    :func:`auto_viterbi`. On CUDA, more than 32 states raises before any
-    work: the JAX package sends them to ``fused_gmm_viterbi`` or
-    ``pallas_viterbi``, which are not ported yet.
+    """GMM-HMM decode ``(states, score)`` — the decode path, in the JAX
+    package's order: off the CPU, S ≤ 32 scores the emissions
+    (``emissions.gmm_log_probs``: the ``diag_quadratic`` kernel for diag
+    and tied covariances) into ``smallk_viterbi``; diag covariance inside
+    :func:`fused_gmm_supported` runs ``fused_gmm_viterbi`` (emission and
+    trellis in one launch); everything else scores the emissions into
+    :func:`auto_viterbi`.
     """
     from ..emissions import gmm_log_probs
 
-    S = log_w.shape[0]
-    if obs.device.type == "cuda" and not smallk_supported(S):
-        raise _unported_trellis(S)
+    S, C = log_w.shape
+    if (obs.device.type != "cpu" and not smallk_supported(S) and covariance_type == "diag"
+            and fused_gmm_supported(S, C, covariance_type)):
+        return fused_gmm_viterbi(*_f32(obs, means, cov_params, log_w, log_a, log_pi),
+                                 _lengths_on(lengths, obs.device))
     log_obs = gmm_log_probs(obs, means, cov_params, log_w, covariance_type)
     return auto_viterbi(log_obs, log_a, log_pi, lengths)
 

@@ -41,12 +41,12 @@ def smallk_supported(num_states: int) -> bool:
 
 
 def check_problem(what: str, log_obs, log_a, log_pi=None, lengths=None,
-                  time_varying: bool = False):
-    """Validate the shapes of a small-K problem for a CUDA kernel
+                  time_varying: bool = False, max_states: int = MAX_SMALLK):
+    """Validate the shapes of an HMM problem for a CUDA kernel
     (``log_pi`` may be omitted; ``log_a`` is ``(K, K)``, or ``(B, T, K,
-    K)`` where the kernel has a ``time_varying`` mode); returns ``(B, T,
-    K, lengths)`` with ``lengths`` None or contiguous int32 ``(B,)`` on
-    ``log_obs``'s device."""
+    K)`` where the kernel has a ``time_varying`` mode; ``1 <= K <=
+    max_states``); returns ``(B, T, K, lengths)`` with ``lengths`` None or
+    contiguous int32 ``(B,)`` on ``log_obs``'s device."""
     if log_obs.ndim != 3:
         raise ValueError(f"{what}: log_obs must be (B, T, K), got {tuple(log_obs.shape)}")
     B, T, K = log_obs.shape
@@ -58,8 +58,8 @@ def check_problem(what: str, log_obs, log_a, log_pi=None, lengths=None,
             + str(tuple(log_a.shape))
             + ("" if log_pi is None else f" and {tuple(log_pi.shape)}")
         )
-    if not 1 <= K <= MAX_SMALLK:
-        raise ValueError(f"{what} takes 1 <= K <= {MAX_SMALLK}, got K={K}")
+    if not 1 <= K <= max_states:
+        raise ValueError(f"{what} takes 1 <= K <= {max_states}, got K={K}")
     if B == 0 or T == 0:
         raise ValueError(f"{what}: empty input {tuple(log_obs.shape)}")
     dev = log_obs.device

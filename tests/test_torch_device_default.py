@@ -14,6 +14,9 @@ from pytorch_hmm_tpu_torch import (
     DeviceFramer,
     DurationConstrainedHMM,
     DurationModel,
+    GaussianHMMLayer,
+    HMM,
+    HMMLayer,
     HSMMLayer,
     MixtureGaussianHMMLayer,
     NeuralHMM,
@@ -36,12 +39,17 @@ CONSTRUCTORS = {
     "NeuralObservationModel": (NeuralObservationModel, (3, 2)),
     "NeuralTransitionModel": (NeuralTransitionModel, (3, 2)),
     "DeviceFramer": (DeviceFramer, ()),
+    "HMMLayer": (HMMLayer, (3,)),
+    "GaussianHMMLayer": (GaussianHMMLayer, (3, 2)),
+    "HMM": (HMM, ([[0.5, 0.5], [0.5, 0.5]],)),
 }
 
 
 def _device_of(obj) -> torch.device:
     if isinstance(obj, torch.nn.Module):
         return next(obj.parameters()).device
+    if isinstance(obj, HMM):
+        return obj.P.device
     return obj.tables["cos"].device
 
 

@@ -38,11 +38,14 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
         "pytorch_hmm_tpu_torch.bridge",
         "pytorch_hmm_tpu_torch.core.fb",
         "pytorch_hmm_tpu_torch.core.hsmm",
+        "pytorch_hmm_tpu_torch.core.sample",
         "pytorch_hmm_tpu_torch.core.semiring",
         "pytorch_hmm_tpu_torch.core.viterbi",
         "pytorch_hmm_tpu_torch.durations",
         "pytorch_hmm_tpu_torch.emissions",
         "pytorch_hmm_tpu_torch.frontend",
+        "pytorch_hmm_tpu_torch.hmm",
+        "pytorch_hmm_tpu_torch.models.hmm_layer",
         "pytorch_hmm_tpu_torch.models.hsmm",
         "pytorch_hmm_tpu_torch.models.mixture_gaussian",
         "pytorch_hmm_tpu_torch.models.neural",
@@ -51,12 +54,15 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
         "pytorch_hmm_tpu_torch.ops.emit",
         "pytorch_hmm_tpu_torch.ops.emit_mlp",
         "pytorch_hmm_tpu_torch.ops.fbsum",
+        "pytorch_hmm_tpu_torch.ops.fused",
         "pytorch_hmm_tpu_torch.ops.hsmm_smallk",
+        "pytorch_hmm_tpu_torch.ops.scan",
         "pytorch_hmm_tpu_torch.ops.smallk",
         "pytorch_hmm_tpu_torch.ops.stream",
         "pytorch_hmm_tpu_torch.ops.stream_multi",
         "pytorch_hmm_tpu_torch.precision",
         "pytorch_hmm_tpu_torch.streaming",
+        "pytorch_hmm_tpu_torch.utils",
     }
     assert expected <= set(got["modules"])
 
@@ -83,7 +89,8 @@ def test_port_never_names_jax_in_its_sources():
     # The scan reaches every kernel source's wrapper module.
     wrappers = {"diag_quadratic": "emit.py", "emit_mlp": "emit_mlp.py", "smallk_viterbi": "smallk.py",
                 "smallk_sum": "hsmm_smallk.py", "hsmm_smallk": "hsmm_smallk.py",
-                "stream_greedy": "stream.py", "stream_beam": "stream_multi.py"}
+                "stream_greedy": "stream.py", "stream_beam": "stream_multi.py",
+                "scan_bigk": "scan.py", "fused_gmm": "fused.py"}
     sources = {fn[:-3] for fn in os.listdir(os.path.join(pkg, "csrc")) if fn.endswith(".cu")}
     assert sources == set(wrappers)
     assert {os.path.join("ops", w) for w in wrappers.values()} <= seen

@@ -180,18 +180,22 @@ def test_em_step_refuses_a_mesh_before_any_work(obs):
 
 @pytest.mark.parametrize("fn", ["auto_log_likelihood", "auto_forward", "auto_forward_backward"])
 def test_cuda_dispatch_raises_where_no_kernel_exists(fn):
-    """Off the CPU, K > 32 raises naming its ROADMAP rows before any
-    work, static or time-varying (meta tensors stand in for CUDA ones:
-    the check comes before any device work). Time-varying K <= 32 goes
-    to the kernel wrapper, which refuses the meta device."""
+    """Off the CPU every shape with a kernel reaches its wrapper, which
+    raises on what it cannot launch instead of falling back (meta
+    tensors stand in for CUDA ones): static K=33 the general-K
+    ``pallas_forward``, time-varying K <= 32 ``fbsum_smallk``. Shapes no
+    kernel of either package takes (time-varying K=33) run the plain
+    ``core`` on the tensors' own device."""
     f = getattr(ops, fn)
-    for la_shape in ((33, 33), (2, 5, 33, 33)):
-        with pytest.raises(NotImplementedError, match="rows 8 .* 9 .* 12"):
-            f(torch.empty(2, 5, 33, device="meta"), torch.empty(*la_shape, device="meta"),
-              torch.empty(33, device="meta"))
+    with pytest.raises(ValueError, match="pallas_forward runs on CPU or CUDA"):
+        f(torch.empty(2, 5, 33, device="meta"), torch.empty(33, 33, device="meta"),
+          torch.empty(33, device="meta"))
     with pytest.raises(ValueError, match="fbsum_smallk runs on CPU or CUDA"):
         f(torch.empty(2, 5, 4, device="meta"), torch.empty(2, 5, 4, 4, device="meta"),
           torch.empty(4, device="meta"))
+    out = f(torch.empty(2, 5, 33, device="meta"), torch.empty(2, 5, 33, 33, device="meta"),
+            torch.empty(33, device="meta"))
+    assert all(t.device.type == "meta" for t in (out if isinstance(out, tuple) else (out,)))
 
 
 @pytest.mark.parametrize("lengths", [None, [30, 17, 1]])
