@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's GMM-HMM, duration-model, streaming,
-neural-HMM and general-K paths on one CUDA GPU.
+neural-HMM, general-K and long-sequence paths on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -82,19 +82,39 @@ means):
   C=2 (the fused decode) and C=4: decode, a ``compute_loss`` step and an
   ``em_step`` against the CPU;
 
+then the long-sequence slice: the JAX bench's long-context rows (B=32,
+T=131072, K=64) and full covariance at the width of two of its rows:
+
+* the prob-space chains of ``csrc/scan_prob.cu`` (rows 10-12) against
+  their plain versions (headline B=32 T=4096 K=64, K=33, 128, 12, T not
+  a multiple of the rescale interval, T=1, rs=4, a finite left-to-right
+  ``safe_log`` matrix, whose posteriors are also held to float64);
+* ``ops.auto_forward``, ``ops.auto_log_likelihood`` and its gradient at
+  B=32, T=131072, K=64, each launching its prob-space kernel once and
+  the log-space chains never; two rows against float64; a ``-inf``
+  transition and T=1023 running rows 8 and 9 instead (the gate);
+* ``GaussianHMMLayer(64, 80, "full")`` at B=32, T=2048 and
+  ``MixtureGaussianHMMLayer(12, 80, C=4, "full")`` at B=32, T=1000
+  against their CPU twins (posteriors, decode, the prepared decoder,
+  ``compute_loss`` gradients in float64, Adam, ``em_step``);
+
 and times the kernels, a decode, a ``compute_loss`` step and an
 ``em_step`` of each path, a duration-model ``posteriors`` call, a
 streaming chunk, a fleet step, a PCM step, a NeuralHMM forward, decode
-and ``compute_loss`` step (static and contextual) and the general-K
-entry points with CUDA events, counts the launches of one call of each,
-and profiles ten beam chunks, ten NeuralHMM forwards and ten calls each
-of a ``GaussianHMMLayer`` decode and ``compute_loss`` step and a fused
-``MixtureGaussianHMMLayer`` decode.
+and ``compute_loss`` step (static and contextual), the general-K and
+long-sequence entry points with CUDA events (rows 8-12 at T=4096 and
+131072, row 12 against ``fbsum_smallk`` at K=12), counts the launches of
+one call of each, profiles ten beam chunks, ten NeuralHMM forwards, ten
+calls each of a ``GaussianHMMLayer`` decode and ``compute_loss`` step
+and a fused ``MixtureGaussianHMMLayer`` decode, one long-context
+gradient call and three full-covariance calls, and times the prob gate's
+host read.
 
 Phases, one line each: card, build, each kernel vs plain, decode,
 training, duration-model decode, duration-model training, stream
 kernels, streaming serve, fleets, neural kernels, neural models,
-general-K kernels, general-K slice, timing.
+general-K kernels, general-K slice, prob-space kernels, long context,
+full covariance, timing.
 Any failure exits non-zero
 before the last line. On success the last two lines are a JSON object
 describing each kernel (with its bound from this run's inputs) and
@@ -105,6 +125,7 @@ device the script fails. It imports no JAX.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -204,6 +225,36 @@ FUSED_AGREE, FUSED_RTOL, FUSED_ATOL = 0.999, 1e-4, 5e-3
 # frames), as for the duration and neural models.
 BIGK_POST_ATOL = 5e-3
 BIGK_GRAD_RTOL = BIGK_EM_RTOL = 5e-3
+# The long-sequence slice: the JAX bench's long-context rows
+# (bench.py:493-537: B=32, T=131072, K=64) through ops.auto_forward and the
+# gradient of ops.auto_log_likelihood; the prob-space chains against their
+# plain versions at T=4096; GaussianHMMLayer(64, 80, "full") at B=32,
+# T=2048 (past the prob route's T >= 1024); the JAX bench's
+# full-covariance decode row (bench.py:602-631: S=12, C=4, D=80, B=32,
+# T=1000). Rows checked against float64: two of the long-context batch, four
+# of the full-covariance layer's (the CPU twin's scan is a Python loop).
+LB, LT, LK = 32, 131072, 64
+PROB_T, FULL_T = 4096, 2048
+LONG_SUB, FULL_SUB = 2, 4
+LONG_RUNS = 5          # timed calls at T=131072, 30-250 ms each
+# Rows 10-12 vs their plain versions (the same scaled chain, rescaled at
+# the same frames), compared split as the kernels write them. The relative
+# tables log(max(q, 1e-37)) keep one frame's magnitude: atol 1e-4. The
+# per-frame shifts and log Z: atol 5e-4, the JAX scan tests' own, plus
+# rtol 3e-5 of their magnitude: the plain version sums the shift (the
+# rescales and the frames' maxima) in float32 over T frames, which at
+# T=4096 reaches ~1e4, where f32 rounding of 4096 terms spreads ~1e-2.
+PROB_REL_ATOL = 1e-4
+PROB_ATOL, PROB_RTOL = 5e-4, 3e-5
+# The long-context outputs (log Z of ops.auto_forward, of
+# auto_log_likelihood with and without a gradient, and log alpha) of two
+# rows against float64: rtol 1e-6 of the magnitude (|log alpha| ~2.5e5,
+# where one f32 ulp is 0.016; the kernel carries its shift in double and
+# rounds each frame's to f32 once, and the sums add a few roundings more)
+# plus atol 0.05 for the chain's own f32 products over 131072 frames. A
+# rescale or a chunk of maxima dropped from the shift (nats to hundreds of
+# nats) lies far outside.
+LONG_ATOL, LONG_RTOL = 0.05, 1e-6
 # HMM's log-likelihood on frame probabilities (floored at 1e-8) is only
 # ~1e3 in magnitude, where f32 rounding of a 1000-frame chain reaches
 # ~1e-2: rtol 1e-4.
@@ -278,8 +329,26 @@ KERNELS = {
         "source": "pytorch_hmm_tpu_torch/csrc/fused_gmm.cu",
         "replaces": "pytorch_hmm_tpu/ops/fused.py:265",
     },
+    "pallas_forward_prob": {
+        "source": "pytorch_hmm_tpu_torch/csrc/scan_prob.cu",
+        "replaces": "pytorch_hmm_tpu/ops/scan.py:453",
+    },
+    "pallas_backward_prob": {
+        "source": "pytorch_hmm_tpu_torch/csrc/scan_prob.cu",
+        "replaces": "pytorch_hmm_tpu/ops/scan.py:669",
+    },
+    "pallas_fb_prob": {
+        "source": "pytorch_hmm_tpu_torch/csrc/scan_prob.cu",
+        "replaces": "pytorch_hmm_tpu/ops/scan.py:1452",
+    },
 }
 BIGK_KERNELS = ("pallas_forward", "pallas_backward", "pallas_viterbi", "fused_gmm_viterbi")
+PROB_KERNELS = ("pallas_forward_prob", "pallas_backward_prob", "pallas_fb_prob")
+# Entry points of the long-sequence slice profiled for their device-busy share.
+LONG_PROFILED = ("long-context gradient", "GaussianHMMLayer full decode",
+                 "MixtureGaussianHMMLayer full decode", "MixtureGaussianHMMLayer full compute_loss step")
+# The sum chains whose launches the long-context and gate checks count.
+CHAIN_KERNELS = ("pallas_forward", "pallas_backward", *PROB_KERNELS)
 # General-K entry points profiled for their device-busy share.
 BIGK_PROFILED = ("GaussianHMMLayer decode", "GaussianHMMLayer compute_loss step",
                  "MixtureGaussianHMMLayer C=2 decode")
@@ -2002,7 +2071,444 @@ def phase_bigk_timing(dev, gen, slice_out):
     return times, launches, profiles, {"scan": (lo, la, lp), "gmm": gmm_in}
 
 
-def bounds(inputs, neural_inputs, bigk_inputs):
+# -- the long-sequence slice: rows 10-12 and full covariance ----------------------
+
+
+def _prob_cases(dev, gen):
+    """Inputs of the prob-space chain checks: ``(log_obs, log_a, log_pi,
+    rs)``."""
+    import torch
+    from pytorch_hmm_tpu_torch import create_left_to_right_matrix
+
+    def rand(b, t, k, rs=8):
+        lo = torch.randn(b, t, k, device=dev, generator=gen)
+        la = torch.log_softmax(torch.randn(k, k, device=dev, generator=gen), -1)
+        lp = torch.log_softmax(torch.randn(k, device=dev, generator=gen), -1)
+        return lo, la, lp, rs
+
+    # A finite left-to-right matrix through safe_log (off-band entries
+    # log 1e-8 ~ -18.4, rows renormalized), with emissions that disagree
+    # with the chain's states by up to 6 nats a frame.
+    l2r = torch.log_softmax(torch.log(create_left_to_right_matrix(LK, 0.6).to(dev) + 1e-8), -1)
+    mismatched = -6.0 * torch.rand(4, 1000, LK, device=dev, generator=gen)
+    return {
+        "headline": rand(LB, PROB_T, LK),
+        "K=33": rand(8, 1000, 33),
+        "K=128": rand(8, 1000, 128),
+        "K=12": rand(8, 1000, 12),
+        "T=1001": rand(8, 1001, LK),
+        "T=1": rand(3, 1, LK),
+        "rs=4": rand(8, 1000, LK, rs=4),
+        "left-to-right": (mismatched, l2r, torch.full((LK,), -math.log(LK), device=dev), 8),
+    }
+
+
+def phase_prob_kernels(dev, gen):
+    """Rows 10, 11 and 12 vs their plain versions on the same inputs (the
+    relative tables, shifts and log Z as the kernels write them), the
+    fused launch's tables equal to the single chains', and the finite
+    left-to-right case's posteriors against ``core`` in float64. Returns
+    the headline max abs errors of the summed tables and of the split
+    outputs, the left-to-right posterior error, the case names and the
+    headline inputs."""
+    import torch
+    from pytorch_hmm_tpu_torch import core, ops
+    from pytorch_hmm_tpu_torch.ops import scan
+
+    cases = _prob_cases(dev, gen)
+    for name, (lo, la, lp, rs) in cases.items():
+        alpha, lz = ops.pallas_forward_prob(lo, la, lp, rs=rs)
+        beta = ops.pallas_backward_prob(lo, la, rs=rs)
+        f_alpha, f_beta, f_lz = ops.pallas_fb_prob(lo, la, lp, rs=rs)
+        torch.cuda.synchronize(dev)
+        rel_a, sh_a, rel_b, sh_b = ops.pallas_fb_prob_split(lo, la, lp, rs=rs)
+        check(torch.equal(f_alpha, alpha) and torch.equal(f_beta, beta) and torch.equal(f_lz, lz),
+              f"pallas_fb_prob {name}: tables differ from the single chains'")
+        check(torch.equal(rel_a + sh_a[..., None], alpha) and torch.equal(rel_b + sh_b[..., None], beta),
+              f"pallas_fb_prob {name}: split tables do not sum to the tables")
+        # The plain versions' own split (pallas_*_prob_reference return its
+        # sums); the single chains equal the fused launch's, bit for bit.
+        rel_a0, sh_a0 = scan._forward_prob_split(lo, la, lp, rs)
+        rel_b0, sh_b0 = scan._backward_prob_split(lo, la, rs)
+        alpha0, beta0 = rel_a0 + sh_a0[..., None], rel_b0 + sh_b0[..., None]
+        lz0 = torch.logsumexp(alpha0[:, -1], dim=-1)
+        split = {}
+        for what, got, want, atol, rtol in (
+                ("relative alpha", rel_a, rel_a0, PROB_REL_ATOL, 0.0),
+                ("relative beta", rel_b, rel_b0, PROB_REL_ATOL, 0.0),
+                ("alpha shift", sh_a, sh_a0, PROB_ATOL, PROB_RTOL),
+                ("beta shift", sh_b, sh_b0, PROB_ATOL, PROB_RTOL),
+                ("log Z", lz, lz0, PROB_ATOL, PROB_RTOL)):
+            split[what] = _sum_err(got, want, None, atol, rtol)
+            check(split[what] != float("inf"),
+                  f"pallas_fb_prob {name}: {what} disagrees with its plain version")
+        errs = {
+            "pallas_forward_prob": max((alpha - alpha0).abs().max().item(),
+                                       (lz - lz0).abs().max().item()),
+            "pallas_backward_prob": (beta - beta0).abs().max().item(),
+        }
+        errs["pallas_fb_prob"] = max(errs.values())
+        if name == "headline":
+            worst, worst_split = errs, split
+    lo, la, lp, _ = cases["left-to-right"]
+    f_alpha, f_beta, _ = ops.pallas_fb_prob(lo, la, lp)
+    g64 = torch.exp(core.forward_backward(lo.double(), la.double(), lp.double())[0])
+    l2r_err = (torch.softmax(f_alpha + f_beta, -1).double() - g64).abs().max().item()
+    check(l2r_err <= BIGK_POST_ATOL, f"left-to-right posteriors off float64 by {l2r_err}")
+    return worst, worst_split, l2r_err, list(cases), cases["headline"][:3]
+
+
+def _ll_grads(lo, la, lp):
+    """``ops.auto_log_likelihood(...)`` ``(B,)`` and the gradients of its
+    sum with respect to all three inputs."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    args = [t.detach().clone().requires_grad_(True) for t in (lo, la, lp)]
+    ll = ops.auto_log_likelihood(*args)
+    return ll.detach(), torch.autograd.grad(ll.sum(), args)
+
+
+def phase_long_context(dev):
+    """The JAX bench's long-context rows through the entry points a user
+    calls, at B=32, T=131072, K=64: ``ops.auto_forward`` (row 10 once, row
+    8 never), ``ops.auto_log_likelihood`` under no_grad (row 10) and the
+    gradient of its sum (row 12 once, rows 8 and 9 never); for two rows
+    against float64, the three calls' log Z, ``auto_forward``'s log alpha,
+    the posteriors and the gradient; the gate: a -inf ``log_a`` and T=1023
+    run rows 8 and 9 instead."""
+    import torch
+    from pytorch_hmm_tpu_torch import core, ops
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    lo = torch.randn(LB, LT, LK, device=dev, generator=gen)
+    la = torch.log_softmax(torch.randn(LK, LK, device=dev, generator=gen), -1)
+    lp = torch.log_softmax(torch.randn(LK, device=dev, generator=gen), -1)
+    out = {"launches": {}, "errs": {}, "inputs": (lo, la, lp)}
+
+    def run(tag, fn, want):
+        reset_launches()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        got = read_launches(CHAIN_KERNELS)
+        out["launches"][tag] = got
+        for k in CHAIN_KERNELS:
+            check(got[k] == want.get(k, 0), f"{tag}: {k} launched {got[k]} times (all: {got})")
+        return res
+
+    alpha, log_z = run("long-context forward", lambda: ops.auto_forward(lo, la, lp),
+                       {"pallas_forward_prob": 1})
+    check(alpha.shape == (LB, LT, LK) and bool(torch.isfinite(alpha).all())
+          and bool(torch.isfinite(log_z).all()), "long-context forward: not finite")
+    with torch.no_grad():
+        ll = run("long-context likelihood, no gradient", lambda: ops.auto_log_likelihood(lo, la, lp),
+                 {"pallas_forward_prob": 1})
+    check(bool(torch.isfinite(ll).all()), "long-context likelihood: not finite")
+    ll_g, grads = run("long-context gradient", lambda: _ll_grads(lo, la, lp), {"pallas_fb_prob": 1})
+    check(all(bool(torch.isfinite(g).all()) for g in grads), "long-context gradient: not finite")
+    # Two rows against float64 (the plain core on the card): log Z of the
+    # three calls and auto_forward's log alpha, posteriors from
+    # auto_forward_backward, and the gradient of those rows' sum.
+    sub = lo[:LONG_SUB].contiguous()
+    with torch.no_grad():
+        post = torch.exp(ops.auto_forward_backward(sub, la, lp)[0])
+        lg64, a64, b64, lz64 = core.forward_backward(sub.double(), la.double(), lp.double())
+        g64 = torch.exp(lg64)
+        want = (g64, core.xi_sum(a64, b64, sub.double(), la.double()), g64[:, 0].sum(0))
+    for name, got, ref in (("log Z auto_forward", log_z, lz64), ("log Z no gradient", ll, lz64),
+                           ("log Z gradient", ll_g, lz64), ("log alpha", alpha, a64)):
+        d = (got[:LONG_SUB].double() - ref).abs()
+        out["errs"][name] = d.max().item()
+        check(bool((d <= LONG_ATOL + LONG_RTOL * ref.abs()).all()),
+              f"long-context {name} off float64 by {out['errs'][name]:.3g} "
+              f"(atol {LONG_ATOL} + rtol {LONG_RTOL} of |{ref.abs().max().item():.6g}|)")
+    del a64, b64
+    out["errs"]["posteriors"] = (post.double() - g64).abs().max().item()
+    check(out["errs"]["posteriors"] <= BIGK_POST_ATOL,
+          f"long-context posteriors off float64 by {out['errs']['posteriors']}")
+    for name, g, w in zip(("dlog_obs", "dlog_a", "dlog_pi"), _ll_grads(sub, la, lp)[1], want):
+        out["errs"][name] = _grad_err(g, w)
+        check(out["errs"][name] <= BIGK_GRAD_RTOL,
+              f"long-context {name} off float64 by {out['errs'][name]:.3g} of its max")
+    # The gate: a -inf transition, and one frame short of the envelope.
+    la_inf = la.clone()
+    la_inf[0, -1] = float("-inf")
+    la_inf = torch.log_softmax(la_inf, -1)
+    short = lo[:, :1023].contiguous()
+    run("gate -inf log_a: forward", lambda: ops.auto_forward(lo, la_inf, lp), {"pallas_forward": 1})
+    run("gate -inf log_a: gradient", lambda: _ll_grads(lo, la_inf, lp),
+        {"pallas_forward": 1, "pallas_backward": 1})
+    run("gate T=1023: forward", lambda: ops.auto_forward(short, la, lp), {"pallas_forward": 1})
+    run("gate T=1023: gradient", lambda: _ll_grads(short, la, lp),
+        {"pallas_forward": 1, "pallas_backward": 1})
+    return out
+
+
+def phase_fullcov(dev):
+    """Full covariance at the width of two configurations against the CPU:
+    ``GaussianHMMLayer(64, 80, "full")`` at B=32, T=2048 (posteriors under
+    no_grad on row 12, ``compute_loss`` gradients against its CPU twin in
+    float64 on four rows, five Adam steps, eval decode on row 13) and
+    ``MixtureGaussianHMMLayer(12, 80, C=4, "full")`` at B=32, T=1000
+    (``make_decoder`` decode on row 2 against the CPU and the live path,
+    ``compute_loss`` gradients, five ``em_step``s and the first against
+    float64, one ``em_step`` at T=2048 on row 12)."""
+    import torch
+    from pytorch_hmm_tpu_torch import GaussianHMMLayer, MixtureGaussianHMMLayer
+
+    out = {"launches": {}, "agreement": {}, "errs": {}, "losses": {}, "lls": {}}
+    fails = []
+
+    def bound(key, err, limit):
+        out["errs"][key] = err
+        if not err <= limit:
+            fails.append(f"{key} off by {err:.3g} (limit {limit})")
+
+    def grads(tag, model, ref):
+        for (name, p), (_, q) in zip(model.named_parameters(), ref.named_parameters()):
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                  f"{tag}: gradient of {name} missing or not finite")
+            bound(f"{tag} d{name}", _grad_err(p.grad.cpu(), q.grad), BIGK_GRAD_RTOL)
+
+    def launched(tag, names, absent=()):
+        torch.cuda.synchronize(dev)
+        counts = read_launches((*names, *absent))
+        out["launches"][tag] = counts
+        for k in names:
+            check(counts[k] > 0, f"{tag} never launched {k}")
+        for k in absent:
+            check(counts[k] == 0, f"{tag} launched {k}")
+
+    # GaussianHMMLayer(64, 80, "full"), Cholesky parameters off the
+    # identity, data walking its means.
+    def make_layer():
+        lay = GaussianHMMLayer(GK, GD, covariance_type="full",
+                               generator=torch.Generator().manual_seed(SEED), device=dev)
+        with torch.no_grad():
+            g = torch.Generator().manual_seed(SEED + 80)
+            lay.log_scales.copy_(0.05 * torch.randn(GK, GD, GD, generator=g))
+        return lay
+
+    layer = make_layer()
+    kw = dict(num_states=GK, feature_dim=GD, covariance_type="full")
+    obs = _l2r_walk(layer.means, B, FULL_T, SEED + 81)
+    sub = obs[:FULL_SUB].contiguous()
+    twin = _cpu_copy(layer, GaussianHMMLayer, **kw)
+    twin64 = _cpu_copy(layer, GaussianHMMLayer, torch.float64, **kw)
+    reset_launches()
+    with torch.no_grad():
+        post = layer(obs)
+    launched("GaussianHMMLayer full posteriors", ("pallas_fb_prob",), ("pallas_forward",))
+    check(bool(torch.isfinite(post).all()) and post.shape == (B, FULL_T, GK), "posteriors not finite")
+    with torch.no_grad():
+        post64 = twin64(sub.cpu().double())
+    bound("GaussianHMMLayer full posteriors",
+          (post[:FULL_SUB].cpu().double() - post64).abs().max().item(), BIGK_POST_ATOL)
+    reset_launches()
+    layer.zero_grad()
+    layer.compute_loss(obs).backward()
+    launched("GaussianHMMLayer full compute_loss", ("pallas_fb_prob",),
+             ("pallas_forward", "pallas_backward"))
+    layer.zero_grad()
+    loss = layer.compute_loss(sub)
+    loss.backward()
+    ref_loss = twin64.compute_loss(sub.cpu().double())
+    ref_loss.backward()
+    bound("GaussianHMMLayer full loss", abs(loss.item() - ref_loss.item()) / abs(ref_loss.item()),
+          LOSS_RTOL)
+    grads("GaussianHMMLayer full", layer, twin64)
+    trainee = make_layer()
+    opt = torch.optim.Adam(trainee.parameters(), lr=1e-2)
+    losses = []
+    for _ in range(ADAM_STEPS):
+        opt.zero_grad()
+        step_loss = trainee.compute_loss(obs)
+        step_loss.backward()
+        opt.step()
+        losses.append(step_loss.item())
+    check(losses[-1] < losses[0], f"GaussianHMMLayer full Adam: the loss did not fall: {losses}")
+    out["losses"]["GaussianHMMLayer full"] = losses
+    layer.eval()
+    twin.eval()
+    reset_launches()
+    onehot = layer(obs)
+    launched("GaussianHMMLayer full decode", ("pallas_viterbi",))
+    check(bool((onehot.sum(-1) == 1).all()), "full decode: not one-hot")
+    agree = (onehot.argmax(-1).cpu() == twin(obs.cpu()).argmax(-1)).float().mean().item()
+    out["agreement"]["GaussianHMMLayer full"] = agree
+    check(agree >= 0.999, f"GaussianHMMLayer full decode: frame agreement {agree}")
+    out["layer"], out["obs"] = layer, obs
+
+    # MixtureGaussianHMMLayer(12, 80, C=4, "full"), Cholesky parameters off
+    # their initial identity.
+    gmm = MixtureGaussianHMMLayer(S, D, num_components=C, covariance_type="full",
+                                  generator=torch.Generator().manual_seed(SEED), device=dev)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(SEED + 82)
+        gmm.cov_params.add_(0.05 * torch.randn(gmm.cov_params.shape, generator=g).to(dev))
+    gkw = dict(num_states=S, feature_dim=D, num_components=C, covariance_type="full")
+    gobs, _ = make_requests(dev)
+    cpu = _cpu_copy(gmm, MixtureGaussianHMMLayer, **gkw).eval()
+    cpu64 = _cpu_copy(gmm, MixtureGaussianHMMLayer, torch.float64, **gkw)
+    gmm.eval()
+    reset_launches()
+    decoder = gmm.make_decoder()
+    served = decoder(gobs, True)
+    live = gmm(gobs, True)
+    launched("MixtureGaussianHMMLayer full decode", ("smallk_viterbi",))
+    check("prec" in decoder.emission_tables, "full decoder does not hold the prepared tables")
+    rst, rsc = cpu.make_decoder()(gobs.cpu(), True)
+    for name, (st, sc), (wst, wsc) in (("vs CPU", served, (rst, rsc)),
+                                       ("vs live path", served, (live[0].cpu(), live[1].cpu()))):
+        agree = (st.cpu() == wst).float().mean().item()
+        out["agreement"][f"MixtureGaussianHMMLayer full {name}"] = agree
+        check(agree >= 0.999, f"full GMM decode {name}: frame agreement {agree}")
+        check(torch.allclose(sc.cpu(), wsc, rtol=1e-5, atol=0.0), f"full GMM decode {name}: scores")
+    reset_launches()
+    gmm.zero_grad()
+    gl = gmm.compute_loss(gobs)
+    gl.backward()
+    launched("MixtureGaussianHMMLayer full compute_loss", ("hsmm_smallk_forward", "hsmm_smallk_backward"))
+    rl = cpu64.compute_loss(gobs.cpu().double())
+    rl.backward()
+    bound("MixtureGaussianHMMLayer full loss", abs(gl.item() - rl.item()) / abs(rl.item()), LOSS_RTOL)
+    grads("MixtureGaussianHMMLayer full", gmm, cpu64)
+    em = MixtureGaussianHMMLayer(S, D, num_components=C, covariance_type="full", device=dev)
+    em.load_state_dict(gmm.state_dict())
+    em64 = _cpu_copy(gmm, MixtureGaussianHMMLayer, torch.float64, **gkw)
+    reset_launches()
+    lls = [em.em_step(gobs).item() for _ in range(EM_STEPS)]
+    launched("MixtureGaussianHMMLayer full em_step", ("fbsum_smallk",), ("pallas_fb_prob",))
+    for a, b in zip(lls, lls[1:]):
+        check(b >= a - LL_SLACK * abs(a), f"full em_step: log-likelihood fell: {lls}")
+    out["lls"]["MixtureGaussianHMMLayer full"] = lls
+    em.load_state_dict(gmm.state_dict())
+    ll = em.em_step(gobs).item()
+    ref_ll = em64.em_step(gobs.cpu().double()).item()
+    bound("MixtureGaussianHMMLayer full em ll", abs(ll - ref_ll) / abs(ref_ll), LOSS_RTOL)
+    for (name, p), (_, q) in zip(em.named_parameters(), em64.named_parameters()):
+        p, q = p.detach().cpu(), q.detach()
+        check(bool(torch.isfinite(p).all()), f"full em_step: {name} not finite")
+        if name.endswith("_logits"):
+            p, q = torch.softmax(p, -1), torch.softmax(q, -1)
+        bound(f"MixtureGaussianHMMLayer full em {name}", _grad_err(p, q), BIGK_EM_RTOL)
+    long_obs = gobs.repeat(1, -(-FULL_T // T), 1)[:, :FULL_T].contiguous()
+    reset_launches()
+    check(math.isfinite(em.em_step(long_obs).item()), "full em_step at T=2048: not finite")
+    launched("MixtureGaussianHMMLayer full em_step T=2048", ("pallas_fb_prob",), ("fbsum_smallk",))
+    out["gmm"], out["em"], out["gobs"], out["long_obs"] = gmm, em, gobs, long_obs
+    check(not fails, "full covariance vs CPU: " + "; ".join(fails) + f" (all: {out['errs']})")
+    return out
+
+
+def phase_long_timing(dev, gen, prob_inputs, long_out, full_out):
+    """Rows 10-12 and rows 8-9 at T=4096 and T=131072 (B=32, K=64; the plain
+    versions at T=4096 only: T-step Python loops), row 12 against
+    ``fbsum_smallk`` at K=12, the slice's entry points with their launches,
+    profiles of one long-context gradient call and of three
+    full-covariance calls, and the gate's sync. Returns ``(times,
+    launches, profiles, gate)``."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    slow = dict(runs=PLAIN_SUM_RUNS, warmup=1)
+    longr = dict(runs=LONG_RUNS, warmup=1)
+    lo4, la4, lp4 = prob_inputs
+    lo, la, lp = long_out["inputs"]
+    times = {
+        "pallas_forward_prob": (cuda_median_ms(lambda: ops.pallas_forward_prob(lo4, la4, lp4)),
+                                cuda_median_ms(lambda: ops.pallas_forward_prob_reference(
+                                    lo4, la4, lp4), **slow)),
+        "pallas_backward_prob": (cuda_median_ms(lambda: ops.pallas_backward_prob(lo4, la4)),
+                                 cuda_median_ms(lambda: ops.pallas_backward_prob_reference(
+                                     lo4, la4), **slow)),
+        "pallas_fb_prob": (cuda_median_ms(lambda: ops.pallas_fb_prob(lo4, la4, lp4)),
+                           cuda_median_ms(lambda: ops.pallas_fb_prob_reference(lo4, la4, lp4),
+                                          **slow)),
+        "pallas_forward T=4096": cuda_median_ms(lambda: ops.pallas_forward(lo4, la4, lp4)),
+        "pallas_backward T=4096": cuda_median_ms(lambda: ops.pallas_backward(lo4, la4)),
+    }
+    for name, fn in (("pallas_forward_prob", lambda: ops.pallas_forward_prob(lo, la, lp)),
+                     ("pallas_backward_prob", lambda: ops.pallas_backward_prob(lo, la)),
+                     ("pallas_fb_prob", lambda: ops.pallas_fb_prob(lo, la, lp)),
+                     ("pallas_forward", lambda: ops.pallas_forward(lo, la, lp)),
+                     ("pallas_backward", lambda: ops.pallas_backward(lo, la))):
+        times[f"{name} T={LT}"] = cuda_median_ms(fn, **longr)
+    lo12 = torch.randn(LB, PROB_T, S, device=dev, generator=gen)
+    la12 = torch.log_softmax(torch.randn(S, S, device=dev, generator=gen), -1)
+    lp12 = torch.log_softmax(torch.randn(S, device=dev, generator=gen), -1)
+    times["pallas_fb_prob K=12"] = cuda_median_ms(lambda: ops.pallas_fb_prob(lo12, la12, lp12))
+    times["fbsum_smallk K=12 T=4096"] = cuda_median_ms(lambda: ops.fbsum_smallk(lo12, la12, lp12))
+
+    layer, obs = full_out["layer"], full_out["obs"]
+    gmm, em, gobs, long_obs = full_out["gmm"], full_out["em"], full_out["gobs"], full_out["long_obs"]
+    decoder = gmm.make_decoder()
+
+    def loss_step(model, x):
+        model.zero_grad()
+        model.compute_loss(x).backward()
+
+    def posteriors():
+        layer.train()
+        with torch.no_grad():
+            res = layer(obs)
+        layer.eval()
+        return res
+
+    calls = {
+        "long-context forward": (lambda: ops.auto_forward(lo, la, lp), longr),
+        "long-context gradient": (lambda: _ll_grads(lo, la, lp), longr),
+        "GaussianHMMLayer full decode": (lambda: layer(obs), {}),
+        "GaussianHMMLayer full posteriors": (posteriors, {}),
+        "GaussianHMMLayer full compute_loss step": (lambda: loss_step(layer, obs), {}),
+        "MixtureGaussianHMMLayer full decode": (lambda: decoder(gobs, True), {}),
+        "MixtureGaussianHMMLayer full compute_loss step": (lambda: loss_step(gmm, gobs), {}),
+        "MixtureGaussianHMMLayer full em_step": (lambda: em.em_step(gobs), {}),
+        "MixtureGaussianHMMLayer full em_step T=2048": (lambda: em.em_step(long_obs), {}),
+    }
+    launches = {}
+    for name, (fn, kw) in calls.items():
+        times[name] = cuda_median_ms(fn, **kw)
+        reset_launches()
+        fn()
+        torch.cuda.synchronize(dev)
+        launches[name] = {k: v for k, v in read_launches(KERNELS).items() if v}
+    prof = {name: _profile(dev, calls[name][0], n=1 if name.startswith("long") else 3)
+            for name in LONG_PROFILED}
+    # The gate's finiteness read: one device sync per call that gets that
+    # far, host clock around calls on an idle stream.
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        ops._finite(la)
+    gate = {"finite read us": (time.perf_counter() - t0) * 1e4}
+    t0 = time.perf_counter()
+    for _ in range(100):
+        ops._sum_route(lo4, la4)
+    gate["route us"] = (time.perf_counter() - t0) * 1e4
+    return times, launches, prof, gate
+
+
+def prob_work(b, t, k):
+    """Bytes and float32 operations of rows 10-12 at ``(b, t, k)``: log-obs,
+    P and (forward) log_pi in, each table (and log Z) out; per frame and
+    state a K-long multiply-add, then the exp, the multiply, the log and
+    the shift's add."""
+    f, bk = 4, b * t * k
+    ops_ = 2 * bk * k + 4 * bk
+    return {
+        "pallas_forward_prob": (f * (bk + k * k + k + bk + b), ops_),
+        "pallas_backward_prob": (f * (bk + k * k + bk), ops_),
+        "pallas_fb_prob": (f * (bk + k * k + k + 2 * bk + b), 2 * ops_),
+    }
+
+
+def _bound(nbytes, ops_):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bounds(inputs, neural_inputs, bigk_inputs, prob_inputs):
     """Each kernel's least time on the card for this run's timed inputs,
     ``(ms, "bytes" or "operations")``: the larger of the bytes it must
     move (each input read once, each output written once) over the HBM
@@ -2084,12 +2590,9 @@ def bounds(inputs, neural_inputs, bigk_inputs):
         "fused_gmm_viterbi": (f * (fobs.numel() + 2 * fmeans.numel() + fs * fc + fs * fs + fs
                                    + fb * ft + fb),
                               fb * ft * fs * fc * (4 * fmeans.shape[-1] + 3) + 2 * fb * ft * fs * fs),
+        **prob_work(*prob_inputs[0].shape),
     }
-    out = {}
-    for name, (nbytes, ops_) in work.items():
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / F32_OPS_PER_S * 1e3
-        out[name] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    return out
+    return {name: _bound(*w) for name, w in work.items()}
 
 
 def phase_timing(dev, gen, layer, obs, train, dur, dur_train):
@@ -2315,17 +2818,48 @@ def main() -> int:
           + f" (posteriors atol {BIGK_POST_ATOL}, loss rtol {LOSS_RTOL}, HMM log-likelihood rtol "
           f"{HMM_LL_RTOL}, grad rtol {BIGK_GRAD_RTOL}, EM rtol {BIGK_EM_RTOL})", flush=True)
 
+    prob_errs, prob_split, l2r_err, prob_cases, prob_inputs = phase_prob_kernels(dev, gen)
+    print(f"pallas_forward_prob / pallas_backward_prob / pallas_fb_prob vs plain: ok on "
+          f"{len(prob_cases)} cases ({', '.join(prob_cases)}); the fused launch's tables equal the "
+          f"single chains' and its split tables sum to them, bit for bit; headline (B={LB}, "
+          f"T={PROB_T}, K={LK}) max abs err "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in prob_errs.items())
+          + "; split as written: " + ", ".join(f"{k}: {v:.3g}" for k, v in prob_split.items())
+          + f" (relative tables atol {PROB_REL_ATOL}; shifts and log Z atol {PROB_ATOL} + rtol "
+          f"{PROB_RTOL}); left-to-right safe_log case posteriors vs "
+          f"float64 {l2r_err:.3g} (atol {BIGK_POST_ATOL})", flush=True)
+    long = phase_long_context(dev)
+    print(f"long context (B={LB}, T={LT}, K={LK}; ops.auto_forward, auto_log_likelihood and its "
+          f"gradient): ok, launches {long['launches']}; {LONG_SUB} rows vs float64 (log Z, log alpha "
+          "and posteriors max abs, gradients relative to each tensor's max): "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in long["errs"].items())
+          + f" (log Z / log alpha atol {LONG_ATOL} + rtol {LONG_RTOL}, posteriors atol "
+          f"{BIGK_POST_ATOL}, grad rtol {BIGK_GRAD_RTOL})", flush=True)
+    full = phase_fullcov(dev)
+    print(f"full covariance (GaussianHMMLayer({GK}, {GD}, 'full') B={B} T={FULL_T}; "
+          f"MixtureGaussianHMMLayer({S}, {D}, C={C}, 'full') B={B} T={T}): ok, launches "
+          f"{full['launches']}, decode frame agreement {full['agreement']}, Adam losses "
+          f"{full['losses']}, em_step log-likelihoods {full['lls']}", flush=True)
+    print(f"full covariance vs CPU float64 (GaussianHMMLayer on {FULL_SUB} rows; posteriors max "
+          "abs; loss / log-likelihood max rel; gradients and EM relative to each tensor's max): "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in full["errs"].items())
+          + f" (posteriors atol {BIGK_POST_ATOL}, loss rtol {LOSS_RTOL}, grad rtol "
+          f"{BIGK_GRAD_RTOL}, EM rtol {BIGK_EM_RTOL})", flush=True)
+
     times, launches_per_call = phase_timing(dev, gen, layer, obs, train, dur, dur_train)
     stimes, slaunches, prof, stream_inputs = phase_stream_timing(dev, gen)
     ntimes, nlaunches, nprof, neural_inputs = phase_neural_timing(dev, gen, neural)
     btimes, blaunches, bprof, bigk_inputs = phase_bigk_timing(dev, gen, bigk)
+    ltimes, llaunches, lprof, gate = phase_long_timing(dev, gen, prob_inputs, long, full)
     times.update(stimes)
     times.update(ntimes)
     times.update(btimes)
+    times.update(ltimes)
     launches_per_call.update(slaunches)
     launches_per_call.update(nlaunches)
     launches_per_call.update(blaunches)
-    bound = bounds(stream_inputs, neural_inputs, bigk_inputs)
+    launches_per_call.update(llaunches)
+    bound = bounds(stream_inputs, neural_inputs, bigk_inputs, prob_inputs)
     for name in KERNELS:
         ms, plain = times[name]
         print(f"timing {name}: {ms:.4f} ms kernel, {plain:.4f} ms plain torch, bound "
@@ -2384,14 +2918,38 @@ def main() -> int:
         print(f"profile of 10 calls of {name} (B={B}, T={T}): host wall {p['host_ms']:.4f} ms, "
               f"device busy {p['device_ms']} ms, {p['kernels']} device ops per call, top "
               f"{p['top_ms']} on {card}", flush=True)
+    long_bound = {k: _bound(*w) for k, w in prob_work(LB, LT, LK).items()}
+    print(f"timing prob-space chains (B={LB}, K={LK}): "
+          + ", ".join(f"{k} T={LT} {times[f'{k} T={LT}']:.4f} ms (bound {long_bound[k][0]:.4f} "
+                      f"ms, {long_bound[k][1]})" for k in PROB_KERNELS)
+          + f"; log-space pallas_forward T={PROB_T} {times['pallas_forward T=4096']:.4f} ms, "
+          f"T={LT} {times[f'pallas_forward T={LT}']:.4f} ms; pallas_backward T={PROB_T} "
+          f"{times['pallas_backward T=4096']:.4f} ms, T={LT} {times[f'pallas_backward T={LT}']:.4f} "
+          f"ms; at K={S}, T={PROB_T}: pallas_fb_prob {times['pallas_fb_prob K=12']:.4f} ms, "
+          f"fbsum_smallk {times['fbsum_smallk K=12 T=4096']:.4f} ms (median, CUDA events) on {card}",
+          flush=True)
+    for name in (k for k in ltimes if k.startswith(("long-context", "GaussianHMMLayer full",
+                                                    "MixtureGaussianHMMLayer full"))):
+        shape = ((LB, LT) if name.startswith("long") else
+                 (B, FULL_T) if name.startswith("Gaussian") or name.endswith("T=2048") else (B, T))
+        what = "forward+backward" if "step" in name or "gradient" in name else "call"
+        print(f"timing {name}: {times[name]:.4f} ms per {what} of {shape[0]}x{shape[1]} frames "
+              f"(median, CUDA events) on {card}", flush=True)
+    for name, p in lprof.items():
+        print(f"profile of {name}: host wall {p['host_ms']:.4f} ms, device busy {p['device_ms']} "
+              f"ms, {p['kernels']} device ops per call, top {p['top_ms']} on {card}", flush=True)
+    print(f"gate: the finiteness read of log_a {gate['finite read us']:.2f} us per call, the whole "
+          f"route decision {gate['route us']:.2f} us (host clock, 100 calls, idle stream) on "
+          f"{card}", flush=True)
 
     errs ={"diag_quadratic": dq_errs[(B, T, D, S * C)], "smallk_viterbi": vit_err, **sum_errs,
             **hsmm_errs, **stream_errs, "fused_gaussian_emission": emit_errs["headline"],
-            **scan_errs, "fused_gmm_viterbi": fused_err}
+            **scan_errs, "fused_gmm_viterbi": fused_err, **prob_errs}
     launches = {name: sum(run.get(name, 0) for run in (
         dec_launches, train["launches"], dur["launches"], dur_train["launches"],
         serve["beam"]["launches"], serve["greedy"]["launches"], fleets["launches"],
-        *neural["launches"].values(), *bigk["launches"].values()))
+        *neural["launches"].values(), *bigk["launches"].values(),
+        *long["launches"].values(), *full["launches"].values()))
         for name in KERNELS}
     library = {"diag_quadratic": times["library diag_quadratic"]}
     time_varying = {name: {

@@ -18,8 +18,12 @@ HMMs (``NeuralHMM``, ``ContextualNeuralHMM``, ``NeuralObservationModel``,
 static or time-varying transitions, the fused neural emission kernel)
 and the general-K path (``HMM``, ``HMMLayer``, ``GaussianHMMLayer`` and
 every model above 32 states, to 1024: the general-K forward, backward
-and Viterbi kernels, and the fused GMM decode). Models are built on the CUDA device unless ``device`` names another; on
-CPU tensors everything runs as plain torch.
+and Viterbi kernels, and the fused GMM decode) and long sequences (the
+prob-space forward, backward and fused forward-backward kernels at
+T ≥ 1024, K ≤ 128) and full-covariance Gaussian emissions in
+``GaussianHMMLayer`` and ``MixtureGaussianHMMLayer``. Models are built
+on the CUDA device unless ``device`` names another; on CPU tensors
+everything runs as plain torch.
 
 Importing the package imports neither JAX nor Triton and builds nothing.
 """
@@ -47,6 +51,7 @@ from .core import (
 )
 from .emissions import (
     diag_gaussian_log_probs,
+    full_gaussian_log_probs,
     gaussian_log_probs,
     gmm_component_log_probs,
     gmm_log_probs,
@@ -114,6 +119,7 @@ __all__ = [
     "hsmm_posteriors",
     "hsmm_viterbi",
     "diag_gaussian_log_probs",
+    "full_gaussian_log_probs",
     "gaussian_log_probs",
     "gmm_component_log_probs",
     "gmm_log_probs",

@@ -1,9 +1,9 @@
 """Emission (observation) models as log-prob functions on tensors.
 
-Port of the diag, tied and spherical families of
-``pytorch_hmm_tpu/emissions.py``. Each function maps ``(B, T, D)``
-observations to ``(B, T, K)`` float32 log-probs. The diagonal quadratic
-form is expanded so scoring is two ``(B·T, D) × (D, K)`` products::
+Port of ``pytorch_hmm_tpu/emissions.py``: diag, tied, spherical and full
+covariance. Each function maps ``(B, T, D)`` observations to ``(B, T,
+K)`` log-probs. The diagonal quadratic form is expanded so scoring is
+two ``(B·T, D) × (D, K)`` products::
 
     (x-μ)ᵀ diag(1/σ²) (x-μ) = x²·(1/σ²) − 2x·(μ/σ²) + Σ μ²/σ²
 
@@ -12,8 +12,16 @@ observations (the hand kernel on CUDA, plain torch on CPU). Its
 autograd Function carries gradients back to the means and
 log-variances on both devices, so the diag and tied scores train as
 they decode. ``gaussian_log_probs`` is ``GaussianHMMLayer``'s entry,
-parameterized by log standard deviations. Full covariance is not ported
-yet and raises ``NotImplementedError``.
+parameterized by log standard deviations.
+
+Full covariance goes through precision matrices from the inverse
+Cholesky factors (:func:`fullcov_prepare`) and the expansion
+``xᵀPx − 2x·(Pμ̃) + μ̃ᵀPμ̃`` on coordinates centered on the mean of the
+means, as plain ``torch.matmul`` products (XLA products in the JAX
+package, which has no kernel for them either), chunked over time only
+to bound memory. Float32 products must run in full float32: the
+emission scores feed posterior-grade chains, so TF32
+(``torch.backends.cuda.matmul.allow_tf32``, off by default) stays off.
 """
 
 from __future__ import annotations
@@ -27,18 +35,20 @@ from .ops.emit import diag_quadratic
 
 __all__ = [
     "diag_gaussian_log_probs",
+    "flat_dim",
+    "full_gaussian_log_probs",
+    "full_gaussian_log_probs_prepared",
+    "fullcov_mixture_log_probs_prepared",
+    "fullcov_prepare",
     "gaussian_log_probs",
-    "spherical_gaussian_log_probs",
     "gmm_component_log_probs",
     "gmm_log_probs",
+    "spherical_gaussian_log_probs",
+    "tril_from_flat",
+    "tril_inverse",
 ]
 
 _LOG_2PI = math.log(2.0 * math.pi)
-
-_FULL_COV_TODO = (
-    "full covariance is not ported yet: ROADMAP queue 1 item 2 "
-    "(fullcov_prepare, tril_inverse, full_gaussian_log_probs_prepared)"
-)
 
 
 def diag_gaussian_log_probs(
@@ -79,6 +89,91 @@ def spherical_gaussian_log_probs(
     return log_norm - 0.5 * mahal
 
 
+def fullcov_prepare(means: torch.Tensor, chol: torch.Tensor) -> dict:
+    """Observation-independent tables for full-covariance scoring, from
+    means ``(K, D)`` and lower-triangular Cholesky factors ``chol (K, D,
+    D)`` with positive diagonals.
+
+    Returns ``{"prec": (K, D, D) Σ⁻¹, "pm": (K, D) Σ⁻¹μ̃, "mm": (K,)
+    μ̃ᵀΣ⁻¹μ̃, "center": (D,), "log_norm": (K,)}``, with μ̃ the means
+    centered on their mean ``center``: shifting x and μ by the same
+    constant is exact, and keeps the expansion O(Mahalanobis distance)
+    for features far from the origin.
+    """
+    D = means.shape[-1]
+    inv_chol = tril_inverse(chol)                                   # L⁻¹
+    logdet = torch.sum(torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+    log_norm = -0.5 * D * _LOG_2PI - logdet
+    center = torch.mean(means, dim=0)
+    mu_c = means - center
+    wm = torch.einsum("ked,kd->ke", inv_chol, mu_c)                # L⁻¹ μ̃
+    prec = torch.einsum("ked,kef->kdf", inv_chol, inv_chol)        # Σ⁻¹
+    pm = torch.einsum("kde,ke->kd", prec, mu_c)
+    mm = torch.sum(wm * wm, dim=-1)
+    return {"prec": prec, "pm": pm, "mm": mm, "center": center, "log_norm": log_norm}
+
+
+def _fullcov_scored_prepared(obs, prep, time_chunk, mixture):
+    D = obs.shape[-1]
+    prec, pm, mm = prep["prec"], prep["pm"], prep["mm"]
+    K = prec.shape[0]
+    # prec as one (D, K·D) operand: x @ W gives every component's Px.
+    W = prec.permute(1, 0, 2).reshape(D, K * D)
+
+    def score(x):
+        x = x - prep["center"]
+        px = (x @ W).reshape(*x.shape[:-1], K, D)
+        xpx = torch.einsum("btkd,btd->btk", px, x)
+        # A true Mahalanobis distance is non-negative; clamp so rounding
+        # in the expansion never lifts a score above log_norm.
+        mahal = torch.clamp(xpx - 2.0 * (x @ pm.T) + mm, min=0.0)
+        out = prep["log_norm"] - 0.5 * mahal
+        if mixture is not None:
+            out = logsumexp(out.reshape(*out.shape[:-1], *mixture), dim=-1)
+        return out
+
+    T = obs.shape[1]
+    if T <= time_chunk:
+        return score(obs)
+    # Time chunks bound the (B, τ, K·D) intermediate (0.49 GB unchunked
+    # at B=32, T=1000, K=48, D=80).
+    return torch.cat([score(obs[:, t:t + time_chunk]) for t in range(0, T, time_chunk)], dim=1)
+
+
+def full_gaussian_log_probs_prepared(
+    obs: torch.Tensor, prep: dict, time_chunk: int = 128
+) -> torch.Tensor:
+    """Full-covariance scores ``(B, T, K)`` from :func:`fullcov_prepare`
+    tables, ``time_chunk`` frames at a time."""
+    return _fullcov_scored_prepared(obs, prep, time_chunk, mixture=None)
+
+
+def fullcov_mixture_log_probs_prepared(
+    obs: torch.Tensor,
+    prep: dict,
+    num_states: int,
+    num_components: int,
+    time_chunk: int = 128,
+) -> torch.Tensor:
+    """Mixture-marginalized state scores ``(B, T, S)`` from
+    :func:`fullcov_prepare` tables with the log mixture weights folded
+    into ``prep["log_norm"]``; the logsumexp over components runs inside
+    each time chunk, so no ``(B, T, S·C)`` tensor is formed (the serving
+    decoder, ``MixtureGaussianHMMLayer.make_decoder``)."""
+    return _fullcov_scored_prepared(obs, prep, time_chunk,
+                                    mixture=(num_states, num_components))
+
+
+def full_gaussian_log_probs(
+    obs: torch.Tensor, means: torch.Tensor, chol: torch.Tensor, time_chunk: int = 128
+) -> torch.Tensor:
+    """Full-covariance Gaussian scores ``(B, T, K)`` from means ``(K, D)``
+    and lower-triangular Cholesky factors ``chol (K, D, D)`` with
+    positive diagonals: :func:`fullcov_prepare`, then
+    :func:`full_gaussian_log_probs_prepared`."""
+    return full_gaussian_log_probs_prepared(obs, fullcov_prepare(means, chol), time_chunk)
+
+
 def gaussian_log_probs(
     obs: torch.Tensor,
     means: torch.Tensor,
@@ -87,14 +182,50 @@ def gaussian_log_probs(
 ) -> torch.Tensor:
     """``GaussianHMMLayer``'s scores ``(B, T, K)``: ``log_scales`` are
     log standard deviations, ``(K, D)`` for diag and ``(K, 1)`` for
-    spherical, so ``log_var = 2 · log_scales``."""
+    spherical, so ``log_var = 2 · log_scales``. For full covariance
+    ``log_scales (K, D, D)`` are raw: the Cholesky factor is their strict
+    lower triangle plus ``exp`` of their diagonal."""
     if covariance_type == "diag":
         return diag_gaussian_log_probs(obs, means, 2.0 * log_scales)
     if covariance_type == "spherical":
         return spherical_gaussian_log_probs(obs, means, 2.0 * log_scales[..., 0])
     if covariance_type == "full":
-        raise NotImplementedError(_FULL_COV_TODO)
+        diag = torch.exp(torch.diagonal(log_scales, dim1=-2, dim2=-1))
+        chol = torch.tril(log_scales, diagonal=-1) + torch.diag_embed(diag)
+        return full_gaussian_log_probs(obs, means, chol)
     raise ValueError(f"Unknown covariance_type: {covariance_type}")
+
+
+# -- GMM emissions ----------------------------------------------------------------
+
+
+def flat_dim(d: int) -> int:
+    """Size of the flattened lower triangle of a ``(d, d)`` matrix."""
+    return d * (d + 1) // 2
+
+
+def tril_from_flat(flat: torch.Tensor, d: int) -> torch.Tensor:
+    """Unpack ``(..., d(d+1)/2)``, the lower triangle in row-major order,
+    into lower-triangular ``(..., d, d)`` with diagonal ``softplus +
+    1e-4``, so the covariance is always positive definite. A gather from
+    the flat vector with a zero appended, as the JAX package builds it."""
+    n = flat.shape[-1]
+    rows, cols = torch.tril_indices(d, d)
+    index = torch.full((d, d), n, dtype=torch.long)
+    index[rows, cols] = torch.arange(rows.numel())
+    padded = torch.cat([flat, flat.new_zeros(*flat.shape[:-1], 1)], dim=-1)
+    L = padded[..., index.reshape(-1).to(flat.device)].reshape(*flat.shape[:-1], d, d)
+    diag = torch.nn.functional.softplus(torch.diagonal(L, dim1=-2, dim2=-1)) + 1e-4
+    return torch.tril(L, diagonal=-1) + torch.diag_embed(diag)
+
+
+def tril_inverse(L: torch.Tensor) -> torch.Tensor:
+    """Batched inverse of lower-triangular ``L (..., d, d)``, lower
+    triangular. A triangular solve against the identity; the JAX package
+    runs a Newton iteration instead only because the TPU's triangular
+    solve was slow."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
+    return torch.tril(torch.linalg.solve_triangular(L, eye, upper=False))
 
 
 def gmm_component_log_probs(
@@ -106,8 +237,9 @@ def gmm_component_log_probs(
     """Per-component Gaussian scores ``(B, T, S, C)``.
 
     means: ``(S, C, D)``. cov_params by type: ``diag`` → log-variances
-    ``(S, C, D)``; ``tied`` → shared log-variances ``(D,)``;
-    ``spherical`` → log-variance ``(S, C)``.
+    ``(S, C, D)``; ``full`` → flattened Cholesky factors ``(S, C,
+    D(D+1)/2)`` (:func:`tril_from_flat`); ``tied`` → shared
+    log-variances ``(D,)``; ``spherical`` → log-variance ``(S, C)``.
     """
     B, T, D = obs.shape
     S, C, _ = means.shape
@@ -122,7 +254,8 @@ def gmm_component_log_probs(
     elif covariance_type == "spherical":
         out = spherical_gaussian_log_probs(obs, m2, cov_params.reshape(S * C))
     elif covariance_type == "full":
-        raise NotImplementedError(_FULL_COV_TODO)
+        chol = tril_from_flat(cov_params.reshape(S * C, -1), D)
+        out = full_gaussian_log_probs(obs, m2, chol)
     else:
         raise ValueError(f"Unknown covariance_type: {covariance_type}")
     return out.reshape(B, T, S, C)

@@ -4,8 +4,8 @@ Port of ``pytorch_hmm_tpu/models/hmm_layer.py`` as ``nn.Module``s, on the
 CUDA device unless ``device`` names another. Inference runs through the
 dispatch (``ops.auto_forward_backward``, ``auto_viterbi``,
 ``auto_log_likelihood``): on CUDA the hand kernels (small-K to 32
-states, ``ops.scan``'s general-K kernels to 1024), on CPU the plain
-``core``.
+states, ``ops.scan``'s general-K kernels to 1024, its prob-space kernels
+for long unragged sequences to 128), on CPU the plain ``core``.
 
 * Training mode (``.train()``, the default) gives soft posteriors by
   forward-backward; eval mode gives one-hot Viterbi alignments unless
@@ -30,7 +30,7 @@ from torch import nn
 
 from .. import core
 from ..core.semiring import safe_log
-from ..emissions import _FULL_COV_TODO, gaussian_log_probs
+from ..emissions import gaussian_log_probs
 from ..ops import auto_forward_backward, auto_log_likelihood, auto_viterbi
 from ..precision import maybe_remat
 from ..utils import create_left_to_right_matrix, create_transition_matrix
@@ -160,11 +160,12 @@ class HMMLayer(nn.Module):
 class GaussianHMMLayer(nn.Module):
     """HMM with learnable per-state Gaussian emissions over continuous
     features ``(B, T, D)``. ``log_scales`` are log standard deviations:
-    ``(K, D)`` for diag, ``(K, 1)`` for spherical (full covariance is not
-    ported yet). Means are drawn from ``generator`` (a CPU generator, one
-    seeded with 0 when omitted); weights are carried from the JAX layer
-    with ``bridge.gaussian_hmm_layer_state_dict`` where the two must
-    agree."""
+    ``(K, D)`` for diag, ``(K, 1)`` for spherical; for full covariance
+    ``(K, D, D)`` raw Cholesky parameters (strict lower triangle, log of
+    the diagonal; zeros, the identity, at first). Means are drawn from
+    ``generator`` (a CPU generator, one seeded with 0 when omitted);
+    weights are carried from the JAX layer with
+    ``bridge.gaussian_hmm_layer_state_dict`` where the two must agree."""
 
     def __init__(
         self,
@@ -178,9 +179,8 @@ class GaussianHMMLayer(nn.Module):
         device="cuda",
     ):
         super().__init__()
-        if covariance_type == "full":
-            raise NotImplementedError(_FULL_COV_TODO)
-        shapes = {"diag": (num_states, feature_dim), "spherical": (num_states, 1)}
+        shapes = {"diag": (num_states, feature_dim), "spherical": (num_states, 1),
+                  "full": (num_states, feature_dim, feature_dim)}
         if covariance_type not in shapes:
             raise ValueError(f"Unknown covariance_type: {covariance_type}")
         if generator is None:

@@ -1,8 +1,8 @@
 """MixtureGaussianHMMLayer — GMM-HMM acoustic model, decode and training.
 
 Port of ``pytorch_hmm_tpu/models/mixture_gaussian.py`` as an
-``nn.Module``: S states, C mixture components per state, diag / tied /
-spherical covariances, learnable or fixed left-to-right transitions,
+``nn.Module``: S states, C mixture components per state, diag / full /
+tied / spherical covariances, learnable or fixed left-to-right transitions,
 batched Viterbi decode (``forward``), the frozen serving decoder
 (``make_decoder``), the differentiable ``log_likelihood`` /
 ``compute_loss`` for gradient training, and a closed-form Baum-Welch
@@ -17,10 +17,14 @@ than 32 states, diag decode inside the fused envelope runs
 ``ops.fused.fused_gmm_viterbi`` and other decodes
 ``ops.scan.pallas_viterbi``; the likelihood and EM run
 ``ops.scan.pallas_forward`` / ``pallas_backward``, EM's transition
-statistic as the product ``core.xi_sum``.
+statistic as the product ``core.xi_sum``. Long unragged sequences
+(T ≥ 1024) take the prob-space ``ops.scan.pallas_fb_prob`` in EM at any
+S ≤ 128 and in the likelihood above 32 states. Full covariance scores
+through ``emissions.full_gaussian_log_probs`` (plain products) into the
+same kernels.
 
-Full covariance comes with ROADMAP queue 1 item 2, and distributed EM
-(``em_step(mesh=...)``) with item 12.
+Distributed EM (``em_step(mesh=...)``) comes with ROADMAP queue 1 item
+12.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from torch import nn
 
 from .. import core
 from ..core.semiring import logsumexp, safe_log
-from ..emissions import _FULL_COV_TODO, gmm_component_log_probs, gmm_log_probs
+from ..emissions import (flat_dim, fullcov_mixture_log_probs_prepared, fullcov_prepare,
+                         gmm_component_log_probs, gmm_log_probs, tril_from_flat)
 from ..ops import (MAX_SMALLK, auto_forward_backward, auto_gmm_viterbi, auto_log_likelihood,
                    auto_viterbi)
 from ..precision import maybe_remat
@@ -44,14 +49,16 @@ __all__ = ["MixtureGaussianHMMLayer", "PreparedGMMDecoder"]
 class PreparedGMMDecoder:
     """Parameter-frozen GMM-HMM Viterbi decoder (see ``make_decoder``).
 
-    Holds detached copies of the emission tables and the log
-    transitions; ``__call__`` scores the observations and runs the
-    trellis, with the same results as ``MixtureGaussianHMMLayer.forward``.
+    Holds detached emission tables and the log transitions; ``__call__``
+    scores the observations and runs the trellis, with the same results
+    as ``MixtureGaussianHMMLayer.forward``. The tables are the means,
+    covariance parameters and log weights or, for full covariance, the
+    ``emissions.fullcov_prepare`` tables with the log mixture weights
+    folded into ``log_norm``.
     """
 
-    def __init__(self, emission_tables: dict, log_a: torch.Tensor,
-                 log_pi: torch.Tensor, num_states: int, num_components: int,
-                 covariance_type: str):
+    def __init__(self, emission_tables: dict, log_a: torch.Tensor, log_pi: torch.Tensor,
+                 num_states: int, num_components: int, covariance_type: str):
         self.emission_tables = emission_tables
         self.log_a = log_a
         self.log_pi = log_pi
@@ -61,6 +68,10 @@ class PreparedGMMDecoder:
 
     def log_obs(self, observations: torch.Tensor) -> torch.Tensor:
         """State emission scores ``(B, T, S)`` from the frozen tables."""
+        if self.covariance_type == "full":
+            # The logsumexp over components runs inside each time chunk.
+            return fullcov_mixture_log_probs_prepared(
+                observations, self.emission_tables, self.num_states, self.num_components)
         t = self.emission_tables
         return gmm_log_probs(
             observations, t["means"], t["cov_params"], t["log_w"],
@@ -89,7 +100,7 @@ def _l2r_fixed(num_states: int) -> torch.Tensor:
 
 
 class MixtureGaussianHMMLayer(nn.Module):
-    """GMM-HMM with diag / tied / spherical covariances.
+    """GMM-HMM with diag / full / tied / spherical covariances.
 
     Parameters are drawn from ``generator`` (a CPU ``torch.Generator``; a
     fresh one seeded with 0 when omitted) and moved to ``device``, the
@@ -111,9 +122,7 @@ class MixtureGaussianHMMLayer(nn.Module):
         device="cuda",
     ):
         super().__init__()
-        if covariance_type == "full":
-            raise NotImplementedError(_FULL_COV_TODO)
-        if covariance_type not in ("diag", "tied", "spherical"):
+        if covariance_type not in ("diag", "full", "tied", "spherical"):
             raise ValueError(f"Unknown covariance_type: {covariance_type}")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
@@ -135,10 +144,13 @@ class MixtureGaussianHMMLayer(nn.Module):
             self.register_buffer("transition_matrix", _l2r_fixed(S).to(device))
         self.mixture_weights_logits = nn.Parameter(randn(S, C) * 0.1)
         self.means = nn.Parameter(randn(S, C, D) * math.sqrt(2.0 / D))
-        cov_shape = {"diag": (S, C, D), "tied": (D,), "spherical": (S, C)}
-        self.cov_params = nn.Parameter(
-            torch.zeros(cov_shape[covariance_type], device=device)
-        )
+        cov_shape = {"diag": (S, C, D), "full": (S, C, flat_dim(D)), "tied": (D,),
+                     "spherical": (S, C)}
+        cov = torch.zeros(cov_shape[covariance_type])
+        if covariance_type == "full":
+            # softplus(0.5413) + 1e-4 ≈ 1: unit initial variances.
+            cov[..., _diag_slots(D)] = 0.5413
+        self.cov_params = nn.Parameter(cov.to(device))
 
     # -- parameter views ------------------------------------------------------
     def get_transition_matrix(self) -> torch.Tensor:
@@ -194,17 +206,27 @@ class MixtureGaussianHMMLayer(nn.Module):
     def make_decoder(self) -> PreparedGMMDecoder:
         """Freeze the current parameters into a serving decoder.
 
-        Parameters are captured by value: after further training, call
-        ``make_decoder()`` again for a fresh snapshot.
+        For full covariance the observation-independent tables
+        (``emissions.fullcov_prepare``: the inverse Cholesky factors and
+        precisions) are computed here, once, with the log mixture weights
+        folded into ``log_norm``. Parameters are captured by value: after
+        further training, call ``make_decoder()`` again for a fresh
+        snapshot.
         """
-        tables = {
-            "means": self.means.detach().clone(),
-            "cov_params": self.cov_params.detach().clone(),
-            "log_w": torch.log_softmax(self.mixture_weights_logits, dim=-1),
-        }
+        S, C, D = self.num_states, self.num_components, self.feature_dim
+        log_w = torch.log_softmax(self.mixture_weights_logits, dim=-1)
+        if self.covariance_type == "full":
+            chol = tril_from_flat(self.cov_params.reshape(S * C, -1), D)
+            tables = fullcov_prepare(self.means.reshape(S * C, D), chol)
+            tables["log_norm"] = tables["log_norm"] + log_w.reshape(-1)
+        else:
+            tables = {
+                "means": self.means.detach().clone(),
+                "cov_params": self.cov_params.detach().clone(),
+                "log_w": log_w,
+            }
         return PreparedGMMDecoder(
-            tables, self._log_a(), self._log_pi(), self.num_states,
-            self.num_components, self.covariance_type,
+            tables, self._log_a(), self._log_pi(), S, C, self.covariance_type,
         )
 
     def log_likelihood(
@@ -258,7 +280,8 @@ class MixtureGaussianHMMLayer(nn.Module):
         return ll
 
     def get_model_info(self) -> dict:
-        """Configuration and parameter statistics."""
+        """Configuration and parameter statistics (full covariance counts
+        its ``(S, C, D(D+1)/2)`` Cholesky parameters)."""
         total = sum(p.numel() for p in self.parameters())
         return {
             "num_states": self.num_states,
@@ -271,6 +294,11 @@ class MixtureGaussianHMMLayer(nn.Module):
             "memory_efficient": True,
             "max_sequence_length": self.max_sequence_length,
         }
+
+
+def _diag_slots(d: int) -> list:
+    """Positions of the diagonal in a flattened row-major lower triangle."""
+    return [i * (i + 1) // 2 + i for i in range(d)]
 
 
 def _em_update(
@@ -316,7 +344,17 @@ def _em_update(
         w = r_sum / torch.sum(r_sum)
         new_cov = torch.log(torch.einsum("sc,scd->d", w, var_diag))
     elif covariance_type == "full":
-        raise NotImplementedError(_FULL_COV_TODO)
+        D = obs.shape[-1]
+        exx = torch.einsum("btsc,btd,bte->scde", r, obs, obs) / r_sum[..., None, None]
+        cov = exx - new_means[..., :, None] * new_means[..., None, :]
+        cov = cov + var_floor * torch.eye(D, dtype=cov.dtype, device=cov.device)
+        chol = torch.linalg.cholesky(cov)                    # (S, C, D, D)
+        rows, cols = torch.tril_indices(D, D, device=chol.device)
+        new_cov = chol[..., rows, cols]
+        # Invert tril_from_flat's softplus diagonal, y = softplus(x): x =
+        # log(expm1(y)), written y + log(-expm1(-y)) so it cannot overflow.
+        y = torch.clamp(torch.diagonal(chol, dim1=-2, dim2=-1) - 1e-4, min=1e-6)
+        new_cov[..., _diag_slots(D)] = y + torch.log(-torch.expm1(-y))
     else:
         raise ValueError(f"Unknown covariance_type: {covariance_type}")
 

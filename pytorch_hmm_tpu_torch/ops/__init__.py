@@ -19,11 +19,16 @@ path, as the backend does in the JAX package:
   package's kernels): ``pallas_forward`` for alpha and the likelihood,
   ``pallas_backward`` for beta and the likelihood's gradient (with the
   transition statistic as the product ``core.xi_sum``, no ``(B, T, K,
-  K)`` table), ``pallas_viterbi`` for decode. At 32 < K ≤ 128, unragged,
-  T ≥ 1024 the JAX package switches to its prob-space kernels (rows
-  10-12), which are not ported yet; these kernels compute the same
-  tables there. Diag GMM decode inside the JAX fused kernel's envelope
-  (S ≤ 128, ``next_pow2(C) · ceil8(S) ≤ 128``) runs ``fused.fused_gmm_viterbi``.
+  K)`` table), ``pallas_viterbi`` for decode. Diag GMM decode inside the
+  JAX fused kernel's envelope (S ≤ 128, ``next_pow2(C) · ceil8(S) ≤
+  128``) runs ``fused.fused_gmm_viterbi``.
+* Long sequences (T ≥ 1024, unragged, static finite transitions, K ≤
+  128) run the prob-space kernels of ``scan`` (rows 10-12), as the JAX
+  package's ``_prob_ok`` gate sends them: ``pallas_forward_prob`` for
+  ``auto_forward`` and a likelihood that records no gradient, and
+  ``pallas_fb_prob`` for the differentiable likelihood (32 < K) and for
+  ``auto_forward_backward`` (any K ≤ 128, ahead of ``fbsum_smallk``);
+  see :func:`_sum_route`.
 * Cases the JAX package has no TPU kernel for either (K > 1024, or
   time-varying transitions with K > 32) run the plain ``core`` on the
   tensors' own device.
@@ -82,12 +87,21 @@ from .hsmm_smallk import (
 )
 from .scan import (
     MAX_K,
+    PROB_MAX_K,
     pallas_backward,
+    pallas_backward_prob,
+    pallas_backward_prob_reference,
     pallas_backward_reference,
+    pallas_fb_prob,
+    pallas_fb_prob_reference,
+    pallas_fb_prob_split,
     pallas_forward,
+    pallas_forward_prob,
+    pallas_forward_prob_reference,
     pallas_forward_reference,
     pallas_viterbi,
     pallas_viterbi_reference,
+    prob_supported,
     scan_supported,
 )
 from .smallk import (
@@ -145,12 +159,22 @@ __all__ = [
     "hsmm_smallk_viterbi_reference",
     "MAX_DURATION",
     "MAX_K",
+    "PROB_MAX_K",
+    "PROB_MIN_T",
     "pallas_backward",
+    "pallas_backward_prob",
+    "pallas_backward_prob_reference",
     "pallas_backward_reference",
+    "pallas_fb_prob",
+    "pallas_fb_prob_reference",
+    "pallas_fb_prob_split",
     "pallas_forward",
+    "pallas_forward_prob",
+    "pallas_forward_prob_reference",
     "pallas_forward_reference",
     "pallas_viterbi",
     "pallas_viterbi_reference",
+    "prob_supported",
     "scan_supported",
     "smallk_viterbi",
     "smallk_viterbi_reference",
@@ -159,18 +183,53 @@ __all__ = [
 ]
 
 
-def _sum_route(log_obs: torch.Tensor, log_a: torch.Tensor) -> str:
-    """The sum-recursion path of a problem off the CPU: ``"smallk"``
-    (K ≤ 32, static or time-varying), ``"scan"`` (33 ≤ K ≤ 1024, static)
-    or ``"plain"`` (no kernel in either package: ``core`` on the
-    tensors' device). The prob-space rows 10-12 will take 32 < K ≤ 128,
-    unragged, T ≥ 1024 from ``"scan"`` under the gate their port chooses."""
-    K = log_obs.shape[-1]
-    if fbsum_supported(K, log_obs.shape[0]):
+# From this many frames on, unragged problems with finite static
+# transitions take the prob-space kernels (the JAX package's
+# ``_PROB_FWD_MIN_T``).
+PROB_MIN_T = 1024
+
+
+def _sum_route(log_obs: torch.Tensor, log_a: torch.Tensor, lengths=None,
+               posteriors: bool = False) -> str:
+    """The sum-recursion path of a problem off the CPU:
+
+    * ``"prob"``: the prob-space rows 10-12, under the JAX package's gate
+      (``_prob_ok``): unragged, static ``(K, K)`` ``log_a`` with every
+      entry finite, T ≥ ``PROB_MIN_T``, 32 < K ≤ 128; with ``posteriors``
+      (``auto_forward_backward``) any K ≤ 128, as the reference takes
+      ``pallas_fb_prob`` there ahead of ``fbsum_smallk``. A ``-inf``
+      entry keeps the problem on rows 8/9 (or the small-K kernels): hard
+      zeros with mismatched emissions can underflow the scaled chain
+      within one rescale interval;
+    * ``"smallk"`` (K ≤ 32, static or time-varying);
+    * ``"scan"`` (33 ≤ K ≤ 1024, static);
+    * ``"plain"`` (no kernel in either package: ``core`` on the tensors'
+      device).
+
+    The finiteness test reads one flag back to the host: a device sync
+    per call that gets that far. The reference also admits a traced
+    ``log_a`` from T ≥ 4096 without inspecting it
+    (``_PROB_FWD_UNVERIFIED_MIN_T``); torch tensors are never traced, so
+    the port always inspects."""
+    B, T, K = log_obs.shape
+    static = log_a.ndim == 2
+    if (static and lengths is None and T >= PROB_MIN_T and prob_supported(K)
+            and (posteriors or K > MAX_SMALLK) and _finite(log_a)):
+        return "prob"
+    if fbsum_supported(K, B):
         return "smallk"
-    if log_a.ndim == 2 and scan_supported(K):
+    if static and scan_supported(K):
         return "scan"
     return "plain"
+
+
+def _finite(log_a: torch.Tensor) -> bool:
+    """Every transition finite: one flag read back to the host."""
+    return bool(torch.isfinite(log_a).all())
+
+
+def _records_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _f32(*tensors):
@@ -222,57 +281,68 @@ def _frame_posteriors(alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     return lg - core.logsumexp(lg, dim=-1, keepdim=True)
 
 
-def _big_k(log_obs: torch.Tensor) -> bool:
-    return log_obs.shape[-1] > MAX_SMALLK
-
-
 class _LogLikelihood(torch.autograd.Function):
     """``log Z (B,)`` with the closed-form posterior gradients
     (``∂ log Z/∂ log_obs = γ``, ``∂/∂ log_a = Σ_t ξ_t``,
-    ``∂/∂ log_pi = γ_0``), static transitions, unragged. Forward: the
-    D = 1 forward sum kernel (K ≤ 32) or ``pallas_forward``; backward:
-    the matching backward kernel, then ``γ`` and the ξ sum in plain
-    torch (XLA in the JAX package): ``core.fb.xi_expectations`` at
-    K ≤ 32, the product ``core.fb.xi_sum`` above. Both chains run on
-    max-shifted emissions (:func:`_frame_shift`), which the shift
-    cancels out of every posterior, and γ is normalized per frame
-    (:func:`_frame_posteriors`)."""
+    ``∂/∂ log_pi = γ_0``), static transitions, unragged, on the sum
+    ``route`` of :func:`_sum_route`. ``"prob"``: one ``pallas_fb_prob``
+    launch gives alpha and beta in the forward pass, as the JAX package's
+    VJP does in that envelope (the backward pass always needs beta), as
+    tables split from their per-frame shifts; ``"scan"``:
+    ``pallas_forward``, then ``pallas_backward`` in the backward pass;
+    ``"smallk"``: the D = 1 forward and backward sum kernels. Then ``γ``
+    and the ξ sum in plain torch (XLA in the JAX package):
+    ``core.fb.xi_expectations`` at K ≤ 32, the product ``core.fb.xi_sum``
+    above. The chains run on max-shifted emissions (:func:`_frame_shift`),
+    which the shift cancels out of every posterior, and γ is normalized
+    per frame (:func:`_frame_posteriors`)."""
 
     @staticmethod
-    def forward(ctx, log_obs, log_a, log_pi):
+    def forward(ctx, log_obs, log_a, log_pi, route):
         shift = _frame_shift(log_obs)
         lo_hat = (log_obs - shift).contiguous()
-        if _big_k(log_obs):
+        beta = ()
+        if route == "prob":
+            # Tables relative to per-frame constants, which the per-frame
+            # normalizations of γ and ξ never see (pallas_fb_prob_split).
+            alpha_hat, alpha_shift, beta_hat, _ = pallas_fb_prob_split(lo_hat, log_a, log_pi)
+            lz_hat = torch.logsumexp(alpha_hat[:, -1], dim=-1) + alpha_shift[:, -1]
+            beta = (beta_hat,)
+        elif route == "scan":
             alpha_hat, lz_hat = pallas_forward(lo_hat, log_a, log_pi)
         else:
             alpha_hat, lz_hat = hsmm_smallk_forward(lo_hat, log_a, log_pi,
                                                     _unit_durations(log_obs))
-        ctx.save_for_backward(lo_hat, log_a, alpha_hat, lz_hat)
+        ctx.route = route
+        ctx.save_for_backward(lo_hat, log_a, alpha_hat, lz_hat, *beta)
         return lz_hat + shift.sum(dim=(1, 2))
 
     @staticmethod
     def backward(ctx, g):
-        lo_hat, log_a, alpha_hat, lz_hat = ctx.saved_tensors
-        big = _big_k(lo_hat)
-        if big:
-            beta_hat = pallas_backward(lo_hat, log_a)
-        else:
+        lo_hat, log_a, alpha_hat, lz_hat, *beta = ctx.saved_tensors
+        small = ctx.route == "smallk"
+        if beta:
+            beta_hat = beta[0]
+        elif small:
             beta_hat = hsmm_smallk_backward(lo_hat, log_a, _unit_durations(lo_hat))[0]
+        else:
+            beta_hat = pallas_backward(lo_hat, log_a)
         log_gamma = _frame_posteriors(alpha_hat, beta_hat)
         d_log_obs = g[:, None, None] * torch.exp(log_gamma)
         d_log_pi = torch.sum(g[:, None] * torch.exp(log_gamma[:, 0]), dim=0)
-        if big:
-            d_log_a = core.fb.xi_sum(alpha_hat, beta_hat, lo_hat, log_a, weights=g)
-        else:
+        if small:
             lxi = core.fb.xi_expectations(alpha_hat, beta_hat, lo_hat, log_a, lz_hat)
             d_log_a = torch.sum(g[:, None, None] * torch.exp(lxi), dim=0)
-        return d_log_obs, d_log_a, d_log_pi
+        else:
+            d_log_a = core.fb.xi_sum(alpha_hat, beta_hat, lo_hat, log_a, weights=g)
+        return d_log_obs, d_log_a, d_log_pi, None
 
 
 class _FBLogLikelihood(torch.autograd.Function):
     """``log Z (B,)`` of ragged rows, time-varying ``(B, T, K, K)``
-    transitions, or both. K ≤ 32: ``fbsum_smallk`` gives alpha and beta
-    in one launch (the backward always needs beta); K > 32 (static):
+    transitions, or both, on the sum ``route`` of :func:`_sum_route`.
+    ``"smallk"``: ``fbsum_smallk`` gives alpha and beta in one launch
+    (the backward always needs beta); otherwise (K > 32, static):
     ``pallas_forward`` in the forward pass, ``pallas_backward`` in the
     backward, as the JAX package's ragged VJP does. The gradients are
     the posteriors of valid frames and of transitions that land inside
@@ -281,15 +351,16 @@ class _FBLogLikelihood(torch.autograd.Function):
     Max-shifted as :class:`_LogLikelihood` is."""
 
     @staticmethod
-    def forward(ctx, log_obs, log_a, log_pi, lengths):
+    def forward(ctx, log_obs, log_a, log_pi, lengths, route):
         shift = _frame_shift(log_obs, lengths)
         lo_hat = (log_obs - shift).contiguous()
-        if _big_k(log_obs):
-            alpha_hat, lz_hat = pallas_forward(lo_hat, log_a, log_pi, lengths)
-            ctx.save_for_backward(lo_hat, log_a, lengths, alpha_hat, lz_hat)
-        else:
+        ctx.small = route == "smallk"
+        if ctx.small:
             alpha_hat, beta_hat, lz_hat = fbsum_smallk(lo_hat, log_a, log_pi, lengths)
             ctx.save_for_backward(lo_hat, log_a, lengths, alpha_hat, lz_hat, beta_hat)
+        else:
+            alpha_hat, lz_hat = pallas_forward(lo_hat, log_a, log_pi, lengths)
+            ctx.save_for_backward(lo_hat, log_a, lengths, alpha_hat, lz_hat)
         return lz_hat + shift.sum(dim=(1, 2))
 
     @staticmethod
@@ -304,10 +375,10 @@ class _FBLogLikelihood(torch.autograd.Function):
             gamma = torch.where(_valid_frames(lengths, T)[..., None], gamma, 0.0)
         d_log_obs = g[:, None, None] * gamma
         d_log_pi = torch.sum(g[:, None] * torch.exp(log_gamma[:, 0]), dim=0)
-        if _big_k(lo_hat):
+        if not ctx.small:
             d_log_a = core.fb.xi_sum(alpha_hat, beta_hat, lo_hat, log_a, weights=g,
                                      lengths=lengths)
-            return d_log_obs, d_log_a, d_log_pi, None
+            return d_log_obs, d_log_a, d_log_pi, None, None
         lxi = (
             alpha_hat[:, :-1, :, None]
             + (log_a[:, 1:] if tv else log_a)
@@ -321,19 +392,23 @@ class _FBLogLikelihood(torch.autograd.Function):
             d_log_a = torch.cat([torch.zeros_like(xi[:, :1]), g[:, None, None, None] * xi], 1)
         else:
             d_log_a = torch.sum(g[:, None, None] * torch.sum(xi, dim=1), dim=0)
-        return d_log_obs, d_log_a, d_log_pi, None
+        return d_log_obs, d_log_a, d_log_pi, None, None
 
 
 def pallas_log_likelihood(log_obs, log_a, log_pi):
     """Differentiable sequence log-likelihood ``(B,)`` on the forward and
-    backward sum kernels (their plain versions on CPU tensors)."""
-    return _LogLikelihood.apply(log_obs, log_a, log_pi)
+    backward sum kernels of the problem's route (:func:`_sum_route`;
+    their plain versions on CPU tensors)."""
+    return _LogLikelihood.apply(log_obs, log_a, log_pi, _sum_route(log_obs, log_a))
 
 
-def _pallas_ll_masked(log_obs, log_a, log_pi, lengths):
+def _pallas_ll_masked(log_obs, log_a, log_pi, lengths, route=None):
     """Ragged or time-varying twin of :func:`pallas_log_likelihood`;
-    ``lengths`` is None or int32 ``(B,)`` on the tensors' device."""
-    return _FBLogLikelihood.apply(log_obs, log_a, log_pi, lengths)
+    ``lengths`` is None or int32 ``(B,)`` on the tensors' device;
+    ``route`` is :func:`_sum_route`'s unless given."""
+    if route is None:
+        route = _sum_route(log_obs, log_a, lengths)
+    return _FBLogLikelihood.apply(log_obs, log_a, log_pi, lengths, route)
 
 
 def auto_log_likelihood(
@@ -346,13 +421,21 @@ def auto_log_likelihood(
     posterior gradients off the CPU (:class:`_LogLikelihood` for static
     unragged problems, :class:`_FBLogLikelihood` for ragged or
     time-varying ones), autograd through the plain
-    ``core.log_likelihood`` scan on CPU and where no kernel exists."""
-    if log_obs.device.type == "cpu" or _sum_route(log_obs, log_a) == "plain":
+    ``core.log_likelihood`` scan on CPU and where no kernel exists. On
+    the prob route a call that records no gradient (grad mode off, or no
+    input requires one) runs ``pallas_forward_prob`` alone, as the JAX
+    package's primal does."""
+    if log_obs.device.type == "cpu":
+        return core.log_likelihood(log_obs, log_a, log_pi, lengths)
+    route = _sum_route(log_obs, log_a, lengths)
+    if route == "plain":
         return core.log_likelihood(log_obs, log_a, log_pi, lengths)
     args = _f32(log_obs, log_a, log_pi)
+    if route == "prob" and not _records_grad(log_obs, log_a, log_pi):
+        return pallas_forward_prob(*args)[1]
     if lengths is None and log_a.ndim == 2:
-        return pallas_log_likelihood(*args)
-    return _pallas_ll_masked(*args, _lengths_on(lengths, log_obs.device))
+        return _LogLikelihood.apply(*args, route)
+    return _pallas_ll_masked(*args, _lengths_on(lengths, log_obs.device), route)
 
 
 def auto_forward(
@@ -363,12 +446,15 @@ def auto_forward(
 ):
     """``(log_alpha, log_z)``: off the CPU the D = 1 forward sum kernel
     (K ≤ 32; for time-varying transitions alpha and log Z of one
-    ``fbsum_smallk`` launch) or ``pallas_forward`` (33 ≤ K ≤ 1024);
+    ``fbsum_smallk`` launch), ``pallas_forward_prob`` on the prob route
+    (:func:`_sum_route`) or ``pallas_forward`` (33 ≤ K ≤ 1024);
     ``core.forward_log`` on CPU and where no kernel exists. Past each
     row's end alpha holds its final valid value, as ``core`` freezes it."""
-    route = "plain" if log_obs.device.type == "cpu" else _sum_route(log_obs, log_a)
+    route = "plain" if log_obs.device.type == "cpu" else _sum_route(log_obs, log_a, lengths)
     if route == "plain":
         return core.forward_log(log_obs, log_a, log_pi, lengths)
+    if route == "prob":
+        return pallas_forward_prob(*_f32(log_obs, log_a, log_pi))
     ln = _lengths_on(lengths, log_obs.device)
     if route == "scan":
         return pallas_forward(*_f32(log_obs, log_a, log_pi), ln)
@@ -391,19 +477,32 @@ def _freeze_past_end(log_alpha: torch.Tensor, lengths: torch.Tensor) -> torch.Te
     return log_alpha.gather(1, idx[..., None].expand(B, T, K))
 
 
-def _shifted_forward_backward(log_obs, log_a, log_pi, lengths=None):
-    """Alpha and beta on max-shifted emissions (:func:`_frame_shift`):
-    one ``fbsum_smallk`` launch at K ≤ 32, ``pallas_forward`` and
-    ``pallas_backward`` above; the cumulative shift is re-added to alpha,
-    beta and log Z so the outputs stay raw."""
+def _shifted_forward_backward(log_obs, log_a, log_pi, lengths=None, route=None):
+    """Alpha and beta on max-shifted emissions (:func:`_frame_shift`) on
+    the posteriors' ``route`` (:func:`_sum_route` unless given): one
+    ``pallas_fb_prob`` launch on ``"prob"``, one ``fbsum_smallk`` launch
+    on ``"smallk"``, ``pallas_forward`` and ``pallas_backward`` on
+    ``"scan"``; the cumulative shift is re-added to alpha, beta and log Z
+    so the outputs stay raw. On ``"prob"`` the posteriors come from the
+    tables split from their per-frame shifts (``pallas_fb_prob_split``),
+    and the raw tables are their sums."""
+    if route is None:
+        route = _sum_route(log_obs, log_a, lengths, posteriors=True)
     shift = _frame_shift(log_obs, lengths)
     lo_hat = (log_obs - shift).contiguous()
-    if _big_k(log_obs):
-        alpha_hat, lz_hat = pallas_forward(lo_hat, log_a, log_pi, lengths)
-        beta_hat = pallas_backward(lo_hat, log_a, lengths)
+    if route == "prob":
+        alpha_rel, alpha_shift, beta_rel, beta_shift = pallas_fb_prob_split(lo_hat, log_a, log_pi)
+        log_gamma = _frame_posteriors(alpha_rel, beta_rel)
+        alpha_hat = alpha_rel.add_(alpha_shift[..., None])      # in place: 1 GB at T=131072
+        beta_hat = beta_rel.add_(beta_shift[..., None])
+        lz_hat = torch.logsumexp(alpha_hat[:, -1], dim=-1)
     else:
-        alpha_hat, beta_hat, lz_hat = fbsum_smallk(lo_hat, log_a, log_pi, lengths)
-    log_gamma = _frame_posteriors(alpha_hat, beta_hat)
+        if route == "scan":
+            alpha_hat, lz_hat = pallas_forward(lo_hat, log_a, log_pi, lengths)
+            beta_hat = pallas_backward(lo_hat, log_a, lengths)
+        else:
+            alpha_hat, beta_hat, lz_hat = fbsum_smallk(lo_hat, log_a, log_pi, lengths)
+        log_gamma = _frame_posteriors(alpha_hat, beta_hat)
     csh = torch.cumsum(shift, dim=1)                           # Σ_{u<=t} shift
     total = csh[:, -1]                                         # padded frames add 0
     log_alpha = alpha_hat + csh
@@ -419,15 +518,19 @@ def auto_forward_backward(
     lengths: Optional[torch.Tensor] = None,
 ):
     """``(log_gamma, log_alpha, log_beta, log_z)``: off the CPU the sum
-    kernels on max-shifted emissions (``fbsum_smallk`` at K ≤ 32, static
-    or time-varying; ``pallas_forward`` and ``pallas_backward`` at
+    kernels on max-shifted emissions (``pallas_fb_prob`` on the prob
+    route, any K ≤ 128; ``fbsum_smallk`` at K ≤ 32, static or
+    time-varying; ``pallas_forward`` and ``pallas_backward`` at
     33 ≤ K ≤ 1024, static), ``core.forward_backward`` on CPU and where
     no kernel exists. The posterior normalization matches ``core``
     exactly. No gradient: CUDA tensors that require one raise."""
-    if log_obs.device.type == "cpu" or _sum_route(log_obs, log_a) == "plain":
+    if log_obs.device.type == "cpu":
+        return core.forward_backward(log_obs, log_a, log_pi, lengths)
+    route = _sum_route(log_obs, log_a, lengths, posteriors=True)
+    if route == "plain":
         return core.forward_backward(log_obs, log_a, log_pi, lengths)
     return _shifted_forward_backward(*_f32(log_obs, log_a, log_pi),
-                                     _lengths_on(lengths, log_obs.device))
+                                     _lengths_on(lengths, log_obs.device), route)
 
 
 def auto_viterbi(

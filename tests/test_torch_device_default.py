@@ -3,6 +3,7 @@ unless the caller names another device: with no card, constructing on
 the default raises, as torch does, and never falls back to the CPU; with
 ``device="cpu"`` the draws are the CPU's, unchanged."""
 
+import functools
 import inspect
 
 import pytest
@@ -42,6 +43,9 @@ CONSTRUCTORS = {
     "HMMLayer": (HMMLayer, (3,)),
     "GaussianHMMLayer": (GaussianHMMLayer, (3, 2)),
     "HMM": (HMM, ([[0.5, 0.5], [0.5, 0.5]],)),
+    "GaussianHMMLayer full": (functools.partial(GaussianHMMLayer, covariance_type="full"), (3, 2)),
+    "MixtureGaussianHMMLayer full": (
+        functools.partial(MixtureGaussianHMMLayer, covariance_type="full"), (3, 2)),
 }
 
 

@@ -60,11 +60,18 @@ def test_gmm_log_probs_matches_jax(cov_type, cov_shape):
 
 
 def test_full_covariance_raises_not_implemented():
-    obs, means, _, logits = _inputs(3, (1,))
-    cov = torch.zeros(S, C, D * (D + 1) // 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.gmm_log_probs(torch.from_numpy(obs), torch.from_numpy(means), cov,
-                         torch.from_numpy(logits), "full")
+    """Full covariance, once refused, now scores as the JAX package does:
+    flattened Cholesky parameters ``(S, C, D(D+1)/2)`` through
+    ``tril_from_flat``, the inverse factors and the expanded quadratic
+    form (scores up to ~1e2 here: atol 1e-4, rtol 1e-5 as above; the
+    inverse factors differ in method, see tests/test_torch_fullcov.py).
+    An unknown covariance type still raises."""
+    obs, means, cov, logits = _inputs(3, (S, C, D * (D + 1) // 2))
+    cov[..., [i * (i + 1) // 2 + i for i in range(D)]] += 0.5413
+    jargs = [jnp.asarray(a) for a in (obs, means, cov, logits)]
+    targs = [torch.from_numpy(a) for a in (obs, means, cov, logits)]
+    _close(te.gmm_log_probs(*targs, "full"), je.gmm_log_probs(*jargs, "full"))
+    _close(te.gmm_component_log_probs(*targs[:3], "full"),
+           je.gmm_component_log_probs(*jargs[:3], "full"))
     with pytest.raises(ValueError, match="Unknown"):
-        te.gmm_log_probs(torch.from_numpy(obs), torch.from_numpy(means), cov,
-                         torch.from_numpy(logits), "banded")
+        te.gmm_log_probs(*targs, "banded")

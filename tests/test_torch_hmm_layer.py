@@ -286,8 +286,13 @@ def test_gaussian_layer_fixed_transitions_and_refusals():
     jl, tl = _gaussian_pair(12, learnable=False)
     assert "hmm_layer.transition_matrix" in dict(tl.named_buffers())
     assert set(bridge.gaussian_hmm_layer_numpy(tl)) == set(_flat(nnx.state(jl)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GaussianHMMLayer(4, 3, covariance_type="full", device="cpu")
+    # Full covariance, once refused: raw (K, D, D) log-scales, zeros (the
+    # identity factor) as in the JAX layer, carried by the same bridge.
+    jfull = JaxGaussian(4, 3, covariance_type="full", rngs=nnx.Rngs(0))
+    full = GaussianHMMLayer(4, 3, covariance_type="full", device="cpu")
+    assert full.log_scales.shape == (4, 3, 3) and not full.log_scales.any()
+    full.load_state_dict(bridge.gaussian_hmm_layer_state_dict(_flat(nnx.state(jfull))))
+    assert set(bridge.gaussian_hmm_layer_numpy(full)) == set(_flat(nnx.state(jfull)))
     with pytest.raises(ValueError, match="Unknown covariance_type"):
         GaussianHMMLayer(4, 3, covariance_type="tied", device="cpu")
     with pytest.raises(KeyError, match="not a GaussianHMMLayer weight"):

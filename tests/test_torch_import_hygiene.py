@@ -67,6 +67,30 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
     assert expected <= set(got["modules"])
 
 
+def test_port_exports_the_prob_chains_and_full_covariance_under_the_reference_names():
+    """The names the JAX package exports for rows 10-12 and for full
+    covariance, importable from the port without JAX."""
+    probe = (
+        "import sys\n"
+        "from pytorch_hmm_tpu_torch import ops, emissions\n"
+        "from pytorch_hmm_tpu_torch.ops import (pallas_backward_prob, pallas_fb_prob,\n"
+        "    pallas_forward_prob, prob_supported)\n"
+        "from pytorch_hmm_tpu_torch.emissions import (flat_dim, full_gaussian_log_probs,\n"
+        "    full_gaussian_log_probs_prepared, fullcov_mixture_log_probs_prepared,\n"
+        "    fullcov_prepare, tril_from_flat, tril_inverse)\n"
+        "import pytorch_hmm_tpu_torch as pkg\n"
+        "assert pkg.full_gaussian_log_probs is full_gaussian_log_probs\n"
+        "assert {'pallas_forward_prob', 'pallas_backward_prob', 'pallas_fb_prob'} <= set(ops.__all__)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'pytorch_hmm_tpu')]\n"
+    )
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                       timeout=300, env=env, cwd=repo_root)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_port_never_names_jax_in_its_sources():
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(repo_root, "pytorch_hmm_tpu_torch")
@@ -90,7 +114,7 @@ def test_port_never_names_jax_in_its_sources():
     wrappers = {"diag_quadratic": "emit.py", "emit_mlp": "emit_mlp.py", "smallk_viterbi": "smallk.py",
                 "smallk_sum": "hsmm_smallk.py", "hsmm_smallk": "hsmm_smallk.py",
                 "stream_greedy": "stream.py", "stream_beam": "stream_multi.py",
-                "scan_bigk": "scan.py", "fused_gmm": "fused.py"}
+                "scan_bigk": "scan.py", "scan_prob": "scan.py", "fused_gmm": "fused.py"}
     sources = {fn[:-3] for fn in os.listdir(os.path.join(pkg, "csrc")) if fn.endswith(".cu")}
     assert sources == set(wrappers)
     assert {os.path.join("ops", w) for w in wrappers.values()} <= seen

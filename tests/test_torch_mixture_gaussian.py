@@ -111,8 +111,16 @@ def test_generator_seeds_initialisation():
 
 
 def test_unported_and_unknown_covariances_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MixtureGaussianHMMLayer(S, D, C, covariance_type="full", device="cpu")
+    """Full covariance, once refused, builds as the JAX layer does (unit
+    initial variances through the softplus diagonal) and decodes as it
+    does; an unknown covariance type still raises."""
+    jl, tl = _pair("full", True)
+    np.testing.assert_array_equal(
+        MixtureGaussianHMMLayer(S, D, C, covariance_type="full", device="cpu").cov_params
+        .detach().numpy(), np.asarray(jl.cov_params[...]))
+    x = np.random.default_rng(5).normal(size=(B, T, D)).astype(np.float32)
+    _same_decode(tl(torch.from_numpy(x), return_log_probs=True),
+                 jl(jnp.asarray(x), return_log_probs=True))
     with pytest.raises(ValueError, match="Unknown covariance_type"):
         MixtureGaussianHMMLayer(S, D, C, covariance_type="banded", device="cpu")
 
