@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's GMM-HMM, duration-model, streaming,
-neural-HMM, general-K and long-sequence paths on one CUDA GPU.
+neural-HMM, general-K, long-sequence and CTC paths on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -98,23 +98,38 @@ T=131072, K=64) and full covariance at the width of two of its rows:
   against their CPU twins (posteriors, decode, the prepared decoder,
   ``compute_loss`` gradients in float64, Adam, ``em_step``);
 
+then CTC at the widths of the JAX bench's forced-alignment rows
+(``CTCAligner(40)`` at B=16, T=500, C=40, U=50; align also at B=4,
+T=2048, C=100, U=1000, the S=2001 lattice):
+
+* the lattice chains of ``csrc/ctc_lattice.cu`` (rows 20-23) against
+  their plain versions (both shapes, S=2047, ragged with a length-1 row,
+  empty targets and an infeasible row, repeated labels; Viterbi through
+  both rows where row 22's table fits, positions identical);
+* the loss and its gradient (rows 20 and 21 once each) against the CPU
+  twin in float64 and ``F.ctc_loss`` on the card, five Adam steps on the
+  logits, ``align`` (row 22 at S=101, row 23 at S=2001) identical to the
+  CPU, ``ctc_alignment_path`` against float64, greedy and beam decode
+  identical to the CPU;
+
 and times the kernels, a decode, a ``compute_loss`` step and an
 ``em_step`` of each path, a duration-model ``posteriors`` call, a
 streaming chunk, a fleet step, a PCM step, a NeuralHMM forward, decode
 and ``compute_loss`` step (static and contextual), the general-K and
 long-sequence entry points with CUDA events (rows 8-12 at T=4096 and
-131072, row 12 against ``fbsum_smallk`` at K=12), counts the launches of
+131072, row 12 against ``fbsum_smallk`` at K=12; rows 20-23 against
+``F.ctc_loss``), counts the launches of
 one call of each, profiles ten beam chunks, ten NeuralHMM forwards, ten
 calls each of a ``GaussianHMMLayer`` decode and ``compute_loss`` step
 and a fused ``MixtureGaussianHMMLayer`` decode, one long-context
-gradient call and three full-covariance calls, and times the prob gate's
-host read.
+gradient call, three full-covariance calls and three CTC loss steps, and
+times the prob gate's host read.
 
 Phases, one line each: card, build, each kernel vs plain, decode,
 training, duration-model decode, duration-model training, stream
 kernels, streaming serve, fleets, neural kernels, neural models,
 general-K kernels, general-K slice, prob-space kernels, long context,
-full covariance, timing.
+full covariance, CTC kernels, CTC slice, timing.
 Any failure exits non-zero
 before the last line. On success the last two lines are a JSON object
 describing each kernel (with its bound from this run's inputs) and
@@ -259,6 +274,27 @@ LONG_ATOL, LONG_RTOL = 0.05, 1e-6
 # ~1e3 in magnitude, where f32 rounding of a 1000-frame chain reaches
 # ~1e-2: rtol 1e-4.
 HMM_LL_RTOL = 1e-4
+# The CTC slice: the JAX bench's forced-alignment rows (bench.py:413-440:
+# B=16, T=500, C=40, U=50; bench.py:572-600: B=4, T=2048, C=100, U=1000, the
+# S=2001 lattice) with their data: full lengths, standard normal logits
+# through log_softmax, labels uniform over 1..C-1. CTCAligner takes the loss
+# and its gradient, Adam, align, the posterior path and both decodes at the
+# first shape, align at the second.
+CTC_SHAPES = {"headline": (16, 500, 40, 50), "S=2001": (4, 2048, 100, 1000)}
+CTC_BEAM = 4
+# Rows 20-23 against their plain versions, and the slice against its CPU
+# twin in float64: the JAX kernel tests' tolerances (tests/test_ops_ctc.py):
+# alpha / beta atol 5e-4 at valid cells above -1e29, the loss (and each
+# log-likelihood) rtol 1e-4 + atol 1e-3, Viterbi positions identical and
+# scores atol 1e-4; the loss gradient atol 1e-4 (the JAX test of its VJP).
+# Forced alignment and decodes against the CPU twin in float32: identical
+# (the trellis adds and compares only). The posterior path, an argmax of
+# f32 alpha + beta against float64, agrees on at least 99.9% of frames.
+CTC_ATOL = 5e-4
+CTC_LL_RTOL, CTC_LL_ATOL = 1e-4, 1e-3
+CTC_SCORE_ATOL = 1e-4
+CTC_GRAD_ATOL = 1e-4
+CTC_PATH_AGREE = 0.999
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
 # outside the tensor cores, the type every kernel here computes in.
 HBM_BYTES_PER_S = 3.35e12
@@ -341,7 +377,25 @@ KERNELS = {
         "source": "pytorch_hmm_tpu_torch/csrc/scan_prob.cu",
         "replaces": "pytorch_hmm_tpu/ops/scan.py:1452",
     },
+    "ctc_lattice_forward": {
+        "source": "pytorch_hmm_tpu_torch/csrc/ctc_lattice.cu",
+        "replaces": "pytorch_hmm_tpu/ops/ctc_kernel.py:1246",
+    },
+    "ctc_lattice_backward": {
+        "source": "pytorch_hmm_tpu_torch/csrc/ctc_lattice.cu",
+        "replaces": "pytorch_hmm_tpu/ops/ctc_kernel.py:1370",
+    },
+    "ctc_lattice_viterbi": {
+        "source": "pytorch_hmm_tpu_torch/csrc/ctc_lattice.cu",
+        "replaces": "pytorch_hmm_tpu/ops/ctc_kernel.py:1186",
+    },
+    "ctc_lattice_viterbi_wide": {
+        "source": "pytorch_hmm_tpu_torch/csrc/ctc_lattice.cu",
+        "replaces": "pytorch_hmm_tpu/ops/ctc_kernel.py:994",
+    },
 }
+CTC_KERNELS = ("ctc_lattice_forward", "ctc_lattice_backward", "ctc_lattice_viterbi",
+               "ctc_lattice_viterbi_wide")
 BIGK_KERNELS = ("pallas_forward", "pallas_backward", "pallas_viterbi", "fused_gmm_viterbi")
 PROB_KERNELS = ("pallas_forward_prob", "pallas_backward_prob", "pallas_fb_prob")
 # Entry points of the long-sequence slice profiled for their device-busy share.
@@ -2489,6 +2543,259 @@ def phase_long_timing(dev, gen, prob_inputs, long_out, full_out):
     return times, launches, prof, gate
 
 
+def _ctc_problem(dev, gen, b, t, c, u, in_lens=None, tgt_lens=None, repeats=False):
+    """``(log_probs (T, B, C), targets (B, U), input_lengths, target_lengths)``
+    on the card: standard normal logits through log_softmax, labels uniform
+    over 1..C-1 (``repeats``: each label twice in a row, so no skip between
+    them), full lengths unless given."""
+    import torch
+
+    logits = torch.randn(t, b, c, device=dev, generator=gen)
+    targets = torch.randint(1, c, (b, u), device=dev, generator=gen)
+    if repeats:
+        targets[:, 1::2] = targets[:, 0::2][:, : u // 2]
+    il = torch.full((b,), t, device=dev) if in_lens is None else torch.tensor(in_lens, device=dev)
+    tl = torch.full((b,), u, device=dev) if tgt_lens is None else torch.tensor(tgt_lens, device=dev)
+    return torch.log_softmax(logits, -1), targets, il, tl
+
+
+def _ctc_kernel_inputs(log_probs, targets, il, tl):
+    """The lattice kernels' inputs as ``alignment.ctc`` builds them, and
+    the mask of valid cells ``(B, T, S)``."""
+    import torch
+    from pytorch_hmm_tpu_torch.alignment import ctc
+
+    il, tl, _, skip_ok, valid, lp = ctc._lattice(log_probs, targets, il, tl, 0)
+    skip_add, vmask = ctc._masks(skip_ok, valid, lp.dtype)
+    skip_fwd, bT = ctc._backward_rows(skip_ok, tl, lp.dtype)
+    end1, end2 = ctc._ends(tl)
+    cells = valid[:, None, :] & (torch.arange(lp.shape[1], device=lp.device)[None, :, None]
+                                 < il[:, None, None])
+    return {"lp": lp, "skip_add": skip_add, "skip_fwd": ctc._masks(skip_fwd, valid, lp.dtype)[0],
+            "vmask": vmask, "a0": ctc._initial_row(lp, valid, tl), "bT": bT, "il": il,
+            "end1": end1, "end2": end2, "cells": cells}
+
+
+def _ctc_calls(k, reference=False):
+    """Each CTC kernel's call on the inputs ``k`` (or its plain version's)."""
+    from pytorch_hmm_tpu_torch import ops
+
+    fwd, bwd, vit, wide = ((ops.ctc_lattice_forward_reference, ops.ctc_lattice_backward_reference,
+                            ops.ctc_lattice_viterbi_reference, ops.ctc_lattice_viterbi_reference)
+                           if reference else (ops.ctc_lattice_forward, ops.ctc_lattice_backward,
+                                              ops.ctc_lattice_viterbi, ops.ctc_lattice_viterbi_wide))
+    vargs = (k["lp"], k["skip_add"], k["vmask"], k["a0"], k["il"], k["end1"], k["end2"])
+    return {
+        "ctc_lattice_forward": lambda: fwd(k["lp"], k["skip_add"], k["vmask"], k["a0"], k["il"]),
+        "ctc_lattice_backward": lambda: bwd(k["lp"], k["skip_fwd"], k["vmask"], k["bT"], k["il"]),
+        "ctc_lattice_viterbi": lambda: vit(*vargs),
+        "ctc_lattice_viterbi_wide": lambda: wide(*vargs),
+    }
+
+
+def phase_ctc_kernels(dev, gen):
+    """Rows 20-23 against their plain versions on the card: alpha and beta
+    at valid cells, Viterbi positions identical and scores, each Viterbi
+    case through both rows where row 22's table fits. Returns the max abs
+    errors per case and the kernels' inputs of the two slice shapes."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    cases = {
+        "headline": _ctc_problem(dev, gen, *CTC_SHAPES["headline"]),
+        "S=2001": _ctc_problem(dev, gen, *CTC_SHAPES["S=2001"]),
+        "S=2047": _ctc_problem(dev, gen, 2, 2100, 100, 1023),
+        # A length-1 row, zero-length targets, an infeasible row (60 frames
+        # for 2U+1 = 81) and one that fits exactly (81 frames).
+        "ragged": _ctc_problem(dev, gen, 8, 300, 30, 40, in_lens=[300, 1, 250, 60, 299, 81, 170, 2],
+                               tgt_lens=[40, 0, 33, 40, 12, 40, 1, 0]),
+        "repeats": _ctc_problem(dev, gen, 4, 200, 30, 30, repeats=True),
+    }
+    errs, inputs = {}, {}
+    for name, problem in cases.items():
+        k = _ctc_kernel_inputs(*problem)
+        B, T, S = k["lp"].shape
+        got, want = _ctc_calls(k), _ctc_calls(k, reference=True)
+        err = {}
+        for kern in ("ctc_lattice_forward", "ctc_lattice_backward"):
+            g, w = got[kern](), want[kern]()
+            torch.cuda.synchronize(dev)
+            check(not bool(torch.isnan(g).any()), f"{kern} {name}: NaN")
+            sel = k["cells"] & (w > -1e29)
+            err[kern] = (g - w)[sel].abs().max().item() if bool(sel.any()) else 0.0
+            check(err[kern] <= CTC_ATOL, f"{kern} {name}: max abs err {err[kern]} at valid cells")
+        pos0, score0 = want["ctc_lattice_viterbi"]()
+        vits = (["ctc_lattice_viterbi"] if ops.ctc_viterbi_kernel_supported(T, B, S) else []) + \
+            ["ctc_lattice_viterbi_wide"]
+        for kern in vits:
+            pos, score = got[kern]()
+            torch.cuda.synchronize(dev)
+            check(torch.equal(pos, pos0), f"{kern} {name}: positions differ from the plain version's")
+            err[kern] = (score - score0).abs().max().item()
+            check(err[kern] <= CTC_SCORE_ATOL, f"{kern} {name}: score err {err[kern]}")
+        errs[name] = err
+        if name in CTC_SHAPES:
+            inputs[name] = (k, problem)
+    return errs, inputs
+
+
+def phase_ctc_slice(dev):
+    """``CTCAligner`` at the JAX bench's widths through the entry points a
+    user calls, each launch-counted: the loss and its gradient (rows 20 and
+    21 once each) against the CPU twin in float64 and ``F.ctc_loss`` on the
+    card, five Adam steps on the logits, ``align`` at S=101 (row 22) and
+    S=2001 (row 23) identical to the CPU, ``ctc_alignment_path`` (rows 20
+    and 21) against float64, greedy and beam decode identical to the CPU."""
+    import torch
+    import torch.nn.functional as F
+    from pytorch_hmm_tpu_torch import CTCAligner, alignment
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    out = {"launches": {}, "errs": {}}
+
+    def run(tag, fn, want):
+        reset_launches()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        got = read_launches(CTC_KERNELS)
+        out["launches"][tag] = got
+        for kern in CTC_KERNELS:
+            check(got[kern] == want.get(kern, 0), f"{tag}: {kern} launched {got[kern]} times (all: {got})")
+        return res
+
+    b, t, c, u = CTC_SHAPES["headline"]
+    logits = torch.randn(t, b, c, device=dev, generator=gen)
+    targets = torch.randint(1, c, (b, u), device=dev, generator=gen)
+    il, tl = torch.full((b,), t, device=dev), torch.full((b,), u, device=dev)
+    host = [x.cpu() for x in (targets, il, tl)]
+    aligner, twin = CTCAligner(c), CTCAligner(c, device="cpu")
+    check(aligner.device.type == "cuda", "CTCAligner did not default to the card")
+    x = logits.clone().requires_grad_(True)
+
+    def loss_step():
+        x.grad = None
+        loss = aligner(torch.log_softmax(x, -1), targets, il, tl)
+        loss.backward()
+        return loss.detach()
+
+    loss = run("loss step", loss_step, {"ctc_lattice_forward": 1, "ctc_lattice_backward": 1})
+    x64 = logits.detach().cpu().double().requires_grad_(True)
+    loss64 = twin(torch.log_softmax(x64, -1), *host)
+    loss64.backward()
+    out["errs"]["loss vs float64"] = abs(loss.item() - loss64.item())
+    check(out["errs"]["loss vs float64"] <= CTC_LL_ATOL + CTC_LL_RTOL * abs(loss64.item()),
+          f"CTC loss {loss.item()} vs float64 {loss64.item()}")
+    out["errs"]["gradient vs float64"] = (x.grad.cpu().double() - x64.grad).abs().max().item()
+    check(out["errs"]["gradient vs float64"] <= CTC_GRAD_ATOL,
+          f"CTC gradient off float64 by {out['errs']['gradient vs float64']}")
+    y = logits.clone().requires_grad_(True)
+    lib = F.ctc_loss(torch.log_softmax(y, -1), targets, il, tl, reduction="mean")
+    lib.backward()
+    out["errs"]["loss vs F.ctc_loss"] = abs(loss.item() - lib.item())
+    out["errs"]["gradient vs F.ctc_loss"] = (x.grad - y.grad).abs().max().item()
+    check(out["errs"]["loss vs F.ctc_loss"] <= CTC_LL_ATOL + CTC_LL_RTOL * abs(lib.item())
+          and out["errs"]["gradient vs F.ctc_loss"] <= CTC_GRAD_ATOL,
+          f"CTC loss / gradient disagree with F.ctc_loss: {out['errs']}")
+
+    p = logits.clone().requires_grad_(True)
+    opt = torch.optim.Adam([p], lr=0.05)
+    out["losses"] = []
+    for _ in range(ADAM_STEPS):
+        opt.zero_grad()
+        step_loss = aligner(torch.log_softmax(p, -1), targets, il, tl)
+        step_loss.backward()
+        opt.step()
+        out["losses"].append(round(step_loss.item(), 4))
+    check(all(b_ < a_ for a_, b_ in zip(out["losses"], out["losses"][1:])),
+          f"CTC Adam losses not decreasing: {out['losses']}")
+
+    lp = torch.log_softmax(logits, -1)
+    got = run("align S=101", lambda: aligner.align(lp, targets, il, tl), {"ctc_lattice_viterbi": 1})
+    want = twin.align(lp.cpu(), *host)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), "align S=101 differs from the CPU")
+    check(all(alignment.ctc_decode_sequence(g.cpu()).tolist() == r.tolist()
+              for g, r in zip(got, host[0])), "align S=101 does not decode to its targets")
+
+    b2, t2, c2, u2 = CTC_SHAPES["S=2001"]
+    lp2 = torch.log_softmax(torch.randn(t2, b2, c2, device=dev, generator=gen), -1)
+    targets2 = torch.randint(1, c2, (b2, u2), device=dev, generator=gen)
+    il2, tl2 = torch.full((b2,), t2, device=dev), torch.full((b2,), u2, device=dev)
+    aligner2 = CTCAligner(c2)
+    got = run("align S=2001", lambda: aligner2.align(lp2, targets2, il2, tl2),
+              {"ctc_lattice_viterbi_wide": 1})
+    want = CTCAligner(c2, device="cpu").align(lp2.cpu(), targets2.cpu(), il2.cpu(), tl2.cpu())
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), "align S=2001 differs from the CPU")
+
+    paths = run("ctc_alignment_path", lambda: alignment.ctc_alignment_path(lp, targets, il, tl),
+                {"ctc_lattice_forward": 1, "ctc_lattice_backward": 1})
+    want = alignment.ctc_alignment_path(lp.cpu().double(), *host)
+    agree = sum(int((g.cpu() == w).sum()) for g, w in zip(paths, want)) / (b * t)
+    out["path agreement"] = agree
+    check(agree >= CTC_PATH_AGREE, f"ctc_alignment_path agrees with float64 on {agree} of frames")
+
+    for width in (1, CTC_BEAM):
+        tag = "decode greedy" if width == 1 else f"decode beam W={width}"
+        got = run(tag, lambda: aligner.decode(lp, il, width), {})
+        want = twin.decode(lp.cpu(), host[1], width)
+        check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), f"{tag} differs from the CPU")
+    out["calls"] = {
+        "loss step": loss_step,
+        "align S=101": lambda: aligner.align(lp, targets, il, tl),
+        "align S=2001": lambda: aligner2.align(lp2, targets2, il2, tl2),
+        "ctc_alignment_path": lambda: alignment.ctc_alignment_path(lp, targets, il, tl),
+        "decode greedy": lambda: aligner.decode(lp, il),
+        f"decode beam W={CTC_BEAM}": lambda: aligner.decode(lp, il, CTC_BEAM),
+    }
+    return out
+
+
+def phase_ctc_timing(dev, kernel_inputs, ctc):
+    """Rows 20-22 at the headline and rows 20, 21, 23 at S=2001 against
+    their plain versions, ``F.ctc_loss`` forward and backward at both, the
+    slice's entry points with their launches, and a profile of one loss
+    step. Returns ``(times, launches, profile)``."""
+    import torch
+    import torch.nn.functional as F
+
+    slow = dict(runs=3, warmup=1)
+    times = {}
+    for shape, (k, (log_probs, targets, il, tl)) in kernel_inputs.items():
+        got, plain = _ctc_calls(k), _ctc_calls(k, reference=True)
+        names = CTC_KERNELS[:2] + (CTC_KERNELS[2:] if shape == "headline" else CTC_KERNELS[3:])
+        for name in names:
+            times[f"{name} {shape}"] = (cuda_median_ms(got[name]), cuda_median_ms(plain[name], **slow))
+        x = log_probs.detach().clone().requires_grad_(True)
+        times[f"library F.ctc_loss forward {shape}"] = cuda_median_ms(
+            lambda: F.ctc_loss(x, targets, il, tl, reduction="sum"))
+        lib = F.ctc_loss(x, targets, il, tl, reduction="sum")
+        times[f"library F.ctc_loss backward {shape}"] = cuda_median_ms(
+            lambda: torch.autograd.grad(lib, x, retain_graph=True))
+    launches = {}
+    for name, fn in ctc["calls"].items():
+        times[name] = cuda_median_ms(fn, **(slow if name.startswith("decode beam") else {}))
+        reset_launches()
+        fn()
+        torch.cuda.synchronize(dev)
+        launches[f"CTC {name}"] = {k: v for k, v in read_launches(KERNELS).items() if v}
+    return times, launches, _profile(dev, ctc["calls"]["loss step"], n=3)
+
+
+def ctc_work(b, t, s):
+    """Bytes and float32 operations of rows 20-23 on ``b`` full-length rows
+    of ``t`` frames over an ``s``-position lattice: ``lp`` and the three
+    ``(B, S)`` rows and the lengths in; the table out (forward, backward),
+    or the positions and scores out (Viterbi, with the two end positions
+    in). Per cell the sum chains take the three-way logsumexp (two max,
+    three subtracts, three exps, two adds, a log and an add), the skip
+    mask, the emission and the validity mask: 14; the trellis two max,
+    three adds and two compares: 7."""
+    f, cells, rows = 4, b * t * s, b * s
+    sums = (f * (2 * cells + 3 * rows + b), 14 * cells)
+    vit = (f * (cells + 3 * rows + 3 * b + b * t + b), 7 * cells)
+    return {"ctc_lattice_forward": sums, "ctc_lattice_backward": sums,
+            "ctc_lattice_viterbi": vit, "ctc_lattice_viterbi_wide": vit}
+
+
 def prob_work(b, t, k):
     """Bytes and float32 operations of rows 10-12 at ``(b, t, k)``: log-obs,
     P and (forward) log_pi in, each table (and log Z) out; per frame and
@@ -2846,11 +3153,36 @@ def main() -> int:
           + f" (posteriors atol {BIGK_POST_ATOL}, loss rtol {LOSS_RTOL}, grad rtol "
           f"{BIGK_GRAD_RTOL}, EM rtol {BIGK_EM_RTOL})", flush=True)
 
+    t_ctc = time.perf_counter()
+    ctc_errs, ctc_inputs = phase_ctc_kernels(dev, gen)
+    print("ctc_lattice_forward / ctc_lattice_backward / ctc_lattice_viterbi(_wide) vs plain: ok on "
+          f"{len(ctc_errs)} cases (B, T, C, U: headline {CTC_SHAPES['headline']}, S=2001 "
+          f"{CTC_SHAPES['S=2001']}, S=2047 (2, 2100, 100, 1023), ragged with a length-1 row, empty "
+          "targets and an infeasible row, repeated labels; Viterbi through both rows where row 22 "
+          "fits, positions identical); max abs err "
+          + "; ".join(f"{k}: " + ", ".join(f"{n} {v:.3g}" for n, v in e.items())
+                      for k, e in ctc_errs.items())
+          + f" (alpha / beta atol {CTC_ATOL} at valid cells, scores atol {CTC_SCORE_ATOL})",
+          flush=True)
+    ctc = phase_ctc_slice(dev)
+    print(f"CTC slice (CTCAligner({CTC_SHAPES['headline'][2]}) at B, T, C, U = "
+          f"{CTC_SHAPES['headline']}; align also at {CTC_SHAPES['S=2001']}): ok, launches "
+          f"{ctc['launches']}, Adam losses {ctc['losses']}, posterior path agreement with float64 "
+          f"{ctc['path agreement']}; align and decodes identical to the CPU; "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in ctc["errs"].items())
+          + f" (loss atol {CTC_LL_ATOL} + rtol {CTC_LL_RTOL}, gradient atol {CTC_GRAD_ATOL}); "
+          f"CTC checks {time.perf_counter() - t_ctc:.1f} s", flush=True)
+
     times, launches_per_call = phase_timing(dev, gen, layer, obs, train, dur, dur_train)
     stimes, slaunches, prof, stream_inputs = phase_stream_timing(dev, gen)
     ntimes, nlaunches, nprof, neural_inputs = phase_neural_timing(dev, gen, neural)
     btimes, blaunches, bprof, bigk_inputs = phase_bigk_timing(dev, gen, bigk)
     ltimes, llaunches, lprof, gate = phase_long_timing(dev, gen, prob_inputs, long, full)
+    t_ctc = time.perf_counter()
+    ctimes, claunches, cprof = phase_ctc_timing(dev, ctc_inputs, ctc)
+    t_ctc = time.perf_counter() - t_ctc
+    times.update(ctimes)
+    launches_per_call.update(claunches)
     times.update(stimes)
     times.update(ntimes)
     times.update(btimes)
@@ -2860,6 +3192,15 @@ def main() -> int:
     launches_per_call.update(blaunches)
     launches_per_call.update(llaunches)
     bound = bounds(stream_inputs, neural_inputs, bigk_inputs, prob_inputs)
+    # Rows 20-22 at the headline, row 23 at S=2001: each at the shape its
+    # entry point runs it.
+    ctc_main = {name: "S=2001" if name == "ctc_lattice_viterbi_wide" else "headline"
+                for name in CTC_KERNELS}
+    ctc_bound = {shape: {n: _bound(*w) for n, w in ctc_work(*k["lp"].shape).items()}
+                 for shape, (k, _) in ctc_inputs.items()}
+    for name in CTC_KERNELS:
+        bound[name] = ctc_bound[ctc_main[name]][name]
+        times[name] = times[f"{name} {ctc_main[name]}"]
     for name in KERNELS:
         ms, plain = times[name]
         print(f"timing {name}: {ms:.4f} ms kernel, {plain:.4f} ms plain torch, bound "
@@ -2942,16 +3283,37 @@ def main() -> int:
           f"route decision {gate['route us']:.2f} us (host clock, 100 calls, idle stream) on "
           f"{card}", flush=True)
 
+    for shape in CTC_SHAPES:
+        kerns = [n for n in CTC_KERNELS if f"{n} {shape}" in times]
+        print(f"timing CTC kernels at {shape} (B, T, S = {tuple(ctc_inputs[shape][0]['lp'].shape)}): "
+              + ", ".join(f"{n} {times[f'{n} {shape}'][0]:.4f} ms (plain {times[f'{n} {shape}'][1]:.4f}, "
+                          f"bound {ctc_bound[shape][n][0]:.6f}, {ctc_bound[shape][n][1]})" for n in kerns)
+              + f"; library F.ctc_loss forward {times[f'library F.ctc_loss forward {shape}']:.4f} ms, "
+              f"backward {times[f'library F.ctc_loss backward {shape}']:.4f} ms (median, CUDA events) "
+              f"on {card}", flush=True)
+    for name in ctc["calls"]:
+        shape = CTC_SHAPES["S=2001" if name.endswith("S=2001") else "headline"]
+        what = "forward+backward" if "step" in name else "call"
+        print(f"timing CTC {name}: {times[name]:.4f} ms per {what} of {shape[0]}x{shape[1]} frames "
+              f"(median, CUDA events) on {card}", flush=True)
+    print(f"profile of 3 CTC loss steps (B={CTC_SHAPES['headline'][0]}, T={CTC_SHAPES['headline'][1]}): "
+          f"host wall {cprof['host_ms']:.4f} ms, device busy {cprof['device_ms']} ms, "
+          f"{cprof['kernels']} device ops per call, top {cprof['top_ms']} on {card}; CTC timing "
+          f"{t_ctc:.1f} s", flush=True)
+
     errs ={"diag_quadratic": dq_errs[(B, T, D, S * C)], "smallk_viterbi": vit_err, **sum_errs,
             **hsmm_errs, **stream_errs, "fused_gaussian_emission": emit_errs["headline"],
-            **scan_errs, "fused_gmm_viterbi": fused_err, **prob_errs}
+            **scan_errs, "fused_gmm_viterbi": fused_err, **prob_errs,
+            **{n: ctc_errs[ctc_main[n]][n] for n in CTC_KERNELS}}
     launches = {name: sum(run.get(name, 0) for run in (
         dec_launches, train["launches"], dur["launches"], dur_train["launches"],
         serve["beam"]["launches"], serve["greedy"]["launches"], fleets["launches"],
         *neural["launches"].values(), *bigk["launches"].values(),
-        *long["launches"].values(), *full["launches"].values()))
+        *long["launches"].values(), *full["launches"].values(), *ctc["launches"].values()))
         for name in KERNELS}
-    library = {"diag_quadratic": times["library diag_quadratic"]}
+    library = {"diag_quadratic": times["library diag_quadratic"],
+               "ctc_lattice_forward": times["library F.ctc_loss forward headline"],
+               "ctc_lattice_backward": times["library F.ctc_loss backward headline"]}
     time_varying = {name: {
         "launches": sum(run[name] for run in neural["tv_launches"].values()),
         "max_abs_err": tv_errs[name], "ms": times[f"{name} tv"][0],

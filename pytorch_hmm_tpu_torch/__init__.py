@@ -21,7 +21,9 @@ every model above 32 states, to 1024: the general-K forward, backward
 and Viterbi kernels, and the fused GMM decode) and long sequences (the
 prob-space forward, backward and fused forward-backward kernels at
 T ≥ 1024, K ≤ 128) and full-covariance Gaussian emissions in
-``GaussianHMMLayer`` and ``MixtureGaussianHMMLayer``. Models are built
+``GaussianHMMLayer`` and ``MixtureGaussianHMMLayer`` and CTC
+(``alignment``: ``CTCAligner`` loss, forced alignment and greedy / beam
+decode on the lattice forward, backward and Viterbi kernels). Models are built
 on the CUDA device unless ``device`` names another; on CPU tensors
 everything runs as plain torch.
 
@@ -32,7 +34,8 @@ from __future__ import annotations
 
 __version__ = "0.1.0"
 
-from . import bridge, core, durations, emissions, frontend, models, ops, precision, streaming, utils
+from . import alignment, bridge, core, durations, emissions, frontend, models, ops, precision, streaming, utils
+from .alignment import CTCAligner, CTCSegmentationAligner, ctc_alignment_path
 from .core import (
     backward_log,
     forward_backward,
@@ -94,6 +97,7 @@ from .streaming import (
 from .utils import create_left_to_right_matrix, create_transition_matrix
 
 __all__ = [
+    "alignment",
     "bridge",
     "core",
     "durations",
@@ -125,6 +129,9 @@ __all__ = [
     "gmm_log_probs",
     "spherical_gaussian_log_probs",
     "AdaptiveDurationHSMM",
+    "CTCAligner",
+    "CTCSegmentationAligner",
+    "ctc_alignment_path",
     "ContextualNeuralHMM",
     "DurationConstrainedHMM",
     "DurationModel",

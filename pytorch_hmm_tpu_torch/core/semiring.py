@@ -33,8 +33,21 @@ LOG_ZERO = -1e30
 
 
 def logsumexp(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
-    """``-inf``-safe logsumexp: a row of all ``-inf`` gives ``-inf``."""
-    return torch.logsumexp(x, dim=dim, keepdim=keepdim)
+    """``-inf``-safe logsumexp: a row of all ``-inf`` gives ``-inf``.
+
+    Max-shifted with a detached max, as the JAX package's: the gradient
+    is ``exp(x - m) / sum(exp(x - m))``, whose weights sum to 1 however
+    large ``|x|``. ``torch.logsumexp``'s backward weights ``exp(x - out)``
+    carry ``out``'s rounding, which at |log Z| ~ 1e4 (long f32 chains)
+    puts ~1e-3 into every gradient. A non-finite max (a row of ``-inf``)
+    shifts by 0; an empty ``dim`` gives ``-inf``.
+    """
+    if x.shape[dim] == 0:
+        return torch.logsumexp(x, dim=dim, keepdim=keepdim)
+    m = x.amax(dim=dim, keepdim=True).detach()
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    out = m + torch.log(torch.exp(x - m).sum(dim=dim, keepdim=True))
+    return out if keepdim else out.squeeze(dim)
 
 
 def log_matvec(v: torch.Tensor, log_a: torch.Tensor) -> torch.Tensor:

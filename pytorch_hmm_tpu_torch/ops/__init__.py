@@ -44,6 +44,12 @@ path, as the backend does in the JAX package:
   streams) run ``stream.greedy_chunk`` and ``stream_multi.beam_chunk_multi``.
   Larger shapes, which the JAX package sends to its XLA scan on every
   backend, run the plain versions on the tensors' own device.
+* The CTC lattice chains (``ctc_kernel``, called by ``alignment.ctc``):
+  CUDA tensors with S ≤ 2048 lattice positions and B ≤ 256 rows, at any
+  T, run ``ctc_lattice_forward`` / ``ctc_lattice_backward`` and
+  ``ctc_lattice_viterbi`` (choices resident) or
+  ``ctc_lattice_viterbi_wide`` (choices streamed); larger lattices run
+  the plain scans on the card.
 * CPU tensors run the plain torch versions (``core``).
 
 A shape a kernel takes never lands on a plain path because a build or
@@ -61,6 +67,18 @@ from typing import Optional
 import torch
 
 from .. import core
+from .ctc_kernel import (
+    ctc_lattice_backward,
+    ctc_lattice_backward_reference,
+    ctc_lattice_forward,
+    ctc_lattice_forward_reference,
+    ctc_lattice_supported,
+    ctc_lattice_viterbi,
+    ctc_lattice_viterbi_reference,
+    ctc_lattice_viterbi_wide,
+    ctc_viterbi_kernel_supported,
+    ctc_viterbi_wide_supported,
+)
 from .emit import diag_quadratic, diag_quadratic_reference
 from .emit_mlp import (
     fused_emission_supported,
@@ -114,6 +132,16 @@ from .stream import greedy_chunk, greedy_chunk_reference, stream_chunk_supported
 from .stream_multi import beam_chunk_multi, beam_chunk_multi_reference, multi_stream_supported
 
 __all__ = [
+    "ctc_lattice_backward",
+    "ctc_lattice_backward_reference",
+    "ctc_lattice_forward",
+    "ctc_lattice_forward_reference",
+    "ctc_lattice_supported",
+    "ctc_lattice_viterbi",
+    "ctc_lattice_viterbi_reference",
+    "ctc_lattice_viterbi_wide",
+    "ctc_viterbi_kernel_supported",
+    "ctc_viterbi_wide_supported",
     "auto_beam_chunk_multi",
     "auto_greedy_chunk",
     "beam_chunk_multi",

@@ -11,6 +11,8 @@ import torch
 
 from pytorch_hmm_tpu_torch import (
     AdaptiveDurationHSMM,
+    CTCAligner,
+    CTCSegmentationAligner,
     ContextualNeuralHMM,
     DeviceFramer,
     DurationConstrainedHMM,
@@ -46,10 +48,14 @@ CONSTRUCTORS = {
     "GaussianHMMLayer full": (functools.partial(GaussianHMMLayer, covariance_type="full"), (3, 2)),
     "MixtureGaussianHMMLayer full": (
         functools.partial(MixtureGaussianHMMLayer, covariance_type="full"), (3, 2)),
+    "CTCAligner": (CTCAligner, (40,)),
+    "CTCSegmentationAligner": (CTCSegmentationAligner, (40,)),
 }
 
 
 def _device_of(obj) -> torch.device:
+    if isinstance(obj, CTCAligner):   # no parameters: the device it moves its inputs to
+        return obj.device
     if isinstance(obj, torch.nn.Module):
         return next(obj.parameters()).device
     if isinstance(obj, HMM):

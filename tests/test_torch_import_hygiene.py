@@ -35,6 +35,8 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
     assert got["banned"] == []
     assert got["same_build"]
     expected = {
+        "pytorch_hmm_tpu_torch.alignment.ctc",
+        "pytorch_hmm_tpu_torch.alignment.ctc_decode",
         "pytorch_hmm_tpu_torch.bridge",
         "pytorch_hmm_tpu_torch.core.fb",
         "pytorch_hmm_tpu_torch.core.hsmm",
@@ -51,6 +53,7 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
         "pytorch_hmm_tpu_torch.models.neural",
         "pytorch_hmm_tpu_torch.models.semi_markov",
         "pytorch_hmm_tpu_torch.ops._build",
+        "pytorch_hmm_tpu_torch.ops.ctc_kernel",
         "pytorch_hmm_tpu_torch.ops.emit",
         "pytorch_hmm_tpu_torch.ops.emit_mlp",
         "pytorch_hmm_tpu_torch.ops.fbsum",
@@ -91,6 +94,33 @@ def test_port_exports_the_prob_chains_and_full_covariance_under_the_reference_na
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_port_exports_ctc_under_the_reference_names():
+    """The JAX package's CTC names (``alignment``, its package-level
+    exports, the lattice kernels' wrappers), importable from the port
+    without JAX."""
+    probe = (
+        "import sys\n"
+        "from pytorch_hmm_tpu_torch.alignment import (CTCAligner, CTCSegmentationAligner,\n"
+        "    beam_search_decode_batch, collapse_repeated_tokens, ctc_alignment_path,\n"
+        "    ctc_backward_algorithm, ctc_decode_sequence, ctc_forward_algorithm, ctc_loss,\n"
+        "    ctc_viterbi_alignment, expand_targets_with_blank, greedy_decode_batch,\n"
+        "    remove_ctc_blanks)\n"
+        "from pytorch_hmm_tpu_torch.ops import (ctc_lattice_backward, ctc_lattice_forward,\n"
+        "    ctc_lattice_supported, ctc_lattice_viterbi, ctc_lattice_viterbi_wide,\n"
+        "    ctc_viterbi_kernel_supported, ctc_viterbi_wide_supported)\n"
+        "import pytorch_hmm_tpu_torch as pkg\n"
+        "assert pkg.CTCAligner is CTCAligner and pkg.ctc_alignment_path is ctc_alignment_path\n"
+        "assert {'CTCAligner', 'CTCSegmentationAligner', 'ctc_alignment_path', 'alignment'} <= set(pkg.__all__)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'pytorch_hmm_tpu')]\n"
+    )
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                       timeout=300, env=env, cwd=repo_root)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_port_never_names_jax_in_its_sources():
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(repo_root, "pytorch_hmm_tpu_torch")
@@ -114,7 +144,8 @@ def test_port_never_names_jax_in_its_sources():
     wrappers = {"diag_quadratic": "emit.py", "emit_mlp": "emit_mlp.py", "smallk_viterbi": "smallk.py",
                 "smallk_sum": "hsmm_smallk.py", "hsmm_smallk": "hsmm_smallk.py",
                 "stream_greedy": "stream.py", "stream_beam": "stream_multi.py",
-                "scan_bigk": "scan.py", "scan_prob": "scan.py", "fused_gmm": "fused.py"}
+                "scan_bigk": "scan.py", "scan_prob": "scan.py", "fused_gmm": "fused.py",
+                "ctc_lattice": "ctc_kernel.py"}
     sources = {fn[:-3] for fn in os.listdir(os.path.join(pkg, "csrc")) if fn.endswith(".cu")}
     assert sources == set(wrappers)
     assert {os.path.join("ops", w) for w in wrappers.values()} <= seen
