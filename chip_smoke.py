@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's GMM-HMM, duration-model, streaming,
-neural-HMM, general-K, long-sequence and CTC paths on one CUDA GPU.
+neural-HMM, general-K, long-sequence, CTC, DTW and large-state scoring
+paths on one CUDA GPU.
 
     python3 chip_smoke.py
 
@@ -112,13 +113,30 @@ T=2048, C=100, U=1000, the S=2001 lattice):
   CPU, ``ctc_alignment_path`` against float64, greedy and beam decode
   identical to the CPU;
 
+then DTW at the width of the JAX bench's DTW row (two standard normal
+(500, 80) feature sequences, euclidean distances) and large-state scoring
+at its K=512 row (B=48, T=2048) and at K=1024 (B=16):
+
+* the wavefront-and-backtrace kernel of ``csrc/dtw.cu`` (row 19) against
+  its plain version, bit for bit (500x500 in the three patterns, a
+  Sakoe-Chiba band, 1x1, 1x300, 300x1, 37x23, 130x40, forced ties, and
+  2000x1800 with the choices in device memory);
+* ``DTWAligner`` on one pair and a batch of 4, ``ConstrainedDTWAligner``,
+  ``dtw_distance`` and ``phoneme_audio_alignment`` (row 19 once a pair,
+  the plain wavefront never), each identical to the CPU's plain path on
+  the card's distances; ``soft_dtw_alignment`` at 64x64 against the CPU;
+* the bf16 tensor-core chain of ``csrc/bigk_scoring.cu`` (row 15) against
+  its plain version (both shapes, B and K off its tiles, K=12) and two
+  shapes against float64; ``ops.bigk_log_likelihood`` launching row 15
+  once a call, and ``pallas_forward`` instead at T=2000;
+
 and times the kernels, a decode, a ``compute_loss`` step and an
 ``em_step`` of each path, a duration-model ``posteriors`` call, a
 streaming chunk, a fleet step, a PCM step, a NeuralHMM forward, decode
 and ``compute_loss`` step (static and contextual), the general-K and
 long-sequence entry points with CUDA events (rows 8-12 at T=4096 and
 131072, row 12 against ``fbsum_smallk`` at K=12; rows 20-23 against
-``F.ctc_loss``), counts the launches of
+``F.ctc_loss``; rows 19 and 15 and the DTW entry points), counts the launches of
 one call of each, profiles ten beam chunks, ten NeuralHMM forwards, ten
 calls each of a ``GaussianHMMLayer`` decode and ``compute_loss`` step
 and a fused ``MixtureGaussianHMMLayer`` decode, one long-context
@@ -129,7 +147,8 @@ Phases, one line each: card, build, each kernel vs plain, decode,
 training, duration-model decode, duration-model training, stream
 kernels, streaming serve, fleets, neural kernels, neural models,
 general-K kernels, general-K slice, prob-space kernels, long context,
-full covariance, CTC kernels, CTC slice, timing.
+full covariance, CTC kernels, CTC slice, DTW kernel, DTW slice, scoring
+kernel, scoring, timing.
 Any failure exits non-zero
 before the last line. On success the last two lines are a JSON object
 describing each kernel (with its bound from this run's inputs) and
@@ -238,8 +257,8 @@ FUSED_AGREE, FUSED_RTOL, FUSED_ATOL = 0.999, 1e-4, 5e-3
 # and gradients / EM parameters within 5e-3 of each tensor's largest
 # entry (f32 prob-space chains on max-shifted emissions, sums over 32,000
 # frames), as for the duration and neural models.
-BIGK_POST_ATOL = 5e-3
-BIGK_GRAD_RTOL = BIGK_EM_RTOL = 5e-3
+GENK_POST_ATOL = 5e-3
+GENK_GRAD_RTOL = GENK_EM_RTOL = 5e-3
 # The long-sequence slice: the JAX bench's long-context rows
 # (bench.py:493-537: B=32, T=131072, K=64) through ops.auto_forward and the
 # gradient of ops.auto_log_likelihood; the prob-space chains against their
@@ -295,10 +314,36 @@ CTC_LL_RTOL, CTC_LL_ATOL = 1e-4, 1e-3
 CTC_SCORE_ATOL = 1e-4
 CTC_GRAD_ATOL = 1e-4
 CTC_PATH_AGREE = 0.999
+# The DTW slice: the JAX bench's DTW row (bench.py:442-466): standard normal
+# (500, 80) features, euclidean distances, the symmetric pattern; a batch of 4
+# pairs, a Sakoe-Chiba band of 10, 40 phonemes over the 500 frames (cosine),
+# soft-DTW at 64x64.
+DTW_N, DTW_D, DTW_BATCH, DTW_BAND, DTW_PHONEMES, DTW_SOFT = 500, 80, 4, 10, 40, 64
+# Row 19 against its plain version: identical (adds and compares only). The
+# card's distances against the CPU's: atol 1e-4 + rtol 1e-5 (a float32
+# product of 80 terms summed in another order; distances up to ~20).
+# Soft-DTW against the CPU: the expected alignment atol 1e-4, the cost rtol
+# 1e-5 (float32 logsumexp chains of 127 steps whose exp and log round in
+# other last bits).
+DTW_DIST_ATOL, DTW_DIST_RTOL = 1e-4, 1e-5
+DTW_SOFT_ATOL, DTW_SOFT_RTOL = 1e-4, 1e-5
+# Row 15: the JAX bench's large-state row (bench.py:542-570: B=48, T=2048,
+# K=512, its data) and K=1024, the top of the envelope, at B=16, T=2048.
+# Against its plain version: atol 0.05 + rtol 1e-4. Both round q to bf16
+# each frame, but the tensor cores sum a frame's products in another order
+# than the plain matmul, which can move a rounding of q by one bf16 unit
+# (~2e-3 of a state's mass) that the chain then carries. Against float64
+# core.log_likelihood on 4 rows: atol 0.05 + rtol 1e-3, the JAX kernel
+# test's scoring tolerance (tests/test_ops_bigk.py).
+BIGK_SHAPES = {"K=512": (48, 2048, 512), "K=1024": (16, 2048, 1024)}
+BIGK_ATOL, BIGK_PLAIN_RTOL, BIGK_RTOL = 0.05, 1e-4, 1e-3
+BIGK_F64_ROWS = 4
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
-# outside the tensor cores, the type every kernel here computes in.
+# outside the tensor cores, the type every kernel but row 15 computes in; bf16
+# on the tensor cores (dense), row 15's products.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 KERNELS = {
     "diag_quadratic": {
@@ -393,10 +438,19 @@ KERNELS = {
         "source": "pytorch_hmm_tpu_torch/csrc/ctc_lattice.cu",
         "replaces": "pytorch_hmm_tpu/ops/ctc_kernel.py:994",
     },
+    "pallas_dtw": {
+        "source": "pytorch_hmm_tpu_torch/csrc/dtw.cu",
+        "replaces": "pytorch_hmm_tpu/ops/dtw.py:142",
+    },
+    "bigk_log_likelihood": {
+        "source": "pytorch_hmm_tpu_torch/csrc/bigk_scoring.cu",
+        "replaces": "pytorch_hmm_tpu/ops/bigk.py:230",
+    },
 }
 CTC_KERNELS = ("ctc_lattice_forward", "ctc_lattice_backward", "ctc_lattice_viterbi",
                "ctc_lattice_viterbi_wide")
-BIGK_KERNELS = ("pallas_forward", "pallas_backward", "pallas_viterbi", "fused_gmm_viterbi")
+# The general-K kernels (rows 8, 9, 13, 14); "bigk" names row 15 alone.
+GENK_KERNELS = ("pallas_forward", "pallas_backward", "pallas_viterbi", "fused_gmm_viterbi")
 PROB_KERNELS = ("pallas_forward_prob", "pallas_backward_prob", "pallas_fb_prob")
 # Entry points of the long-sequence slice profiled for their device-busy share.
 LONG_PROFILED = ("long-context gradient", "GaussianHMMLayer full decode",
@@ -404,7 +458,7 @@ LONG_PROFILED = ("long-context gradient", "GaussianHMMLayer full decode",
 # The sum chains whose launches the long-context and gate checks count.
 CHAIN_KERNELS = ("pallas_forward", "pallas_backward", *PROB_KERNELS)
 # General-K entry points profiled for their device-busy share.
-BIGK_PROFILED = ("GaussianHMMLayer decode", "GaussianHMMLayer compute_loss step",
+GENK_PROFILED = ("GaussianHMMLayer decode", "GaussianHMMLayer compute_loss step",
                  "MixtureGaussianHMMLayer C=2 decode")
 # Kernels with a time-varying (B, T, K, K) mode, counted apart as well.
 TIME_VARYING = ("smallk_viterbi", "fbsum_smallk")
@@ -1860,7 +1914,7 @@ def _max_rel(got, want) -> float:
     return ((got.double().cpu() - want).abs() / want.abs()).max().item()
 
 
-def phase_bigk_slice(dev):
+def phase_genk_slice(dev):
     """The K=64 slice against its CPU twins: GaussianHMMLayer(64, 80)
     (train-mode posteriors, compute_loss gradients in float64, five Adam
     steps, eval decode), HMMLayer(64), HMM at K=64, and
@@ -1883,7 +1937,7 @@ def phase_bigk_slice(dev):
         for (name, p), (_, q) in zip(model.named_parameters(), ref.named_parameters()):
             check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
                   f"{tag}: gradient of {name} missing or not finite")
-            bound(f"{tag} d{name}", _grad_err(p.grad.cpu(), q.grad), BIGK_GRAD_RTOL)
+            bound(f"{tag} d{name}", _grad_err(p.grad.cpu(), q.grad), GENK_GRAD_RTOL)
 
     def launched(tag, names):
         torch.cuda.synchronize(dev)
@@ -1905,7 +1959,7 @@ def phase_bigk_slice(dev):
         post64 = twin64(obs64)
     check(bool(torch.isfinite(post).all()) and post.shape == (B, T, GK), "posteriors not finite")
     bound("GaussianHMMLayer posteriors", (post.cpu().double() - post64).abs().max().item(),
-          BIGK_POST_ATOL)
+          GENK_POST_ATOL)
     must_raise(NotImplementedError, lambda: layer(obs), "train-mode posteriors under autograd")
     reset_launches()
     layer.zero_grad()
@@ -1963,7 +2017,7 @@ def phase_bigk_slice(dev):
     launched("HMMLayer", ("pallas_forward", "pallas_backward"))
     with torch.no_grad():
         bound("HMMLayer posteriors", (hpost.cpu().double() - hl64(scores.cpu().double())).abs()
-              .max().item(), BIGK_POST_ATOL)
+              .max().item(), GENK_POST_ATOL)
     ref = hl64.compute_loss(scores.cpu().double())
     ref.backward()
     bound("HMMLayer loss", abs(hloss.item() - ref.item()) / abs(ref.item()), LOSS_RTOL)
@@ -1995,7 +2049,7 @@ def phase_bigk_slice(dev):
     launched("HMM", ("pallas_forward", "pallas_backward", "pallas_viterbi"))
     p64 = probs.cpu().double()
     bound("HMM posteriors", (gamma.cpu().double() - hmm64.forward_backward(p64)[0]).abs().max()
-          .item(), BIGK_POST_ATOL)
+          .item(), GENK_POST_ATOL)
     bound("HMM log-likelihood", _max_rel(ll, hmm64.compute_likelihood(p64)), HMM_LL_RTOL)
     rs, rsc = hmm32.viterbi_decode(probs.cpu())
     out["agreement"]["HMM"] = (vs.cpu() == rs).float().mean().item()
@@ -2052,18 +2106,18 @@ def phase_bigk_slice(dev):
             check(bool(torch.isfinite(p).all()), f"{tag} em_step: {name} not finite")
             if name.endswith("_logits"):
                 p, q = torch.softmax(p, -1), torch.softmax(q, -1)
-            bound(f"{tag} em {name}", _grad_err(p, q), BIGK_EM_RTOL)
+            bound(f"{tag} em {name}", _grad_err(p, q), GENK_EM_RTOL)
         out[f"gmm C={c}"] = gmm
     out["gobs"] = gobs
     check(not fails, "general-K slice vs CPU: " + "; ".join(fails) + f" (all: {out['errs']})")
     return out
 
 
-def phase_bigk_timing(dev, gen, slice_out):
+def phase_genk_timing(dev, gen, slice_out):
     """Rows 8, 9, 13 and 14 against their plain versions at the slice's
     width, the chains at K=256 and 1024 as well; the slice's entry
     points; launches per call. Returns ``(times, launches, profiles of the
-    BIGK_PROFILED calls, inputs)``."""
+    GENK_PROFILED calls, inputs)``."""
     import torch
     from pytorch_hmm_tpu_torch import ops
 
@@ -2121,7 +2175,7 @@ def phase_bigk_timing(dev, gen, slice_out):
         fn()
         torch.cuda.synchronize(dev)
         launches[name] = {k: v for k, v in read_launches(KERNELS).items() if v}
-    profiles = {name: _profile(dev, calls[name]) for name in BIGK_PROFILED}
+    profiles = {name: _profile(dev, calls[name]) for name in GENK_PROFILED}
     return times, launches, profiles, {"scan": (lo, la, lp), "gmm": gmm_in}
 
 
@@ -2208,7 +2262,7 @@ def phase_prob_kernels(dev, gen):
     f_alpha, f_beta, _ = ops.pallas_fb_prob(lo, la, lp)
     g64 = torch.exp(core.forward_backward(lo.double(), la.double(), lp.double())[0])
     l2r_err = (torch.softmax(f_alpha + f_beta, -1).double() - g64).abs().max().item()
-    check(l2r_err <= BIGK_POST_ATOL, f"left-to-right posteriors off float64 by {l2r_err}")
+    check(l2r_err <= GENK_POST_ATOL, f"left-to-right posteriors off float64 by {l2r_err}")
     return worst, worst_split, l2r_err, list(cases), cases["headline"][:3]
 
 
@@ -2278,11 +2332,11 @@ def phase_long_context(dev):
               f"(atol {LONG_ATOL} + rtol {LONG_RTOL} of |{ref.abs().max().item():.6g}|)")
     del a64, b64
     out["errs"]["posteriors"] = (post.double() - g64).abs().max().item()
-    check(out["errs"]["posteriors"] <= BIGK_POST_ATOL,
+    check(out["errs"]["posteriors"] <= GENK_POST_ATOL,
           f"long-context posteriors off float64 by {out['errs']['posteriors']}")
     for name, g, w in zip(("dlog_obs", "dlog_a", "dlog_pi"), _ll_grads(sub, la, lp)[1], want):
         out["errs"][name] = _grad_err(g, w)
-        check(out["errs"][name] <= BIGK_GRAD_RTOL,
+        check(out["errs"][name] <= GENK_GRAD_RTOL,
               f"long-context {name} off float64 by {out['errs'][name]:.3g} of its max")
     # The gate: a -inf transition, and one frame short of the envelope.
     la_inf = la.clone()
@@ -2322,7 +2376,7 @@ def phase_fullcov(dev):
         for (name, p), (_, q) in zip(model.named_parameters(), ref.named_parameters()):
             check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
                   f"{tag}: gradient of {name} missing or not finite")
-            bound(f"{tag} d{name}", _grad_err(p.grad.cpu(), q.grad), BIGK_GRAD_RTOL)
+            bound(f"{tag} d{name}", _grad_err(p.grad.cpu(), q.grad), GENK_GRAD_RTOL)
 
     def launched(tag, names, absent=()):
         torch.cuda.synchronize(dev)
@@ -2357,7 +2411,7 @@ def phase_fullcov(dev):
     with torch.no_grad():
         post64 = twin64(sub.cpu().double())
     bound("GaussianHMMLayer full posteriors",
-          (post[:FULL_SUB].cpu().double() - post64).abs().max().item(), BIGK_POST_ATOL)
+          (post[:FULL_SUB].cpu().double() - post64).abs().max().item(), GENK_POST_ATOL)
     reset_launches()
     layer.zero_grad()
     layer.compute_loss(obs).backward()
@@ -2445,7 +2499,7 @@ def phase_fullcov(dev):
         check(bool(torch.isfinite(p).all()), f"full em_step: {name} not finite")
         if name.endswith("_logits"):
             p, q = torch.softmax(p, -1), torch.softmax(q, -1)
-        bound(f"MixtureGaussianHMMLayer full em {name}", _grad_err(p, q), BIGK_EM_RTOL)
+        bound(f"MixtureGaussianHMMLayer full em {name}", _grad_err(p, q), GENK_EM_RTOL)
     long_obs = gobs.repeat(1, -(-FULL_T // T), 1)[:, :FULL_T].contiguous()
     reset_launches()
     check(math.isfinite(em.em_step(long_obs).item()), "full em_step at T=2048: not finite")
@@ -2780,6 +2834,254 @@ def phase_ctc_timing(dev, kernel_inputs, ctc):
     return times, launches, _profile(dev, ctc["calls"]["loss step"], n=3)
 
 
+def _dtw_features(dev, gen, n):
+    """``(n, DTW_D)`` standard normal features on the card."""
+    import torch
+
+    return torch.randn(n, DTW_D, device=dev, generator=gen)
+
+
+def phase_dtw_kernel(dev, gen):
+    """Row 19 against its plain version on the card, bit for bit (paths,
+    length, cost): the JAX bench's 500x500 at D=80 in all three patterns,
+    a ``ConstrainedDTWAligner`` band, the edge shapes, an integer matrix
+    with forced ties, and a shape past the shared-memory table (the choices
+    in device memory). Returns the max abs cost error, the case names and
+    the 500x500 distance matrix."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+    from pytorch_hmm_tpu_torch.alignment import dtw as tdtw
+
+    def dist(n, m):
+        return tdtw.compute_distance_matrix(_dtw_features(dev, gen, n), _dtw_features(dev, gen, m))
+
+    d500 = dist(DTW_N, DTW_N)
+    cases = {f"{DTW_N}x{DTW_N} {p}": (d500, p) for p in ("symmetric", "asymmetric", "rabiner_juang")}
+    cases[f"band={DTW_BAND}"] = (tdtw._bandwidth_mask(d500, DTW_BAND), "symmetric")
+    for n, m in ((1, 1), (1, 300), (300, 1), (37, 23), (130, 40)):
+        cases[f"{n}x{m}"] = (dist(n, m), "rabiner_juang" if n == 37 else "symmetric")
+    cases["ties 200x150"] = (torch.randint(0, 3, (200, 150), device=dev, generator=gen).float(),
+                             "symmetric")
+    cases["2000x1800 device table"] = (dist(2000, 1800), "symmetric")
+    err = 0.0
+    for name, (d, pattern) in cases.items():
+        got = ops.pallas_dtw(d, pattern)
+        want = ops.pallas_dtw_reference(d, pattern)
+        torch.cuda.synchronize(dev)
+        for what, g, w in zip(("path_i", "path_j", "length"), got, want):
+            check(torch.equal(g, w), f"pallas_dtw {name}: {what} differs from the plain version's")
+        check(got[3].item() == want[3].item(),
+              f"pallas_dtw {name}: cost {got[3].item()} vs plain {want[3].item()}")
+        err = max(err, abs(got[3].item() - want[3].item()))
+    return err, list(cases), d500
+
+
+def phase_dtw_slice(dev):
+    """The DTW entry points a user calls, at the JAX bench's width
+    (standard normal (500, 80) features, euclidean): ``DTWAligner`` on one
+    pair and on a batch of 4, ``ConstrainedDTWAligner(bandwidth=10)``,
+    ``dtw_distance``, ``phoneme_audio_alignment`` (40 phonemes, 500 frames,
+    cosine), each launching row 19 once per pair and never the plain
+    wavefront; against the CPU twin: the distance matrices within
+    tolerance, and the card's distances through the CPU's plain path
+    identical. ``soft_dtw_alignment`` at 64x64 against the CPU."""
+    from unittest import mock
+
+    import torch
+    from pytorch_hmm_tpu_torch import ConstrainedDTWAligner, DTWAligner, alignment
+    from pytorch_hmm_tpu_torch.alignment import dtw as tdtw
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    out = {"launches": {}, "errs": {"distances": 0.0}}
+
+    def run(tag, fn, pairs):
+        reset_launches()
+        with mock.patch.object(tdtw, "_dtw_wavefront", wraps=tdtw._dtw_wavefront) as plain:
+            res = fn()
+            torch.cuda.synchronize(dev)
+        got = read_launches(("pallas_dtw", "bigk_log_likelihood"))
+        out["launches"][tag] = got
+        check(got["pallas_dtw"] == pairs and got["bigk_log_likelihood"] == 0,
+              f"{tag}: pallas_dtw launched {got['pallas_dtw']} times for {pairs} pairs")
+        check(plain.call_count == 0, f"{tag}: the plain wavefront ran {plain.call_count} times")
+        return res
+
+    def same_as_cpu(tag, got, x, y, metric="euclidean", band=None):
+        """The card's distances within tolerance of the CPU's, and its path
+        and cost equal the CPU plain path's on the card's distances."""
+        d = tdtw.compute_distance_matrix(x, y, metric)
+        d_cpu = tdtw.compute_distance_matrix(x.cpu(), y.cpu(), metric)
+        err = (d.cpu() - d_cpu).abs().max().item()
+        check(err <= DTW_DIST_ATOL + DTW_DIST_RTOL * d_cpu.abs().max().item(),
+              f"{tag}: distances off the CPU's by {err}")
+        out["errs"]["distances"] = max(out["errs"]["distances"], err)
+        if band is not None:
+            d = tdtw._bandwidth_mask(d, band)
+        pi, pj, length, cost = tdtw.dtw_path_padded(d.cpu())
+        n_pad = pi.shape[0] - int(length)
+        check(torch.equal(got[0].cpu(), pi[n_pad:]) and torch.equal(got[1].cpu(), pj[n_pad:])
+              and got[2].item() == cost.item(), f"{tag}: differs from the CPU plain path")
+
+    x, y = _dtw_features(dev, gen, DTW_N), _dtw_features(dev, gen, DTW_N)
+    aligner = DTWAligner()
+    check(aligner.device.type == "cuda", "DTWAligner did not default to the card")
+    pair = run("DTWAligner pair", lambda: aligner(x, y), 1)
+    same_as_cpu("DTWAligner pair", pair, x, y)
+
+    xb = torch.randn(DTW_BATCH, DTW_N, DTW_D, device=dev, generator=gen)
+    yb = torch.randn(DTW_BATCH, DTW_N, DTW_D, device=dev, generator=gen)
+    paths_i, paths_j, costs = run(f"DTWAligner batch of {DTW_BATCH}", lambda: aligner(xb, yb),
+                                  DTW_BATCH)
+    for b in range(DTW_BATCH):
+        same_as_cpu(f"DTWAligner batch row {b}", (paths_i[b], paths_j[b], costs[b]), xb[b], yb[b])
+
+    band = ConstrainedDTWAligner(bandwidth=DTW_BAND)
+    got = run(f"ConstrainedDTWAligner(bandwidth={DTW_BAND})", lambda: band(x, y), 1)
+    same_as_cpu("ConstrainedDTWAligner", got, x, y, band=DTW_BAND)
+
+    cost = run("dtw_distance", lambda: alignment.dtw_distance(x, y), 1)
+    check(cost.item() == pair[2].item(), "dtw_distance differs from DTWAligner's cost")
+
+    ph = _dtw_features(dev, gen, DTW_PHONEMES)
+    align, bounds_ = run("phoneme_audio_alignment", lambda: alignment.phoneme_audio_alignment(ph, x), 1)
+    d_cos = tdtw.compute_distance_matrix(ph, x, "cosine")
+    with mock.patch.object(tdtw, "compute_distance_matrix", return_value=d_cos.cpu()):
+        want = alignment.phoneme_audio_alignment(ph.cpu(), x.cpu())
+    check(torch.equal(align.cpu(), want[0]) and torch.equal(bounds_.cpu(), want[1]),
+          "phoneme_audio_alignment differs from the CPU on the card's distances")
+    durations = alignment.extract_phoneme_durations(align, DTW_PHONEMES)
+    check(int(durations.sum()) == DTW_N, f"phoneme durations sum to {int(durations.sum())}")
+    out["phonemes aligned"] = int((durations > 0).sum())
+
+    xs, ys = _dtw_features(dev, gen, DTW_SOFT), _dtw_features(dev, gen, DTW_SOFT)
+    soft, soft_cost = run("soft_dtw_alignment 64x64", lambda: alignment.soft_dtw_alignment(xs, ys), 0)
+    soft_cpu, soft_cost_cpu = alignment.soft_dtw_alignment(xs.cpu(), ys.cpu())
+    out["errs"]["soft alignment"] = (soft.cpu() - soft_cpu).abs().max().item()
+    out["errs"]["soft cost rel"] = abs(soft_cost.item() - soft_cost_cpu.item()) / abs(soft_cost_cpu.item())
+    check(out["errs"]["soft alignment"] <= DTW_SOFT_ATOL and out["errs"]["soft cost rel"] <= DTW_SOFT_RTOL,
+          f"soft_dtw_alignment off the CPU: {out['errs']}")
+
+    out["calls"] = {
+        "bench DTW call": lambda: tdtw.dtw_path_padded(tdtw.compute_distance_matrix(x, y)),
+        "DTWAligner pair": lambda: aligner(x, y),
+        f"DTWAligner batch of {DTW_BATCH}": lambda: aligner(xb, yb),
+        f"ConstrainedDTWAligner(bandwidth={DTW_BAND})": lambda: band(x, y),
+        "dtw_distance": lambda: alignment.dtw_distance(x, y),
+        "phoneme_audio_alignment": lambda: alignment.phoneme_audio_alignment(ph, x),
+    }
+    return out
+
+
+def _bigk_problem(dev, gen, b, t, k):
+    """The JAX bench's scoring data (bench.py:542-570): standard normal
+    log-obs, ``log_softmax`` of standard normal transitions, a uniform
+    prior."""
+    import torch
+
+    lo = torch.randn(b, t, k, device=dev, generator=gen)
+    la = torch.log_softmax(torch.randn(k, k, device=dev, generator=gen), -1)
+    lp = torch.full((k,), -math.log(k), device=dev)
+    return lo, la, lp
+
+
+def phase_bigk_kernel(dev, gen):
+    """Row 15 against its plain version on the card (the JAX bench's
+    K=512 shape, K=1024, and shapes whose B and K are off the kernel's
+    16-row and 64-state tiles, K=12), and two of them against float64
+    ``core.log_likelihood``. Returns the max abs errors and the inputs of
+    the two timed shapes."""
+    import torch
+    from pytorch_hmm_tpu_torch import core, ops
+
+    cases = {**BIGK_SHAPES, "8x256x256": (8, 256, 256), "5x384x96": (5, 384, 96), "3x128x33": (3, 128, 33),
+             "K=12": (4, 256, 12)}
+    errs, inputs = {}, {}
+    for name, (b, t, k) in cases.items():
+        args = _bigk_problem(dev, gen, b, t, k)
+        got = ops.bigk_log_likelihood(*args)
+        want = ops.bigk_log_likelihood_reference(*args)
+        torch.cuda.synchronize(dev)
+        check(bool(torch.isfinite(got).all()), f"bigk_log_likelihood {name}: non-finite")
+        err = (got - want).abs()
+        errs[name] = err.max().item()
+        check(bool((err <= BIGK_ATOL + BIGK_PLAIN_RTOL * want.abs()).all()),
+              f"bigk_log_likelihood {name}: max abs err {errs[name]} vs plain")
+        if name in ("K=512", "8x256x256"):
+            rows = slice(0, BIGK_F64_ROWS)
+            lo, la, lp = (a.double() for a in args)
+            exact = core.log_likelihood(lo[rows], la, lp)
+            err64 = (got[rows].double() - exact).abs()
+            errs[f"{name} vs float64"] = err64.max().item()
+            check(bool((err64 <= BIGK_ATOL + BIGK_RTOL * exact.abs()).all()),
+                  f"bigk_log_likelihood {name}: {errs[f'{name} vs float64']} off float64")
+        if name in BIGK_SHAPES:
+            inputs[name] = args
+    return errs, inputs
+
+
+def phase_bigk_scoring(dev, inputs):
+    """``ops.bigk_log_likelihood`` as a user calls it, at both timed
+    shapes (row 15 once each) and at T=2000, off the 128-frame chunk grid
+    (row 15 never, ``pallas_forward`` once). Returns launch counts."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    names = ("bigk_log_likelihood", "pallas_forward", "pallas_dtw")
+    cases = [(f"scoring {k}", a, {"bigk_log_likelihood": 1}) for k, a in inputs.items()]
+    lo, la, lp = inputs["K=512"]
+    cases.append(("scoring T=2000", (lo[:, :2000].contiguous(), la, lp), {"pallas_forward": 1}))
+    launches = {}
+    for tag, args, want in cases:
+        reset_launches()
+        z = ops.bigk_log_likelihood(*args)
+        torch.cuda.synchronize(dev)
+        got = read_launches(names)
+        launches[tag] = got
+        check(all(got[n] == want.get(n, 0) for n in names), f"{tag}: launches {got}")
+        check(z.shape == (args[0].shape[0],) and bool(torch.isfinite(z).all()), f"{tag}: bad output")
+    return launches
+
+
+def phase_dtw_bigk_timing(dev, d500, dtw, bigk_inputs):
+    """Rows 19 (500x500) and 15 (both shapes) and their plain versions, the
+    DTW entry points with their launches. Returns ``(times, launches)``."""
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    slow = dict(runs=3, warmup=1)
+    times = {"pallas_dtw": (cuda_median_ms(lambda: ops.pallas_dtw(d500)),
+                            cuda_median_ms(lambda: ops.pallas_dtw_reference(d500), **slow))}
+    for name, args in bigk_inputs.items():
+        times[f"bigk_log_likelihood {name}"] = (
+            cuda_median_ms(lambda: ops.bigk_log_likelihood(*args)),
+            cuda_median_ms(lambda: ops.bigk_log_likelihood_reference(*args), **slow))
+    launches = {}
+    for name, fn in dtw["calls"].items():
+        times[f"DTW {name}"] = cuda_median_ms(fn)
+        reset_launches()
+        fn()
+        torch.cuda.synchronize(dev)
+        launches[f"DTW {name}"] = {k: v for k, v in read_launches(KERNELS).items() if v}
+    return times, launches
+
+
+def dtw_work(n, m):
+    """Bytes and float32 operations of row 19 on an ``(n, m)`` matrix: the
+    distances in, both paths, the length and the cost out; per cell three
+    adds and two minima."""
+    return 4 * (n * m + 2 * (n + m - 1) + 2), 5 * n * m
+
+
+def bigk_work(b, t, k):
+    """Bytes and operations of row 15 at ``(b, t, k)``: log-obs, log_a and
+    log_pi in, ``(b,)`` out; per frame after the first a ``(b, k) @ (k, k)``
+    bf16 product (two operations a multiply-add, at the bf16 peak) and per
+    element the max, subtract, exp and multiply (float32). Returns
+    ``(bytes, seconds of operations)`` for :func:`_bound_s`."""
+    nbytes = 4 * (b * t * k + k * k + k + b)
+    return nbytes, 2 * b * (t - 1) * k * k / BF16_OPS_PER_S + 4 * b * t * k / F32_OPS_PER_S
+
+
 def ctc_work(b, t, s):
     """Bytes and float32 operations of rows 20-23 on ``b`` full-length rows
     of ``t`` frames over an ``s``-position lattice: ``lp`` and the three
@@ -2810,12 +3112,19 @@ def prob_work(b, t, k):
     }
 
 
-def _bound(nbytes, ops_):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_ / F32_OPS_PER_S * 1e3
+def _bound_s(nbytes, ops_seconds):
+    """``(ms, "bytes" or "operations")``: the larger of the bytes over the
+    HBM rate and the operations' seconds at their peaks."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_seconds * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bounds(inputs, neural_inputs, bigk_inputs, prob_inputs):
+def _bound(nbytes, ops_):
+    """:func:`_bound_s` of float32 operations."""
+    return _bound_s(nbytes, ops_ / F32_OPS_PER_S)
+
+
+def bounds(inputs, neural_inputs, genk_inputs, prob_inputs):
     """Each kernel's least time on the card for this run's timed inputs,
     ``(ms, "bytes" or "operations")``: the larger of the bytes it must
     move (each input read once, each output written once) over the HBM
@@ -2826,10 +3135,10 @@ def bounds(inputs, neural_inputs, bigk_inputs, prob_inputs):
     HB_, HT_, HS_, HD_ = HB, HT, HS, HD
     (beam, la, lo, _fleets) = inputs
     emit, tv_lo, tv_la = neural_inputs
-    glo = bigk_inputs["scan"][0]
+    glo = genk_inputs["scan"][0]
     gb, gt, gk = glo.shape
     gbt, gbk = gb * gt, glo.numel()
-    fobs, fmeans = bigk_inputs["gmm"][0], bigk_inputs["gmm"][1]
+    fobs, fmeans = genk_inputs["gmm"][0], genk_inputs["gmm"][1]
     fb, ft, _ = fobs.shape
     fs, fc, _ = fmeans.shape
     er, es = emit[0].shape[0] * emit[0].shape[1], emit[9].shape[1]   # rows, states
@@ -3114,16 +3423,16 @@ def main() -> int:
     print(f"fused_gmm_viterbi vs plain: ok on {len(FUSED_CASES)} cases, frame agreement "
           f"{fused_agree} (>= {FUSED_AGREE}), headline max abs score err {fused_err:.3g} "
           f"(rtol {FUSED_RTOL}, atol {FUSED_ATOL})", flush=True)
-    bigk = phase_bigk_slice(dev)
+    genk = phase_genk_slice(dev)
     print(f"general-K slice (GaussianHMMLayer({GK}, {GD}), HMMLayer({GK}), HMM K={GK}, "
           f"MixtureGaussianHMMLayer({GK}, {GD}, C={GMM_CS}); B={B}, T={T}): ok, launches "
-          f"{bigk['launches']}, decode frame agreement with CPU {bigk['agreement']}, Adam losses "
-          f"{bigk['losses']}", flush=True)
+          f"{genk['launches']}, decode frame agreement with CPU {genk['agreement']}, Adam losses "
+          f"{genk['losses']}", flush=True)
     print("general-K slice vs CPU float64 (posteriors max abs; loss / log-likelihood max rel; "
           "gradients and EM relative to each tensor's max): "
-          + ", ".join(f"{k}: {v:.3g}" for k, v in bigk["errs"].items())
-          + f" (posteriors atol {BIGK_POST_ATOL}, loss rtol {LOSS_RTOL}, HMM log-likelihood rtol "
-          f"{HMM_LL_RTOL}, grad rtol {BIGK_GRAD_RTOL}, EM rtol {BIGK_EM_RTOL})", flush=True)
+          + ", ".join(f"{k}: {v:.3g}" for k, v in genk["errs"].items())
+          + f" (posteriors atol {GENK_POST_ATOL}, loss rtol {LOSS_RTOL}, HMM log-likelihood rtol "
+          f"{HMM_LL_RTOL}, grad rtol {GENK_GRAD_RTOL}, EM rtol {GENK_EM_RTOL})", flush=True)
 
     prob_errs, prob_split, l2r_err, prob_cases, prob_inputs = phase_prob_kernels(dev, gen)
     print(f"pallas_forward_prob / pallas_backward_prob / pallas_fb_prob vs plain: ok on "
@@ -3134,14 +3443,14 @@ def main() -> int:
           + "; split as written: " + ", ".join(f"{k}: {v:.3g}" for k, v in prob_split.items())
           + f" (relative tables atol {PROB_REL_ATOL}; shifts and log Z atol {PROB_ATOL} + rtol "
           f"{PROB_RTOL}); left-to-right safe_log case posteriors vs "
-          f"float64 {l2r_err:.3g} (atol {BIGK_POST_ATOL})", flush=True)
+          f"float64 {l2r_err:.3g} (atol {GENK_POST_ATOL})", flush=True)
     long = phase_long_context(dev)
     print(f"long context (B={LB}, T={LT}, K={LK}; ops.auto_forward, auto_log_likelihood and its "
           f"gradient): ok, launches {long['launches']}; {LONG_SUB} rows vs float64 (log Z, log alpha "
           "and posteriors max abs, gradients relative to each tensor's max): "
           + ", ".join(f"{k}: {v:.3g}" for k, v in long["errs"].items())
           + f" (log Z / log alpha atol {LONG_ATOL} + rtol {LONG_RTOL}, posteriors atol "
-          f"{BIGK_POST_ATOL}, grad rtol {BIGK_GRAD_RTOL})", flush=True)
+          f"{GENK_POST_ATOL}, grad rtol {GENK_GRAD_RTOL})", flush=True)
     full = phase_fullcov(dev)
     print(f"full covariance (GaussianHMMLayer({GK}, {GD}, 'full') B={B} T={FULL_T}; "
           f"MixtureGaussianHMMLayer({S}, {D}, C={C}, 'full') B={B} T={T}): ok, launches "
@@ -3150,8 +3459,8 @@ def main() -> int:
     print(f"full covariance vs CPU float64 (GaussianHMMLayer on {FULL_SUB} rows; posteriors max "
           "abs; loss / log-likelihood max rel; gradients and EM relative to each tensor's max): "
           + ", ".join(f"{k}: {v:.3g}" for k, v in full["errs"].items())
-          + f" (posteriors atol {BIGK_POST_ATOL}, loss rtol {LOSS_RTOL}, grad rtol "
-          f"{BIGK_GRAD_RTOL}, EM rtol {BIGK_EM_RTOL})", flush=True)
+          + f" (posteriors atol {GENK_POST_ATOL}, loss rtol {LOSS_RTOL}, grad rtol "
+          f"{GENK_GRAD_RTOL}, EM rtol {GENK_EM_RTOL})", flush=True)
 
     t_ctc = time.perf_counter()
     ctc_errs, ctc_inputs = phase_ctc_kernels(dev, gen)
@@ -3173,16 +3482,51 @@ def main() -> int:
           + f" (loss atol {CTC_LL_ATOL} + rtol {CTC_LL_RTOL}, gradient atol {CTC_GRAD_ATOL}); "
           f"CTC checks {time.perf_counter() - t_ctc:.1f} s", flush=True)
 
+    t_new = time.perf_counter()
+    # The DTW and scoring phases draw from their own generator, so the
+    # phases after them see the inputs they always had.
+    gen_new = torch.Generator(device=dev).manual_seed(SEED + 91)
+    dtw_err, dtw_cases, d500 = phase_dtw_kernel(dev, gen_new)
+    print(f"pallas_dtw vs plain: ok, paths, lengths and costs identical on {len(dtw_cases)} cases "
+          f"({', '.join(dtw_cases)})", flush=True)
+    dtw = phase_dtw_slice(dev)
+    print(f"DTW slice (DTWAligner on ({DTW_N}, {DTW_D}) x ({DTW_N}, {DTW_D}), one pair and a batch of "
+          f"{DTW_BATCH}; ConstrainedDTWAligner(bandwidth={DTW_BAND}); dtw_distance; "
+          f"phoneme_audio_alignment, {DTW_PHONEMES} phonemes over {DTW_N} frames; soft_dtw_alignment "
+          f"{DTW_SOFT}x{DTW_SOFT}): ok, launches {dtw['launches']}, the plain wavefront never ran; "
+          "paths and costs identical to the CPU plain path on the card's distances; "
+          f"{dtw['phonemes aligned']} of {DTW_PHONEMES} phonemes hold frames; "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in dtw["errs"].items())
+          + f" (distances atol {DTW_DIST_ATOL} + rtol {DTW_DIST_RTOL}, soft alignment atol "
+          f"{DTW_SOFT_ATOL}, soft cost rtol {DTW_SOFT_RTOL})", flush=True)
+    bigk_errs, bigk_inputs = phase_bigk_kernel(dev, gen_new)
+    print(f"bigk_log_likelihood vs plain: ok on {len([k for k in bigk_errs if 'float64' not in k])} "
+          f"cases (B, T, K: {', '.join(f'{k} {v}' for k, v in BIGK_SHAPES.items())}, 8x256x256, "
+          "5x384x96, 3x128x33, K=12); max abs err "
+          + ", ".join(f"{k}: {v:.3g}" for k, v in bigk_errs.items())
+          + f" (vs plain atol {BIGK_ATOL} + rtol {BIGK_PLAIN_RTOL}; vs float64 on {BIGK_F64_ROWS} rows "
+          f"atol {BIGK_ATOL} + rtol {BIGK_RTOL})", flush=True)
+    scoring = phase_bigk_scoring(dev, bigk_inputs)
+    print(f"scoring (ops.bigk_log_likelihood at {', '.join(map(str, BIGK_SHAPES.values()))} and at "
+          f"T=2000): ok, launches {scoring}; DTW and scoring checks "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
+
     times, launches_per_call = phase_timing(dev, gen, layer, obs, train, dur, dur_train)
     stimes, slaunches, prof, stream_inputs = phase_stream_timing(dev, gen)
     ntimes, nlaunches, nprof, neural_inputs = phase_neural_timing(dev, gen, neural)
-    btimes, blaunches, bprof, bigk_inputs = phase_bigk_timing(dev, gen, bigk)
+    btimes, blaunches, bprof, genk_inputs = phase_genk_timing(dev, gen, genk)
     ltimes, llaunches, lprof, gate = phase_long_timing(dev, gen, prob_inputs, long, full)
     t_ctc = time.perf_counter()
     ctimes, claunches, cprof = phase_ctc_timing(dev, ctc_inputs, ctc)
     t_ctc = time.perf_counter() - t_ctc
+    t_new = time.perf_counter()
+    dtimes, dlaunches = phase_dtw_bigk_timing(dev, d500, dtw, bigk_inputs)
+    t_new = time.perf_counter() - t_new
     times.update(ctimes)
+    times.update(dtimes)
     launches_per_call.update(claunches)
+    launches_per_call.update(dlaunches)
+    launches_per_call.update({tag: {k: v for k, v in got.items() if v} for tag, got in scoring.items()})
     times.update(stimes)
     times.update(ntimes)
     times.update(btimes)
@@ -3191,7 +3535,7 @@ def main() -> int:
     launches_per_call.update(nlaunches)
     launches_per_call.update(blaunches)
     launches_per_call.update(llaunches)
-    bound = bounds(stream_inputs, neural_inputs, bigk_inputs, prob_inputs)
+    bound = bounds(stream_inputs, neural_inputs, genk_inputs, prob_inputs)
     # Rows 20-22 at the headline, row 23 at S=2001: each at the shape its
     # entry point runs it.
     ctc_main = {name: "S=2001" if name == "ctc_lattice_viterbi_wide" else "headline"
@@ -3201,6 +3545,10 @@ def main() -> int:
     for name in CTC_KERNELS:
         bound[name] = ctc_bound[ctc_main[name]][name]
         times[name] = times[f"{name} {ctc_main[name]}"]
+    bound["pallas_dtw"] = _bound(*dtw_work(*d500.shape))
+    bigk_bound = {k: _bound_s(*bigk_work(*a[0].shape)) for k, a in bigk_inputs.items()}
+    bound["bigk_log_likelihood"] = bigk_bound["K=512"]
+    times["bigk_log_likelihood"] = times["bigk_log_likelihood K=512"]
     for name in KERNELS:
         ms, plain = times[name]
         print(f"timing {name}: {ms:.4f} ms kernel, {plain:.4f} ms plain torch, bound "
@@ -3251,7 +3599,7 @@ def main() -> int:
     print("timing general-K chains (B=4): "
           + ", ".join(f"{k} {times[k]:.4f} ms" for k in btimes if " K=" in k)
           + f" (K=256 at T=300, K=1024 at T=256; median, CUDA events) on {card}", flush=True)
-    for name in (k for k in btimes if k not in BIGK_KERNELS and " K=" not in k):
+    for name in (k for k in btimes if k not in GENK_KERNELS and " K=" not in k):
         what = "forward+backward" if "step" in name else "call"
         print(f"timing {name}: {times[name]:.4f} ms per {what} of {B}x{T} frames (median of "
               f"{TIMED_RUNS}, CUDA events) on {card}", flush=True)
@@ -3301,15 +3649,27 @@ def main() -> int:
           f"{cprof['kernels']} device ops per call, top {cprof['top_ms']} on {card}; CTC timing "
           f"{t_ctc:.1f} s", flush=True)
 
-    errs ={"diag_quadratic": dq_errs[(B, T, D, S * C)], "smallk_viterbi": vit_err, **sum_errs,
+    print("timing bigk_log_likelihood: " + ", ".join(
+        f"{k} (B, T, K = {tuple(a[0].shape)}) {times[f'bigk_log_likelihood {k}'][0]:.4f} ms (plain "
+        f"{times[f'bigk_log_likelihood {k}'][1]:.4f}, bound {bigk_bound[k][0]:.6f}, {bigk_bound[k][1]}; "
+        f"{times[f'bigk_log_likelihood {k}'][0] * 1e3 / a[0].shape[1]:.3f} us a frame)"
+        for k, a in bigk_inputs.items()) + f" (median, CUDA events) on {card}", flush=True)
+    for name in dtw["calls"]:
+        print(f"timing DTW {name}: {times[f'DTW {name}']:.4f} ms per call ({DTW_N}x{DTW_N} frames "
+              f"a pair; median of {TIMED_RUNS}, CUDA events) on {card}", flush=True)
+    print(f"DTW and scoring timing {t_new:.1f} s", flush=True)
+
+    errs = {"diag_quadratic": dq_errs[(B, T, D, S * C)], "smallk_viterbi": vit_err, **sum_errs,
             **hsmm_errs, **stream_errs, "fused_gaussian_emission": emit_errs["headline"],
             **scan_errs, "fused_gmm_viterbi": fused_err, **prob_errs,
-            **{n: ctc_errs[ctc_main[n]][n] for n in CTC_KERNELS}}
+            **{n: ctc_errs[ctc_main[n]][n] for n in CTC_KERNELS}, "pallas_dtw": dtw_err,
+            "bigk_log_likelihood": bigk_errs["K=512"]}
     launches = {name: sum(run.get(name, 0) for run in (
         dec_launches, train["launches"], dur["launches"], dur_train["launches"],
         serve["beam"]["launches"], serve["greedy"]["launches"], fleets["launches"],
-        *neural["launches"].values(), *bigk["launches"].values(),
-        *long["launches"].values(), *full["launches"].values(), *ctc["launches"].values()))
+        *neural["launches"].values(), *genk["launches"].values(),
+        *long["launches"].values(), *full["launches"].values(), *ctc["launches"].values(),
+        *dtw["launches"].values(), *scoring.values()))
         for name in KERNELS}
     library = {"diag_quadratic": times["library diag_quadratic"],
                "ctc_lattice_forward": times["library F.ctc_loss forward headline"],

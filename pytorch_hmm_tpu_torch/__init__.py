@@ -23,7 +23,10 @@ prob-space forward, backward and fused forward-backward kernels at
 T ≥ 1024, K ≤ 128) and full-covariance Gaussian emissions in
 ``GaussianHMMLayer`` and ``MixtureGaussianHMMLayer`` and CTC
 (``alignment``: ``CTCAligner`` loss, forced alignment and greedy / beam
-decode on the lattice forward, backward and Viterbi kernels). Models are built
+decode on the lattice forward, backward and Viterbi kernels) and DTW
+(``DTWAligner``, ``ConstrainedDTWAligner``, ``dtw_alignment`` on the
+wavefront-and-backtrace kernel) and large-state scoring
+(``ops.bigk_log_likelihood``, bf16 products on the tensor cores). Models are built
 on the CUDA device unless ``device`` names another; on CPU tensors
 everything runs as plain torch.
 
@@ -35,7 +38,14 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 from . import alignment, bridge, core, durations, emissions, frontend, models, ops, precision, streaming, utils
-from .alignment import CTCAligner, CTCSegmentationAligner, ctc_alignment_path
+from .alignment import (
+    ConstrainedDTWAligner,
+    CTCAligner,
+    CTCSegmentationAligner,
+    DTWAligner,
+    ctc_alignment_path,
+    dtw_alignment,
+)
 from .core import (
     backward_log,
     forward_backward,
@@ -129,6 +139,9 @@ __all__ = [
     "gmm_log_probs",
     "spherical_gaussian_log_probs",
     "AdaptiveDurationHSMM",
+    "ConstrainedDTWAligner",
+    "DTWAligner",
+    "dtw_alignment",
     "CTCAligner",
     "CTCSegmentationAligner",
     "ctc_alignment_path",

@@ -50,6 +50,14 @@ path, as the backend does in the JAX package:
   ``ctc_lattice_viterbi`` (choices resident) or
   ``ctc_lattice_viterbi_wide`` (choices streamed); larger lattices run
   the plain scans on the card.
+* DTW (``dtw``, called by ``alignment.dtw``): CUDA tensors with N ≤ 4096
+  rows and M ≤ 65536 columns run ``pallas_dtw``, the wavefront and
+  backtrace in one launch; larger matrices run the plain wavefront on the
+  card (the reference's XLA scan on every backend).
+* Large-state scoring (``bigk.bigk_log_likelihood``, a public op with no
+  caller in the package): CUDA tensors with K ≤ 1024, B ≤ 4096 and T a
+  multiple of ``t_chunk`` run its bf16 tensor-core chain; other T take
+  ``pallas_forward``'s log Z, as the reference does.
 * CPU tensors run the plain torch versions (``core``).
 
 A shape a kernel takes never lands on a plain path because a build or
@@ -67,6 +75,7 @@ from typing import Optional
 import torch
 
 from .. import core
+from .bigk import bigk_log_likelihood, bigk_log_likelihood_reference, bigk_supported
 from .ctc_kernel import (
     ctc_lattice_backward,
     ctc_lattice_backward_reference,
@@ -79,6 +88,7 @@ from .ctc_kernel import (
     ctc_viterbi_kernel_supported,
     ctc_viterbi_wide_supported,
 )
+from .dtw import pallas_dtw, pallas_dtw_reference, pallas_dtw_supported
 from .emit import diag_quadratic, diag_quadratic_reference
 from .emit_mlp import (
     fused_emission_supported,
@@ -132,6 +142,12 @@ from .stream import greedy_chunk, greedy_chunk_reference, stream_chunk_supported
 from .stream_multi import beam_chunk_multi, beam_chunk_multi_reference, multi_stream_supported
 
 __all__ = [
+    "bigk_log_likelihood",
+    "bigk_log_likelihood_reference",
+    "bigk_supported",
+    "pallas_dtw",
+    "pallas_dtw_reference",
+    "pallas_dtw_supported",
     "ctc_lattice_backward",
     "ctc_lattice_backward_reference",
     "ctc_lattice_forward",

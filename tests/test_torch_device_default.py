@@ -13,7 +13,9 @@ from pytorch_hmm_tpu_torch import (
     AdaptiveDurationHSMM,
     CTCAligner,
     CTCSegmentationAligner,
+    ConstrainedDTWAligner,
     ContextualNeuralHMM,
+    DTWAligner,
     DeviceFramer,
     DurationConstrainedHMM,
     DurationModel,
@@ -50,11 +52,13 @@ CONSTRUCTORS = {
         functools.partial(MixtureGaussianHMMLayer, covariance_type="full"), (3, 2)),
     "CTCAligner": (CTCAligner, (40,)),
     "CTCSegmentationAligner": (CTCSegmentationAligner, (40,)),
+    "DTWAligner": (DTWAligner, ()),
+    "ConstrainedDTWAligner": (ConstrainedDTWAligner, (10,)),
 }
 
 
 def _device_of(obj) -> torch.device:
-    if isinstance(obj, CTCAligner):   # no parameters: the device it moves its inputs to
+    if isinstance(obj, (CTCAligner, DTWAligner)):   # no parameters: the device inputs move to
         return obj.device
     if isinstance(obj, torch.nn.Module):
         return next(obj.parameters()).device

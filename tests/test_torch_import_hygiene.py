@@ -37,6 +37,7 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
     expected = {
         "pytorch_hmm_tpu_torch.alignment.ctc",
         "pytorch_hmm_tpu_torch.alignment.ctc_decode",
+        "pytorch_hmm_tpu_torch.alignment.dtw",
         "pytorch_hmm_tpu_torch.bridge",
         "pytorch_hmm_tpu_torch.core.fb",
         "pytorch_hmm_tpu_torch.core.hsmm",
@@ -53,7 +54,9 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
         "pytorch_hmm_tpu_torch.models.neural",
         "pytorch_hmm_tpu_torch.models.semi_markov",
         "pytorch_hmm_tpu_torch.ops._build",
+        "pytorch_hmm_tpu_torch.ops.bigk",
         "pytorch_hmm_tpu_torch.ops.ctc_kernel",
+        "pytorch_hmm_tpu_torch.ops.dtw",
         "pytorch_hmm_tpu_torch.ops.emit",
         "pytorch_hmm_tpu_torch.ops.emit_mlp",
         "pytorch_hmm_tpu_torch.ops.fbsum",
@@ -121,6 +124,35 @@ def test_port_exports_ctc_under_the_reference_names():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_port_exports_dtw_and_large_state_scoring_under_the_reference_names():
+    """The JAX package's DTW names (``alignment``, its package-level
+    exports) and the two ops' wrappers, importable from the port without
+    JAX and without building a kernel."""
+    probe = (
+        "import sys\n"
+        "from pytorch_hmm_tpu_torch.alignment import (ConstrainedDTWAligner, DTWAligner,\n"
+        "    compute_distance_matrix, compute_dtw_path, dtw_alignment, dtw_distance,\n"
+        "    extract_phoneme_durations, phoneme_audio_alignment, soft_dtw, soft_dtw_alignment)\n"
+        "from pytorch_hmm_tpu_torch.alignment.dtw import dtw_path_padded\n"
+        "from pytorch_hmm_tpu_torch.ops import (bigk_log_likelihood, bigk_log_likelihood_reference,\n"
+        "    bigk_supported, pallas_dtw, pallas_dtw_reference, pallas_dtw_supported)\n"
+        "import pytorch_hmm_tpu_torch as pkg\n"
+        "assert pkg.DTWAligner is DTWAligner and pkg.dtw_alignment is dtw_alignment\n"
+        "assert pkg.ConstrainedDTWAligner is ConstrainedDTWAligner\n"
+        "assert {'DTWAligner', 'ConstrainedDTWAligner', 'dtw_alignment'} <= set(pkg.__all__)\n"
+        "assert pallas_dtw.launches == 0 and bigk_log_likelihood.launches == 0\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'triton', 'pytorch_hmm_tpu')]\n"
+        "from pytorch_hmm_tpu_torch.ops import _build\n"
+        "assert not _build._loaded\n"
+    )
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                       timeout=300, env=env, cwd=repo_root)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_port_never_names_jax_in_its_sources():
     repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(repo_root, "pytorch_hmm_tpu_torch")
@@ -145,7 +177,7 @@ def test_port_never_names_jax_in_its_sources():
                 "smallk_sum": "hsmm_smallk.py", "hsmm_smallk": "hsmm_smallk.py",
                 "stream_greedy": "stream.py", "stream_beam": "stream_multi.py",
                 "scan_bigk": "scan.py", "scan_prob": "scan.py", "fused_gmm": "fused.py",
-                "ctc_lattice": "ctc_kernel.py"}
+                "ctc_lattice": "ctc_kernel.py", "dtw": "dtw.py", "bigk_scoring": "bigk.py"}
     sources = {fn[:-3] for fn in os.listdir(os.path.join(pkg, "csrc")) if fn.endswith(".cu")}
     assert sources == set(wrappers)
     assert {os.path.join("ops", w) for w in wrappers.values()} <= seen
