@@ -125,8 +125,12 @@ at its K=512 row (B=48, T=2048) and at K=1024 (B=16):
   ``dtw_distance`` and ``phoneme_audio_alignment`` (row 19 once a pair,
   the plain wavefront never), each identical to the CPU's plain path on
   the card's distances; ``soft_dtw_alignment`` at 64x64 against the CPU;
-* the bf16 tensor-core chain of ``csrc/bigk_scoring.cu`` (row 15) against
-  its plain version (both shapes, B and K off its tiles, K=12) and two
+* the bf16 tensor-core chain of ``csrc/bigk_scoring.cu`` (row 15, one
+  thread-block cluster of CS CTAs per 16 rows) against its plain
+  version (both shapes, B and K off its tiles, K=12, K=1000 off the
+  cluster's column split, K=768 on a cluster of 12, B=320 at K=1024 in
+  waves of clusters, wide batches on slices of 128, 192 and 256 columns,
+  log-obs in a view off 16-byte alignment) and three
   shapes against float64; ``ops.bigk_log_likelihood`` launching row 15
   once a call, and ``pallas_forward`` instead at T=2000;
 
@@ -136,7 +140,9 @@ streaming chunk, a fleet step, a PCM step, a NeuralHMM forward, decode
 and ``compute_loss`` step (static and contextual), the general-K and
 long-sequence entry points with CUDA events (rows 8-12 at T=4096 and
 131072, row 12 against ``fbsum_smallk`` at K=12; rows 20-23 against
-``F.ctc_loss``; rows 19 and 15 and the DTW entry points), counts the launches of
+``F.ctc_loss``; rows 19 and 15 and the DTW entry points; row 1, its plain
+version and ``torch.addmm`` also as device time, replaying CUDA graphs,
+at N=48, 64 and 256; row 15's cluster plans and a cluster-barrier probe), counts the launches of
 one call of each, profiles ten beam chunks, ten NeuralHMM forwards, ten
 calls each of a ``GaussianHMMLayer`` decode and ``compute_loss`` step
 and a fused ``MixtureGaussianHMMLayer`` decode, one long-context
@@ -176,6 +182,13 @@ TIMED_RUNS = 20
 PLAIN_SUM_RUNS = 5      # the plain sum recursions are Python loops of T steps
 # Tolerance of the JAX kernel's own test (tests/test_ops_emit.py).
 DQ_ATOL, DQ_RTOL = 2e-4, 1e-5
+# Row 1 at the other widths the main path gives it: N=256 (the S=64, C=4
+# GMM decode), N=64 (GaussianHMMLayer(64, 80)) and N=10 (HSMMLayer's S=10).
+DQ_WIDE = ((B, T, D, 256), (B, T, D, 64), (B, T, D, 10))
+# Row 1's device time: CUDA-graph replays of this many launches, at N=48
+# and at these other widths.
+DQ_GRAPH_LAUNCHES = 50
+DQ_DEVICE_N = (64, 256)
 VIT_SCORE_ATOL = 1e-5
 # Sum recursions vs their plain versions: the JAX kernel tests' atol
 # 2e-4 (tests/test_ops_fbsum.py), plus rtol 1e-6 (8 f32 ulps) of the
@@ -338,6 +351,19 @@ DTW_SOFT_ATOL, DTW_SOFT_RTOL = 1e-4, 1e-5
 BIGK_SHAPES = {"K=512": (48, 2048, 512), "K=1024": (16, 2048, 1024)}
 BIGK_ATOL, BIGK_PLAIN_RTOL, BIGK_RTOL = 0.05, 1e-4, 1e-3
 BIGK_F64_ROWS = 4
+# The cluster layout's edges: K=1000 pads to 1024 (its last CTA's slice
+# holds 40 real columns) over 17 rows (two clusters, one a single real
+# row); K=768 is a cluster of 12; B=320 at K=1024 is 20 clusters of 16
+# CTAs, more than the card holds at once, so they run in waves; the wide
+# batches take the plan's fewer, wider slices: 4 CTAs of 128 columns at
+# K=512, 2 of 192 at K=384, 1 of 256 at K=256.
+BIGK_CLUSTER_CASES = {"K=1000": (17, 256, 1000), "K=768": (20, 256, 768), "multi-wave": (320, 256, 1024),
+                      "K=512 B=400": (400, 128, 512), "K=384 B=400": (400, 128, 384),
+                      "K=256 B=600": (600, 128, 256)}
+# A log-obs view off 16-byte alignment (B, T, K).
+BIGK_OFFSET_VIEW = (3, 128, 64)
+# Cluster barriers timed by the probe of csrc/bigk_scoring.cu.
+PROBE_ITERS = (1000, 3000)
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
 # outside the tensor cores, the type every kernel but row 15 computes in; bf16
 # on the tensor cores (dense), row 15's products.
@@ -519,6 +545,25 @@ def cuda_median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, launches: int = DQ_GRAPH_LAUNCHES, replays: int = TIMED_RUNS) -> float:
+    """Device time of one call of ``fn``: a CUDA graph of ``launches``
+    calls, replayed ``replays`` times, each replay timed with CUDA events;
+    the median over ``launches``. The host's enqueue is not in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_median_ms(graph.replay, runs=replays) / launches
+
+
 def phase_build():
     """Build every kernel source at once, one nvcc each."""
     from pytorch_hmm_tpu_torch.ops import _build
@@ -556,16 +601,21 @@ def read_tv_launches():
 
 
 def phase_diag_quadratic(dev, gen):
-    """Kernel vs plain on the card; returns the headline max abs error."""
+    """Kernel vs plain on the card at the headline and ragged shapes, then
+    at the other column counts the main path gives it (``DQ_WIDE``, from
+    their own generator so the later phases' data stay as they were).
+    Returns the max abs error of each shape."""
     import torch
     from pytorch_hmm_tpu_torch.ops.emit import diag_quadratic, diag_quadratic_reference
 
     errs = {}
-    for (b, t, d, n) in [(B, T, D, S * C), (3, 257, 77, 37)]:
-        x = torch.randn(b, t, d, device=dev, generator=gen)
-        wq = torch.randn(d, n, device=dev, generator=gen) ** 2
-        wl = torch.randn(d, n, device=dev, generator=gen)
-        bias = torch.randn(n, device=dev, generator=gen)
+    gen_wide = torch.Generator(device=dev).manual_seed(SEED + 17)
+    for (b, t, d, n) in [(B, T, D, S * C), (3, 257, 77, 37), *DQ_WIDE]:
+        g = gen if (b, t, d, n) in ((B, T, D, S * C), (3, 257, 77, 37)) else gen_wide
+        x = torch.randn(b, t, d, device=dev, generator=g)
+        wq = torch.randn(d, n, device=dev, generator=g) ** 2
+        wl = torch.randn(d, n, device=dev, generator=g)
+        bias = torch.randn(n, device=dev, generator=g)
         got = diag_quadratic(x, wq, wl, bias)
         want = diag_quadratic_reference(x, wq, wl, bias)
         torch.cuda.synchronize(dev)
@@ -2994,7 +3044,7 @@ def phase_bigk_kernel(dev, gen):
     from pytorch_hmm_tpu_torch import core, ops
 
     cases = {**BIGK_SHAPES, "8x256x256": (8, 256, 256), "5x384x96": (5, 384, 96), "3x128x33": (3, 128, 33),
-             "K=12": (4, 256, 12)}
+             "K=12": (4, 256, 12), **BIGK_CLUSTER_CASES}
     errs, inputs = {}, {}
     for name, (b, t, k) in cases.items():
         args = _bigk_problem(dev, gen, b, t, k)
@@ -3006,7 +3056,7 @@ def phase_bigk_kernel(dev, gen):
         errs[name] = err.max().item()
         check(bool((err <= BIGK_ATOL + BIGK_PLAIN_RTOL * want.abs()).all()),
               f"bigk_log_likelihood {name}: max abs err {errs[name]} vs plain")
-        if name in ("K=512", "8x256x256"):
+        if name in ("K=512", "8x256x256", "K=1000"):
             rows = slice(0, BIGK_F64_ROWS)
             lo, la, lp = (a.double() for a in args)
             exact = core.log_likelihood(lo[rows], la, lp)
@@ -3016,6 +3066,16 @@ def phase_bigk_kernel(dev, gen):
                   f"bigk_log_likelihood {name}: {errs[f'{name} vs float64']} off float64")
         if name in BIGK_SHAPES:
             inputs[name] = args
+    # Log-obs in a contiguous view that starts 4 bytes past an aligned
+    # address: K % 4 == 0, but the kernel must read them with scalar loads.
+    lo, la, lp = _bigk_problem(dev, gen, *BIGK_OFFSET_VIEW)
+    view = torch.empty(lo.numel() + 1, device=dev)[1:].view(lo.shape)
+    view.copy_(lo)
+    got, want = ops.bigk_log_likelihood(view, la, lp), ops.bigk_log_likelihood_reference(lo, la, lp)
+    err = (got - want).abs()
+    errs["offset view"] = err.max().item()
+    check(bool((err <= BIGK_ATOL + BIGK_PLAIN_RTOL * want.abs()).all()),
+          f"bigk_log_likelihood offset view: max abs err {errs['offset view']} vs plain")
     return errs, inputs
 
 
@@ -3042,6 +3102,37 @@ def phase_bigk_scoring(dev, inputs):
     return launches
 
 
+def phase_bigk_cluster(dev):
+    """Row 15's cluster plan at each timed K, the clusters the card holds
+    at once, and what a cluster barrier costs alone and after a frame's q
+    exchange (the probe: one cluster of CS CTAs running N barriers; the
+    difference of two N over their difference)."""
+    import ctypes
+
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+    from pytorch_hmm_tpu_torch.ops import _build
+    from pytorch_hmm_tpu_torch.ops import bigk as tbigk
+
+    lib = _build.load("bigk_scoring", {"bigk_cluster_probe": [ctypes.c_int] * 4 + [ctypes.c_void_p]})
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {"plans": {}, "barrier_us": {}}
+    for name, (b, _, k) in {**BIGK_SHAPES, **BIGK_CLUSTER_CASES}.items():
+        plan = tbigk.cluster_plan(k, b)
+        out["plans"][name] = (plan, tbigk.active_clusters(k, plan, dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    for name, (b, t, k) in BIGK_CLUSTER_CASES.items():
+        args = _bigk_problem(dev, gen, b, t, k)
+        out[f"bigk_log_likelihood {name}"] = cuda_median_ms(lambda: ops.bigk_log_likelihood(*args), runs=5)
+    for cs in sorted({p.cs for p, _ in out["plans"].values()}):
+        for push in (0, 1):
+            def run(iters, cs=cs, push=push):
+                _build.check(lib.bigk_cluster_probe(cs, iters, push, dev.index, stream), "cluster probe")
+            lo_ms, hi_ms = (cuda_median_ms(lambda n=n: run(n), runs=5) for n in PROBE_ITERS)
+            out["barrier_us"][(cs, push)] = (hi_ms - lo_ms) * 1e3 / (PROBE_ITERS[1] - PROBE_ITERS[0])
+    return out
+
+
 def phase_dtw_bigk_timing(dev, d500, dtw, bigk_inputs):
     """Rows 19 (500x500) and 15 (both shapes) and their plain versions, the
     DTW entry points with their launches. Returns ``(times, launches)``."""
@@ -3063,6 +3154,12 @@ def phase_dtw_bigk_timing(dev, d500, dtw, bigk_inputs):
         torch.cuda.synchronize(dev)
         launches[f"DTW {name}"] = {k: v for k, v in read_launches(KERNELS).items() if v}
     return times, launches
+
+
+def dq_work(rows, d, n):
+    """Bytes and float32 operations of row 1 over ``rows`` rows: x, Wq,
+    Wl, b in; ``(rows, n)`` out; x², two products, the bias."""
+    return 4 * (rows * d + 2 * d * n + n + rows * n), rows * d + 4 * rows * d * n + rows * n
 
 
 def dtw_work(n, m):
@@ -3148,9 +3245,7 @@ def bounds(inputs, neural_inputs, genk_inputs, prob_inputs):
     hbt, hbk = HB_ * HT_, HB_ * HT_ * HS_
     f = 4   # bytes of a float32 or int32
     work = {
-        # x, Wq, Wl, b in; (B, T, N) out. x², two products, the bias.
-        "diag_quadratic": (f * (bt * D_ + 2 * D_ * N_ + N_ + bt * N_),
-                           bt * D_ + 4 * bt * D_ * N_ + bt * N_),
+        "diag_quadratic": dq_work(bt, D_, N_),
         # log-obs, log_a, log_pi in; states, score out. Add and max per
         # predecessor, then the emission.
         "smallk_viterbi": (f * (bk + K_ * K_ + K_ + bt + B_), 2 * bk * K_ + bk),
@@ -3276,6 +3371,31 @@ def phase_timing(dev, gen, layer, obs, train, dur, dur_train):
     check(torch.allclose(lib, ops.diag_quadratic(x, wq, wl, bias), atol=DQ_ATOL, rtol=DQ_RTOL),
           "torch.addmm disagrees with diag_quadratic")
     times["library diag_quadratic"] = cuda_median_ms(lambda: torch.addmm(bias, xx, w2))
+    # Row 1's device time beside the same of its plain version and of
+    # torch.addmm, at N=48, 64 (GaussianHMMLayer(64, 80)) and 256 (S=64,
+    # C=4): the calls above carry the host's enqueue, which at ~0.02-0.05
+    # ms is most of a call. Call times at N=64 and 256 ride beside them.
+    wide = {"N=48": (x, wq, wl, bias, xx, w2)}
+    for n_ in DQ_DEVICE_N:
+        g_ = torch.Generator(device=dev).manual_seed(SEED + 19 + n_)
+        xa = torch.randn(B, T, D, device=dev, generator=g_)
+        qa = torch.rand(D, n_, device=dev, generator=g_) + 0.5
+        la = torch.randn(D, n_, device=dev, generator=g_)
+        ba = torch.randn(n_, device=dev, generator=g_)
+        xxa = torch.cat([xa * xa, xa], dim=-1).reshape(B * T, 2 * D)
+        wa = torch.cat([qa, la], dim=0)
+        check(torch.allclose(torch.addmm(ba, xxa, wa).reshape(B, T, n_),
+                             ops.diag_quadratic(xa, qa, la, ba), atol=DQ_ATOL, rtol=DQ_RTOL),
+              f"torch.addmm disagrees with diag_quadratic at N={n_}")
+        wide[f"N={n_}"] = (xa, qa, la, ba, xxa, wa)
+    for tag, (xa, qa, la, ba, xxa, wa) in wide.items():
+        times[f"diag_quadratic device {tag}"] = graph_ms(lambda: ops.diag_quadratic(xa, qa, la, ba))
+        times[f"diag_quadratic plain device {tag}"] = graph_ms(
+            lambda: ops.diag_quadratic_reference(xa, qa, la, ba))
+        times[f"library diag_quadratic device {tag}"] = graph_ms(lambda: torch.addmm(ba, xxa, wa))
+        if tag != "N=48":
+            times[f"diag_quadratic call {tag}"] = cuda_median_ms(lambda: ops.diag_quadratic(xa, qa, la, ba))
+            times[f"library diag_quadratic call {tag}"] = cuda_median_ms(lambda: torch.addmm(ba, xxa, wa))
     calls = {
         "decode": lambda: layer(obs, return_log_probs=True),
         "compute_loss step": step,
@@ -3502,7 +3622,9 @@ def main() -> int:
     bigk_errs, bigk_inputs = phase_bigk_kernel(dev, gen_new)
     print(f"bigk_log_likelihood vs plain: ok on {len([k for k in bigk_errs if 'float64' not in k])} "
           f"cases (B, T, K: {', '.join(f'{k} {v}' for k, v in BIGK_SHAPES.items())}, 8x256x256, "
-          "5x384x96, 3x128x33, K=12); max abs err "
+          f"5x384x96, 3x128x33, K=12, {', '.join(f'{k} {v}' for k, v in BIGK_CLUSTER_CASES.items())}, "
+          f"offset view {BIGK_OFFSET_VIEW});"
+          " max abs err "
           + ", ".join(f"{k}: {v:.3g}" for k, v in bigk_errs.items())
           + f" (vs plain atol {BIGK_ATOL} + rtol {BIGK_PLAIN_RTOL}; vs float64 on {BIGK_F64_ROWS} rows "
           f"atol {BIGK_ATOL} + rtol {BIGK_RTOL})", flush=True)
@@ -3521,6 +3643,7 @@ def main() -> int:
     t_ctc = time.perf_counter() - t_ctc
     t_new = time.perf_counter()
     dtimes, dlaunches = phase_dtw_bigk_timing(dev, d500, dtw, bigk_inputs)
+    cluster = phase_bigk_cluster(dev)
     t_new = time.perf_counter() - t_new
     times.update(ctimes)
     times.update(dtimes)
@@ -3562,6 +3685,18 @@ def main() -> int:
               f"on {card}", flush=True)
     print(f"timing library torch.addmm for diag_quadratic: {times['library diag_quadratic']:.4f} ms "
           f"on {card}", flush=True)
+    dq_tags = {"N=48": S * C, **{f"N={n_}": n_ for n_ in DQ_DEVICE_N}}
+    dq_bound = {tag: _bound(*dq_work(B * T, D, n_)) for tag, n_ in dq_tags.items()}
+    print("timing diag_quadratic device time (B, T, D = "
+          f"{B}, {T}, {D}; CUDA graph of {DQ_GRAPH_LAUNCHES} launches, median of {TIMED_RUNS} replays): "
+          + "; ".join(f"{tag} kernel {times[f'diag_quadratic device {tag}']:.4f} ms, plain "
+                      f"{times[f'diag_quadratic plain device {tag}']:.4f} ms, torch.addmm "
+                      f"{times[f'library diag_quadratic device {tag}']:.4f} ms, bound "
+                      f"{dq_bound[tag][0]:.6f} ms ({dq_bound[tag][1]})" for tag in dq_bound)
+          + "; call time " + ", ".join(
+              f"{tag} kernel {times[f'diag_quadratic call {tag}']:.4f} ms, torch.addmm "
+              f"{times[f'library diag_quadratic call {tag}']:.4f} ms" for tag in dq_bound if tag != "N=48")
+          + f" on {card}", flush=True)
     for name, what, shape in (
             ("decode", "request", (B, T)), ("compute_loss step", "forward+backward", (B, T)),
             ("em_step", "step", (B, T)), ("HSMM decode", "request", (HB, HT)),
@@ -3654,6 +3789,18 @@ def main() -> int:
         f"{times[f'bigk_log_likelihood {k}'][1]:.4f}, bound {bigk_bound[k][0]:.6f}, {bigk_bound[k][1]}; "
         f"{times[f'bigk_log_likelihood {k}'][0] * 1e3 / a[0].shape[1]:.3f} us a frame)"
         for k, a in bigk_inputs.items()) + f" (median, CUDA events) on {card}", flush=True)
+    for name, (plan, active) in cluster["plans"].items():
+        b, t, k = {**BIGK_SHAPES, **BIGK_CLUSTER_CASES}[name]
+        ms = (times[f"bigk_log_likelihood {name}"][0] if name in BIGK_SHAPES
+              else cluster[f"bigk_log_likelihood {name}"])
+        print(f"bigk_log_likelihood cluster plan {name} (B, T, K = {b}, {t}, {k}): CS={plan.cs} CTAs a "
+              f"cluster, {plan.clusters} clusters of {plan.rows} rows, {plan.smem} bytes of shared memory "
+              f"a CTA ({plan.kp * (plan.kp // plan.cs) * 2} of them P's slice, resident), {active} clusters "
+              f"held at once; "
+              f"{ms:.4f} ms, {ms * 1e3 / t:.3f} us a frame (median, CUDA events) on {card}", flush=True)
+    print("cluster barrier (one cluster, probe): " + ", ".join(
+        f"CS={cs} {us:.3f} us" + (" after a Kp=1024 q exchange" if push else " alone")
+        for (cs, push), us in cluster["barrier_us"].items()) + f" on {card}", flush=True)
     for name in dtw["calls"]:
         print(f"timing DTW {name}: {times[f'DTW {name}']:.4f} ms per call ({DTW_N}x{DTW_N} frames "
               f"a pair; median of {TIMED_RUNS}, CUDA events) on {card}", flush=True)
@@ -3671,6 +3818,12 @@ def main() -> int:
         *long["launches"].values(), *full["launches"].values(), *ctc["launches"].values(),
         *dtw["launches"].values(), *scoring.values()))
         for name in KERNELS}
+    # Row 1's device times (graph replays) of the kernel, its plain version
+    # and torch.addmm ride beside its call times.
+    device_ms = {"diag_quadratic": {
+        "device_ms": times["diag_quadratic device N=48"],
+        "plain_device_ms": times["diag_quadratic plain device N=48"],
+        "library_device_ms": times["library diag_quadratic device N=48"]}}
     library = {"diag_quadratic": times["library diag_quadratic"],
                "ctc_lattice_forward": times["library F.ctc_loss forward headline"],
                "ctc_lattice_backward": times["library F.ctc_loss backward headline"]}
@@ -3683,7 +3836,7 @@ def main() -> int:
         {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],
          "max_abs_err": errs[name], "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bound[name][0], "bound_by": bound[name][1],
-         "library_ms": library.get(name),
+         "library_ms": library.get(name), **device_ms.get(name, {}),
          **({"time_varying": time_varying[name]} if name in time_varying else {})}
         for name in KERNELS
     ]}), flush=True)

@@ -14,23 +14,40 @@
 // What bounds it on an H100: each frame is a (B, K) @ (K, K) product on a
 // chain serial over T. At B=48, T=2048, K=512 the 201 MB of log-obs take
 // 0.060 ms at 3.35 TB/s and the 51.5 GFLOP 0.052 ms at 989 TFLOP/s (bf16):
-// bytes bound it. The chain's frames cannot overlap, so the product of one
-// frame runs on the blocks of the batch alone (3 at B=48), and P, 512 KB of
-// bf16 at K=512, is read again every frame.
+// bytes bound it. The frames cannot overlap, so what a frame costs is the
+// latency of its product, its exchange and its barrier.
 //
-// Design: one block per tile of 16 batch rows (one mma M tile) and 8-16
-// warps; warp w owns NT n-tiles (8 states each) of the output, K padded to a
-// multiple of 64 (Kp). The wrapper lays P out in B-fragment order (each
-// 16x8 tile as 32 lanes x 8 contiguous bytes), so a warp's fragment load is
-// 256 coalesced bytes. The first k-tiles of P that fit are staged once into
-// shared memory (all of P up to Kp=256; 11 of 32 k-tiles at Kp=512, 4 of 64
-// at Kp=1024); the rest stream from L2 every frame. q lives in shared memory
-// as bf16, double buffered by frame parity, rows padded by 8 values so the A
-// fragment reads hit 32 banks. Each thread holds the log-obs at its
-// accumulator positions, loaded a frame ahead; the row max m_t is reduced
-// over the 4 lanes of a row by shuffles and over the warps through shared
-// memory, a frame ahead too, so a frame costs one block barrier (three at a
-// rescale frame, which needs the row max of q).
+// Design: a thread-block cluster of CS CTAs (the plan, ops/bigk.py
+// cluster_plan, picks CS from Kp = K rounded up to 64 and B: one CTA per
+// 64 columns while every cluster fits on the card at once, else the
+// fewest CTAs whose slice fits; CS = 16 at Kp = 1024 is a non-portable
+// cluster size) per tile of 16 batch rows. CTA c
+// owns the NC = Kp / CS columns [c NC, (c + 1) NC) of P (NC = 64, 128, 192
+// or 256) and keeps that slice, all Kp rows, resident in shared memory in
+// mma B-fragment order (128 KB at Kp = 1024, CS = 16), loaded once. Every
+// CTA holds the whole bf16 q of its 16 rows, double buffered by frame
+// parity. A frame:
+//  1. max(8, NC / 16) warps compute the CTA's 16 x NC slice of
+//     q_{t-1} @ P: warp w takes a quarter of the k-tiles (w % 4) and
+//     NTW = 4 (NC = 64) or 8 n-tiles, so a warp runs NTW independent
+//     accumulator chains Kp / 64 deep; the four k partials meet in shared
+//     memory behind one block barrier;
+//  2. 2 NC owner threads (a row and 8 columns each) sum them, multiply by
+//     exp(lo_t - m_t) (log-obs of their columns loaded a frame ahead, m_t
+//     from the row maxima exchanged a frame ahead), and on a rescale frame
+//     exchange their row maxima of q through distributed shared memory
+//     behind a second cluster barrier, so every CTA scales by the same r
+//     and keeps the same C; maxima travel per 64-column group, Kp / 64
+//     slots a row whatever CS is;
+//  3. the owners store the bf16 slice with 16-byte st.shared::cluster into
+//     every CTA's q buffer of the next parity, and their partial row maxima
+//     of lo_{t+1} into every CTA's exchange slots;
+//  4. one cluster barrier (arrive.release / wait.acquire) ends the frame.
+// The host takes CS and the shared memory bytes from the plan, checks that
+// the bytes cover the kernel's carve (carve() below) and checks
+// cudaOccupancyMaxActiveClusters for the (CS, shared memory, threads)
+// before each launch, returning an error where the card cannot hold one
+// cluster: there is no other route.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,13 +57,27 @@
 
 namespace {
 
-constexpr int ROWS = 16;            // batch rows per block: one mma M tile
-constexpr int MAX_WARPS = 16;
+constexpr int ROWS = 16;                 // batch rows per cluster: one mma M tile
+constexpr int GC = 64;                   // columns of a row-maximum group
+constexpr int KSPLIT = 4;                // warps along k
+constexpr int MAX_CS = 16;
 constexpr int MAX_K = 1024;
 constexpr int MAX_B = 4096;
 constexpr int RESCALE = 16;
 constexpr float FLOOR = 1e-37f;
-constexpr size_t SMEM_LIMIT = 232448;   // dynamic shared memory a block may take
+constexpr size_t SMEM_LIMIT = 232448;    // dynamic shared memory a block may take
+
+// The tiling of a CTA that owns NC columns.
+template <int NC>
+struct Tile {
+    static constexpr int NTC = NC / 8;                       // its mma n-tiles
+    static constexpr int OWNERS = ROWS * NC / 8;             // a row and 8 columns each
+    static constexpr int THREADS = OWNERS > 256 ? OWNERS : 256;
+    static constexpr int WARPS = THREADS / 32;
+    static constexpr int NTW = NTC / (WARPS / KSPLIT);       // n-tiles a warp
+    static constexpr int RS = NC + 8;                        // row stride of the k partials (floats)
+    static_assert(NC % GC == 0 && NTC % (WARPS / KSPLIT) == 0, "tile");
+};
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint2 b) {
     asm volatile(
@@ -69,267 +100,419 @@ __device__ __forceinline__ bool rescale_after(int t, int tc) {
     return (pos + 1) % RESCALE == 0 || pos == n - 1;
 }
 
-// Max over the 4 lanes that share a row of the accumulator.
-__device__ __forceinline__ float group_max(float x) {
+__device__ __forceinline__ unsigned cluster_rank() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+
+__device__ __forceinline__ unsigned cluster_index() {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+    return r;
+}
+
+// The address of this CTA's shared `p` in CTA `rank` of the cluster.
+__device__ __forceinline__ unsigned peer(const void* p, unsigned rank) {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    unsigned r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+    return r;
+}
+
+__device__ __forceinline__ void st_peer(unsigned addr, uint4 v) {
+    asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+                 "r"(v.z), "r"(v.w)
+                 : "memory");
+}
+
+__device__ __forceinline__ void st_peer(unsigned addr, float v) {
+    asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+// Every thread of every CTA of the cluster: writes before it (local and
+// remote) are visible to reads after it.
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile(
+        "barrier.cluster.arrive.release.aligned;\n"
+        "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Max over the 8 owner lanes of one row.
+__device__ __forceinline__ float owners_max(float x) {
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
 }
 
-template <int NT>
-struct Frame {
-    float a[NT][2];   // row g, columns col(n) + {0, 1}
-    float b[NT][2];   // row g + 8
-};
-
-// This thread's log-obs of frame t: rows b0+g and b0+g+8, columns
-// c0 + 8n + {0, 1}; -inf past K (so exp gives 0), 0 past B.
-template <int NT>
-__device__ __forceinline__ void load_frame(Frame<NT>& f, const float* __restrict__ lo, int t, int T,
-                                           int K, int rowA, int rowB, bool okA, bool okB, int c0) {
-    const float* pa = lo + (static_cast<long long>(rowA) * T + t) * K;
-    const float* pb = lo + (static_cast<long long>(rowB) * T + t) * K;
+__device__ __forceinline__ float max8(const float (&v)[8], float m) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-            const int col = c0 + 8 * n + e;
-            const bool in = col < K;
-            f.a[n][e] = in ? (okA ? __ldg(pa + col) : 0.f) : -INFINITY;
-            f.b[n][e] = in ? (okB ? __ldg(pb + col) : 0.f) : -INFINITY;
-        }
-    }
-}
-
-// Partial row maxima of `f` (this warp's columns) into red[warp][16].
-template <int NT>
-__device__ __forceinline__ void partial_max(const float (&a)[NT][2], const float (&b)[NT][2],
-                                            float* red, int warp, int g, int q4) {
-    float ma = -INFINITY, mb = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-        ma = fmaxf(ma, fmaxf(a[n][0], a[n][1]));
-        mb = fmaxf(mb, fmaxf(b[n][0], b[n][1]));
-    }
-    ma = group_max(ma);
-    mb = group_max(mb);
-    if (q4 == 0) {
-        red[warp * ROWS + g] = ma;
-        red[warp * ROWS + g + 8] = mb;
-    }
-}
-
-__device__ __forceinline__ float row_max(const float* red, int nwarps, int row) {
-    float m = -INFINITY;
-    for (int w = 0; w < nwarps; ++w) m = fmaxf(m, red[w * ROWS + row]);
+    for (int i = 0; i < 8; ++i) m = fmaxf(m, v[i]);
     return m;
 }
 
-// q *= 1/r, C += log r with r the row max of q over all columns (floored).
-template <int NT>
-__device__ __forceinline__ void rescale(float (&q)[NT][4], float& ca, float& cb, float* red,
-                                        int nwarps, int warp, int g, int q4) {
-    float ma = 0.f, mb = 0.f;   // q >= 0
+// An owner's log-obs of frame t: its row, columns col .. col + 7; -inf
+// past K (so exp gives 0), 0 past B. `vec`: the rows are 16-byte aligned
+// (K % 4 == 0 and an aligned base), so whole groups load as float4.
+__device__ __forceinline__ void load_lo(float (&v)[8], const float* __restrict__ lo, int row, int B,
+                                        int t, int T, int K, int col, int vec) {
+    if (row >= B) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-        ma = fmaxf(ma, fmaxf(q[n][0], q[n][1]));
-        mb = fmaxf(mb, fmaxf(q[n][2], q[n][3]));
+        for (int i = 0; i < 8; ++i) v[i] = col + i < K ? 0.f : -INFINITY;
+        return;
     }
-    ma = group_max(ma);
-    mb = group_max(mb);
-    if (q4 == 0) {
-        red[warp * ROWS + g] = ma;
-        red[warp * ROWS + g + 8] = mb;
-    }
-    __syncthreads();
-    const float ra = fmaxf(row_max(red, nwarps, g), FLOOR);
-    const float rb = fmaxf(row_max(red, nwarps, g + 8), FLOOR);
-    __syncthreads();   // every warp has read red before it is written again
-    const float ia = 1.0f / ra, ib = 1.0f / rb;
+    const float* p = lo + (static_cast<long long>(row) * T + t) * K + col;
+    if (vec && col + 8 <= K) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+        const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
+        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+        v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    } else {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-        q[n][0] *= ia;
-        q[n][1] *= ia;
-        q[n][2] *= ib;
-        q[n][3] *= ib;
-    }
-    ca += logf(ra);
-    cb += logf(rb);
-}
-
-// bf16(q) into the q buffer `qs` (16 rows of QS bf16 values, as words).
-template <int NT>
-__device__ __forceinline__ void store_q(uint32_t* qs, const float (&q)[NT][4], int QS, int g,
-                                        int c0) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-        const int col = c0 + 8 * n;
-        qs[(g * QS + col) >> 1] = pack_bf16(q[n][0], q[n][1]);
-        qs[((g + 8) * QS + col) >> 1] = pack_bf16(q[n][2], q[n][3]);
+        for (int i = 0; i < 8; ++i) v[i] = col + i < K ? __ldg(p + i) : -INFINITY;
     }
 }
 
-template <int NT>
-__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
-bigk_kernel(const float* __restrict__ lo,    // (B, T, K)
-            const uint2* __restrict__ pf,    // (Kp/16, Kp/8, 32) B fragments of P
-            const float* __restrict__ lpi,   // (K,)
-            float* __restrict__ out,         // (B, K)
-            int B, int T, int K, int Kp, int tc, int kt_res) {
+struct Smem {
+    uint2* pres;      // (KT, NTC, 32) B fragments of this CTA's slice of P
+    uint32_t* qbuf;   // (2, ROWS, Kp + 8) bf16 as words
+    float* red;       // (KSPLIT, ROWS, NC + 8) k partials
+    float* mx;        // (2, Kp / 64, ROWS) partial row maxima of lo, by frame parity
+    float* rs;        // (Kp / 64, ROWS) partial row maxima of q on rescale frames
+    unsigned char* end;
+};
+
+// Where each array sits in a CTA's shared memory from `base`: the one
+// layout the kernel uses, and the host's check of the plan's bytes.
+__host__ __device__ __forceinline__ Smem carve(unsigned char* base, int kp, int nc) {
+    Smem s;
+    s.pres = reinterpret_cast<uint2*>(base);
+    s.qbuf = reinterpret_cast<uint32_t*>(base + static_cast<size_t>(kp) * nc * 2);
+    s.red = reinterpret_cast<float*>(s.qbuf + ROWS * (kp + 8));
+    s.mx = s.red + KSPLIT * ROWS * (nc + 8);
+    s.rs = s.mx + 2 * (kp / GC) * ROWS;
+    s.end = reinterpret_cast<unsigned char*>(s.rs + (kp / GC) * ROWS);
+    return s;
+}
+
+size_t carve_bytes(int kp, int nc) {
+    unsigned char base[16];
+    return static_cast<size_t>(carve(base, kp, nc).end - base);
+}
+
+// Owners: this group's partial max of the row (8 lanes) into slot `slot`
+// of `slots` (Kp / 64, ROWS) in every CTA.
+__device__ __forceinline__ void push_max(float* slots, float m, unsigned rank, int cs, int slot, int row,
+                                         int c8) {
+    m = owners_max(m);
+    if (c8 == 0) {
+        for (int i = 0; i < cs; ++i) st_peer(peer(slots + slot * ROWS + row, (rank + i) % cs), m);
+    }
+}
+
+__device__ __forceinline__ float slots_max(const float* slots, int gs, int row) {
+    float m = -INFINITY;
+    for (int i = 0; i < gs; ++i) m = fmaxf(m, slots[i * ROWS + row]);
+    return m;
+}
+
+// q *= 1/r, C += log r, r the row max of q over every CTA's columns
+// (floored). Every thread of the cluster calls it (one cluster barrier).
+__device__ __forceinline__ void rescale(float (&q)[8], float& c, const Smem& s, bool owner, unsigned rank,
+                                        int cs, int gs, int slot, int row, int c8) {
+    if (owner) push_max(s.rs, max8(q, 0.f), rank, cs, slot, row, c8);   // q >= 0
+    cluster_sync();
+    if (owner) {
+        const float r = fmaxf(slots_max(s.rs, gs, row), FLOOR);
+        const float inv = 1.0f / r;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) q[i] *= inv;
+        c += logf(r);
+    }
+}
+
+// Owners: bf16(q) into columns col .. col + 7 of every CTA's q buffer `qb`.
+__device__ __forceinline__ void push_q(uint32_t* qb, const float (&q)[8], unsigned rank, int cs, int QS,
+                                       int row, int col) {
+    const uint4 v = make_uint4(pack_bf16(q[0], q[1]), pack_bf16(q[2], q[3]), pack_bf16(q[4], q[5]),
+                               pack_bf16(q[6], q[7]));
+    const uint32_t* at = qb + ((row * QS + col) >> 1);
+    for (int i = 0; i < cs; ++i) st_peer(peer(at, (rank + i) % cs), v);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(Tile<NC>::THREADS, 1)
+bigk_cluster_kernel(const float* __restrict__ lo,    // (B, T, K)
+                    const uint4* __restrict__ pf,    // (CS, KT, NTC, 32, 4) bf16 slices of P
+                    const float* __restrict__ lpi,   // (K,)
+                    float* __restrict__ out,         // (B, K)
+                    int B, int T, int K, int Kp, int cs, int tc, int vec) {
+    using Tl = Tile<NC>;
+    constexpr int NTC = Tl::NTC, NTW = Tl::NTW, RS = Tl::RS;
     extern __shared__ __align__(16) unsigned char smem[];
-    const int ntiles = Kp / 8;
+    const Smem s = carve(smem, Kp, NC);
     const int KT = Kp / 16;
+    const int KTW = KT / KSPLIT;                        // k-tiles a warp
+    const int GS = Kp / GC;                             // row-maximum slots
     const int QS = Kp + 8;
-    uint2* pres = reinterpret_cast<uint2*>(smem);
-    uint32_t* qbuf = reinterpret_cast<uint32_t*>(smem + static_cast<size_t>(kt_res) * ntiles * 256);
-    float* red_m = reinterpret_cast<float*>(qbuf + ROWS * QS);   // (2, MAX_WARPS, 16)
-    float* red_q = red_m + 2 * MAX_WARPS * ROWS;                  // (MAX_WARPS, 16)
-
+    const unsigned rank = cluster_rank();
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int nwarps = blockDim.x >> 5;
     const int g = lane >> 2, q4 = lane & 3;
-    const int rowA = blockIdx.x * ROWS + g, rowB = rowA + 8;
-    const bool okA = rowA < B, okB = rowB < B;
-    const int c0 = warp * NT * 8 + 2 * q4;   // first column of n-tile 0
-    const int tile0 = warp * NT;              // this warp's first n-tile
+    const int kg = warp % KSPLIT, nt0 = (warp / KSPLIT) * NTW;
+    const bool owner = tid < Tl::OWNERS;
+    const int grp = tid >> 7;                          // an owner's 64-column group
+    const int row = (tid >> 3) & (ROWS - 1), c8 = tid & 7;
+    const int lcol = grp * GC + c8 * 8;                // its first column in the slice
+    const int col = static_cast<int>(rank) * NC + lcol;
+    const int slot = static_cast<int>(rank) * (NC / GC) + grp;
+    const int brow = static_cast<int>(cluster_index()) * ROWS + row;
 
-    {   // Stage the resident k-tiles of P.
-        const uint4* src = reinterpret_cast<const uint4*>(pf);
-        uint4* dst = reinterpret_cast<uint4*>(pres);
-        const int n16 = kt_res * ntiles * 16;
-        for (int x = tid; x < n16; x += blockDim.x) dst[x] = src[x];
+    {   // Stage this CTA's slice of P.
+        const int n16 = KT * NTC * 16;
+        const uint4* src = pf + static_cast<size_t>(rank) * n16;
+        uint4* dst = reinterpret_cast<uint4*>(s.pres);
+        for (int i = tid; i < n16; i += Tl::THREADS) dst[i] = src[i];
     }
+    cluster_sync();   // every CTA has started and staged its slice
 
     // Frame 0: the prior.
-    Frame<NT> cur;
-    load_frame(cur, lo, 0, T, K, rowA, rowB, okA, okB, c0);
-    partial_max(cur.a, cur.b, red_m, warp, g, q4);
-    __syncthreads();
-    float ma = row_max(red_m, nwarps, g), mb = row_max(red_m, nwarps, g + 8);
-    float q[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-            const int col = c0 + 8 * n + e;
-            const float p = col < K ? __ldg(lpi + col) : 0.f;
-            q[n][e] = col < K ? expf(p + (cur.a[n][e] - ma)) : 0.f;
-            q[n][2 + e] = col < K ? expf(p + (cur.b[n][e] - mb)) : 0.f;
-        }
+    float lc[8], ln[8], q[8] = {}, c = 0.f;
+    if (owner) {
+        load_lo(lc, lo, brow, B, 0, T, K, col, vec);
+        push_max(s.mx, max8(lc, -INFINITY), rank, cs, slot, row, c8);
+        if (T > 1) load_lo(ln, lo, brow, B, 1, T, K, col, vec);
     }
-    float ca = 0.f, cb = 0.f;
-    rescale(q, ca, cb, red_q, nwarps, warp, g, q4);
-    ca += ma;
-    cb += mb;
-    store_q(qbuf + ROWS * QS / 2, q, QS, g, c0);   // frame 1 reads buffer 1
+    cluster_sync();
+    float m = 0.f;
+    if (owner) {
+        m = slots_max(s.mx, GS, row);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+            q[i] = col + i < K ? expf(__ldg(lpi + col + i) + (lc[i] - m)) : 0.f;
+    }
+    rescale(q, c, s, owner, rank, cs, GS, slot, row, c8);
+    c += m;
     if (T > 1) {
-        load_frame(cur, lo, 1, T, K, rowA, rowB, okA, okB, c0);
-        partial_max(cur.a, cur.b, red_m + MAX_WARPS * ROWS, warp, g, q4);
+        if (owner) {
+            push_q(s.qbuf + ROWS * QS / 2, q, rank, cs, QS, row, col);   // frame 1 reads buffer 1
+            push_max(s.mx + GS * ROWS, max8(ln, -INFINITY), rank, cs, slot, row, c8);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) lc[i] = ln[i];
+        }
+        cluster_sync();
     }
 
     for (int t = 1; t < T; ++t) {
         const int par = t & 1;
-        __syncthreads();
-        ma = row_max(red_m + par * MAX_WARPS * ROWS, nwarps, g);
-        mb = row_max(red_m + par * MAX_WARPS * ROWS, nwarps, g + 8);
-        float e[NT][4];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-            e[n][0] = expf(cur.a[n][0] - ma);
-            e[n][1] = expf(cur.a[n][1] - ma);
-            e[n][2] = expf(cur.b[n][0] - mb);
-            e[n][3] = expf(cur.b[n][1] - mb);
-        }
         const bool more = t + 1 < T;
-        if (more) load_frame(cur, lo, t + 1, T, K, rowA, rowB, okA, okB, c0);
-
+        float e[8];
+        if (owner) {
+            if (more) load_lo(ln, lo, brow, B, t + 1, T, K, col, vec);
+            m = slots_max(s.mx + par * GS * ROWS, GS, row);
 #pragma unroll
-        for (int n = 0; n < NT; ++n) q[n][0] = q[n][1] = q[n][2] = q[n][3] = 0.f;
-        const uint32_t* qa = qbuf + par * (ROWS * QS / 2);
+            for (int i = 0; i < 8; ++i) e[i] = expf(lc[i] - m);
+        }
+
+        float acc[NTW][4];
+#pragma unroll
+        for (int n = 0; n < NTW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+        const uint32_t* qa = s.qbuf + par * (ROWS * QS / 2);
+        const uint2* pb = s.pres + (kg * KTW * NTC + nt0) * 32 + lane;
 #pragma unroll 2
-        for (int kt = 0; kt < KT; ++kt) {
-            const int k0 = kt * 16 + 2 * q4;
+        for (int j = 0; j < KTW; ++j) {
+            const int k0 = (kg * KTW + j) * 16 + 2 * q4;
             uint32_t a[4];
             a[0] = qa[(g * QS + k0) >> 1];
             a[1] = qa[((g + 8) * QS + k0) >> 1];
             a[2] = qa[(g * QS + k0 + 8) >> 1];
             a[3] = qa[((g + 8) * QS + k0 + 8) >> 1];
-            const uint2* src = (kt < kt_res ? pres : pf) + (kt * ntiles + tile0) * 32 + lane;
-            uint2 bfrag[NT];
+            uint2 b[NTW];
 #pragma unroll
-            for (int n = 0; n < NT; ++n) bfrag[n] = src[n * 32];
+            for (int n = 0; n < NTW; ++n) b[n] = pb[(j * NTC + n) * 32];
 #pragma unroll
-            for (int n = 0; n < NT; ++n) mma_bf16(q[n], a, bfrag[n]);
+            for (int n = 0; n < NTW; ++n) mma_bf16(acc[n], a, b[n]);
         }
+        float* red = s.red + kg * ROWS * RS;
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
+        for (int n = 0; n < NTW; ++n) {
+            const int cc = (nt0 + n) * 8 + 2 * q4;
+            *reinterpret_cast<float2*>(red + g * RS + cc) = make_float2(acc[n][0], acc[n][1]);
+            *reinterpret_cast<float2*>(red + (g + 8) * RS + cc) = make_float2(acc[n][2], acc[n][3]);
+        }
+        __syncthreads();
+
+        if (owner) {
 #pragma unroll
-            for (int x = 0; x < 4; ++x) q[n][x] *= e[n][x];
+            for (int i = 0; i < 8; ++i) q[i] = 0.f;
+#pragma unroll
+            for (int k = 0; k < KSPLIT; ++k) {
+                const float* p = s.red + (k * ROWS + row) * RS + lcol;
+                const float4 x0 = *reinterpret_cast<const float4*>(p);
+                const float4 x1 = *reinterpret_cast<const float4*>(p + 4);
+                q[0] += x0.x; q[1] += x0.y; q[2] += x0.z; q[3] += x0.w;
+                q[4] += x1.x; q[5] += x1.y; q[6] += x1.z; q[7] += x1.w;
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i) q[i] *= e[i];
+            c += m;
         }
-        ca += ma;
-        cb += mb;
-        if (rescale_after(t, tc)) rescale(q, ca, cb, red_q, nwarps, warp, g, q4);
-        if (more) {
-            store_q(qbuf + (1 - par) * (ROWS * QS / 2), q, QS, g, c0);
-            partial_max(cur.a, cur.b, red_m + (1 - par) * MAX_WARPS * ROWS, warp, g, q4);
+        if (rescale_after(t, tc)) rescale(q, c, s, owner, rank, cs, GS, slot, row, c8);
+        if (more && owner) {
+            push_q(s.qbuf + (1 - par) * (ROWS * QS / 2), q, rank, cs, QS, row, col);
+            push_max(s.mx + (1 - par) * GS * ROWS, max8(ln, -INFINITY), rank, cs, slot, row, c8);
+#pragma unroll
+            for (int i = 0; i < 8; ++i) lc[i] = ln[i];
         }
+        cluster_sync();
     }
 
+    if (owner && brow < B) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+        for (int i = 0; i < 8; ++i)
+            if (col + i < K) out[static_cast<long long>(brow) * K + col + i] = logf(fmaxf(q[i], FLOOR)) + c;
+    }
+    cluster_sync();   // no CTA leaves while a peer may still address its shared memory
+}
+
+// `iters` cluster barriers in one cluster of `cs` CTAs; with `push`, each
+// preceded by the frame's exchange at Kp = 1024 (128 threads storing 16
+// bytes into each CTA).
+__global__ void __launch_bounds__(256, 1) cluster_probe_kernel(int cs, int iters, int push) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    uint32_t* qb = reinterpret_cast<uint32_t*>(smem);
+    const unsigned rank = cluster_rank();
+    const int tid = threadIdx.x;
+    const int QS = MAX_K + 8;
+    float q[8];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-            const int col = c0 + 8 * n + e;
-            if (col < K) {
-                if (okA) out[static_cast<long long>(rowA) * K + col] = logf(fmaxf(q[n][e], FLOOR)) + ca;
-                if (okB) out[static_cast<long long>(rowB) * K + col] = logf(fmaxf(q[n][2 + e], FLOOR)) + cb;
-            }
-        }
+    for (int i = 0; i < 8; ++i) q[i] = static_cast<float>(tid + i);
+    cluster_sync();
+    for (int it = 0; it < iters; ++it) {
+        if (push && tid < 128)
+            push_q(qb + (it & 1) * (ROWS * QS / 2), q, rank, cs, QS, tid >> 3,
+                   static_cast<int>(rank) * 64 + (tid & 7) * 8);
+        cluster_sync();
     }
 }
 
-template <int NT>
-cudaError_t launch(const float* lo, const uint2* pf, const float* lpi, float* out, int B, int T,
-                   int K, int Kp, int tc, int warps, cudaStream_t stream) {
-    const int ntiles = Kp / 8, KT = Kp / 16;
-    const size_t fixed = static_cast<size_t>(ROWS) * (Kp + 8) * 2 * 2     // q, two buffers
-                         + static_cast<size_t>(3) * MAX_WARPS * ROWS * 4;  // red_m, red_q
-    const size_t per_kt = static_cast<size_t>(ntiles) * 256;
-    int kt_res = static_cast<int>((SMEM_LIMIT - fixed) / per_kt);
-    if (kt_res > KT) kt_res = KT;
-    const size_t smem = fixed + kt_res * per_kt;
-    auto kernel = bigk_kernel<NT>;
+cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, const void* kernel, int blocks,
+                      int threads, int cs, size_t smem, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    const int blocks = (B + ROWS - 1) / ROWS;
-    kernel<<<blocks, warps * 32, smem, stream>>>(lo, pf, lpi, out, B, T, K, Kp, tc, kt_res);
-    return cudaGetLastError();
+    if (cs > 8) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return err;
+    }
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+    cfg.blockDim = dim3(static_cast<unsigned>(threads));
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = static_cast<unsigned>(cs);
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    return clusters > 0 ? cudaSuccess : cudaErrorInvalidClusterSize;
+}
+
+// The kernel for a plan of `cs` CTAs over `kp` padded states with `smem`
+// bytes a CTA, and its threads; nullptr where the plan does not fit it
+// (a slice width without an instantiation, or too few bytes for carve()).
+const void* plan_kernel(int kp, int cs, size_t smem, int& threads) {
+    if (cs < 1 || cs > MAX_CS || kp % cs != 0 || smem > SMEM_LIMIT) return nullptr;
+    const int nc = kp / cs;
+    if (smem < carve_bytes(kp, nc)) return nullptr;
+    switch (nc) {
+        case 64: threads = Tile<64>::THREADS; return reinterpret_cast<const void*>(bigk_cluster_kernel<64>);
+        case 128: threads = Tile<128>::THREADS; return reinterpret_cast<const void*>(bigk_cluster_kernel<128>);
+        case 192: threads = Tile<192>::THREADS; return reinterpret_cast<const void*>(bigk_cluster_kernel<192>);
+        case 256: threads = Tile<256>::THREADS; return reinterpret_cast<const void*>(bigk_cluster_kernel<256>);
+        default: return nullptr;
+    }
 }
 
 }  // namespace
 
-// log_obs (B, T, K) float32, frags (Kp/16, Kp/8, 32, 4) bf16 (P = bf16(exp
-// log_a), zero-padded to Kp = K rounded up to 64, in B-fragment order),
+// log_obs (B, T, K) float32; frags (CS, Kp/16, Kp/(8 CS), 32, 4) bf16: P =
+// bf16(exp log_a), zero-padded to Kp = K rounded up to 64, cut into CS
+// column slices, each in B-fragment order (ops/bigk.py cluster_fragments);
 // log_pi (K,) float32, out (B, K) float32; all contiguous on `device`.
-// 1 <= K <= 1024, 1 <= B <= 4096, T % t_chunk == 0. Launches on `stream`,
-// returns a CUDA error code.
+// 1 <= K <= 1024, 1 <= B <= 4096, T % t_chunk == 0. `cs` and `smem` are the
+// plan's (ops/bigk.py cluster_plan): CTAs a cluster (Kp / cs one of 64,
+// 128, 192, 256) and dynamic shared memory bytes a CTA, at least what the
+// kernel's carve takes. Launches ceil(B / 16) clusters on `stream`;
+// returns a CUDA error code (cudaErrorInvalidClusterSize where the card
+// cannot hold one such cluster).
 extern "C" int bigk_scoring_f32(const float* lo, const void* frags, const float* lpi, float* out,
-                                int B, int T, int K, int t_chunk, int device, void* stream) {
+                                int B, int T, int K, int cs, int smem, int t_chunk, int device,
+                                void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (B < 1 || B > MAX_B || K < 1 || K > MAX_K || T < 1 || t_chunk < 1 || T % t_chunk != 0)
+    if (B < 1 || B > MAX_B || K < 1 || K > MAX_K || T < 1 || t_chunk < 1 || T % t_chunk != 0 || smem < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const int Kp = (K + 63) / 64 * 64;
-    const int ntiles = Kp / 8;
-    const int NT = ntiles <= 16 ? 1 : ntiles <= 32 ? 2 : ntiles <= 64 ? 4 : 8;
-    const int warps = ntiles / NT;
-    const uint2* pf = static_cast<const uint2*>(frags);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (NT) {
-        case 1: err = launch<1>(lo, pf, lpi, out, B, T, K, Kp, t_chunk, warps, s); break;
-        case 2: err = launch<2>(lo, pf, lpi, out, B, T, K, Kp, t_chunk, warps, s); break;
-        case 4: err = launch<4>(lo, pf, lpi, out, B, T, K, Kp, t_chunk, warps, s); break;
-        default: err = launch<8>(lo, pf, lpi, out, B, T, K, Kp, t_chunk, warps, s); break;
+    int threads = 0;
+    const void* kernel = plan_kernel(Kp, cs, static_cast<size_t>(smem), threads);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    const int tiles = (B + ROWS - 1) / ROWS;
+    err = configure(cfg, attr, kernel, tiles * cs, threads, cs, static_cast<size_t>(smem),
+                    static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int vec = (K % 4 == 0 && reinterpret_cast<uintptr_t>(lo) % 16 == 0) ? 1 : 0;
+    const uint4* pf = static_cast<const uint4*>(frags);
+    switch (Kp / cs) {
+        case 64: err = cudaLaunchKernelEx(&cfg, bigk_cluster_kernel<64>, lo, pf, lpi, out, B, T, K, Kp, cs,
+                                          t_chunk, vec); break;
+        case 128: err = cudaLaunchKernelEx(&cfg, bigk_cluster_kernel<128>, lo, pf, lpi, out, B, T, K, Kp, cs,
+                                           t_chunk, vec); break;
+        case 192: err = cudaLaunchKernelEx(&cfg, bigk_cluster_kernel<192>, lo, pf, lpi, out, B, T, K, Kp, cs,
+                                           t_chunk, vec); break;
+        default: err = cudaLaunchKernelEx(&cfg, bigk_cluster_kernel<256>, lo, pf, lpi, out, B, T, K, Kp, cs,
+                                          t_chunk, vec); break;
     }
-    return static_cast<int>(err);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The clusters of the plan (`cs`, `smem`) for K states that the card holds
+// at once, into *clusters (0 where it cannot hold one).
+extern "C" int bigk_active_clusters(int K, int cs, int smem, int device, int* clusters) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (K < 1 || K > MAX_K || smem < 0) return static_cast<int>(cudaErrorInvalidValue);
+    const int Kp = (K + 63) / 64 * 64;
+    int threads = 0;
+    const void* kernel = plan_kernel(Kp, cs, static_cast<size_t>(smem), threads);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    err = configure(cfg, attr, kernel, cs, threads, cs, static_cast<size_t>(smem), nullptr);
+    if (err != cudaSuccess && err != cudaErrorInvalidClusterSize) return static_cast<int>(err);
+    return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
+}
+
+// One cluster of `cs` CTAs running `iters` cluster barriers (with `push`,
+// each after the q exchange of a Kp = 1024 frame): a probe of what the
+// kernel's frames cost beside their products. Launches on `stream`.
+extern "C" int bigk_cluster_probe(int cs, int iters, int push, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (cs < 1 || cs > MAX_CS || iters < 0) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = static_cast<size_t>(2) * ROWS * (MAX_K + 8) * 2;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    err = configure(cfg, attr, reinterpret_cast<const void*>(cluster_probe_kernel), cs, 256, cs, smem,
+                    static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaLaunchKernelEx(&cfg, cluster_probe_kernel, cs, iters, push);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
 }

@@ -149,3 +149,98 @@ def test_fragment_layout_holds_each_mma_b_fragment():
         assert frags[kt, nt, lane].tolist() == [pa[k, n], pa[k + 1, n], pa[k + 8, n], pa[k + 9, n]]
     assert tbigk.padded_states(1) == 64 and tbigk.padded_states(65) == 128
     assert tbigk.padded_states(1024) == 1024
+
+
+def _reassemble(slices: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``cluster_fragments``: P from its CTA slices."""
+    cs, kt, ntc = slices.shape[:3]
+    kp = kt * 16
+    pa = torch.empty((kp, kp), dtype=slices.dtype)
+    lane = torch.arange(32)
+    for c in range(cs):
+        for t in range(kt):
+            for n in range(ntc):
+                cols = (c * ntc + n) * 8 + lane // 4
+                for e in range(4):
+                    rows = t * 16 + 2 * (lane % 4) + (e % 2) + 8 * (e // 2)
+                    pa[rows, cols] = slices[c, t, n, :, e]
+    return pa
+
+
+@pytest.mark.parametrize("kp,cs", [(kp, cs) for kp in (64, 256, 512, 1024)
+                                   for cs in (1, 2, 4, 8, 16) if kp % (8 * cs) == 0])
+def test_cluster_slices_reassemble_p_exactly(kp, cs):
+    """Each CTA's slice holds its ``Kp / cs`` columns, all rows, in the
+    B-fragment order of ``_fragments``, and the slices give P back bit for
+    bit."""
+    pa = torch.randn(kp, kp, generator=torch.Generator().manual_seed(kp + cs)).to(torch.bfloat16)
+    slices = tbigk.cluster_fragments(pa, cs)
+    assert slices.shape == (cs, kp // 16, kp // (8 * cs), 32, 4) and slices.is_contiguous()
+    assert torch.equal(_reassemble(slices), pa)
+    width = kp // cs
+    whole = tbigk._fragments(pa)
+    for c in range(cs):
+        assert torch.equal(slices[c], whole[:, c * width // 8:(c + 1) * width // 8])
+
+
+@pytest.mark.parametrize("batch", [1, 16, 48, 4096])
+def test_cluster_plan_fits_shared_memory_at_every_k(batch):
+    """Every K in 1..1024: CS CTAs whose slices (of a width the kernel
+    has) cover Kp, at most 16 of them, ceil(B / 16) clusters, and at most
+    232,448 bytes of shared memory a CTA, all of P's slice resident."""
+    for k in range(1, tbigk.MAX_BIGK_STATES + 1):
+        plan = tbigk.cluster_plan(k, batch)
+        assert plan.kp == tbigk.padded_states(k) and plan.kp >= k
+        nc = plan.kp // plan.cs
+        assert plan.cs * nc == plan.kp and nc in tbigk.SLICE_WIDTHS and 1 <= plan.cs <= 16
+        assert plan.rows == 16 and plan.clusters == -(-batch // 16)
+        assert plan.kp * nc * 2 < plan.smem <= tbigk.SMEM_LIMIT, (k, plan)
+    assert tbigk.cluster_plan(1000, 17) == tbigk.cluster_plan(1024, 32)
+
+
+@pytest.mark.parametrize("k,batch,cs", [
+    (1024, 16, 16), (1024, 4096, 16), (512, 48, 8), (512, 256, 8), (512, 272, 4), (512, 4096, 4),
+    (256, 8, 4), (256, 528, 4), (256, 544, 1), (256, 4096, 1), (128, 8, 2), (128, 4096, 1),
+    (384, 400, 2), (12, 4, 1), (768, 20, 12), (768, 4096, 12)])
+def test_cluster_size_spreads_small_batches_and_packs_large_ones(k, batch, cs):
+    """One CTA per 64 columns while every cluster fits on the card's 132
+    SMs at once; past that the fewest CTAs whose slice fits."""
+    assert tbigk.cluster_plan(k, batch).cs == cs
+
+
+def test_cluster_plan_bytes_and_refused_slices():
+    """The plan's bytes at K=1024 over 16 CTAs: P's slice 131,072, two q
+    buffers 66,048, the k partials 18,432 and the row maxima 3,072; a
+    cluster size whose slice the kernel has no width for, or whose slice
+    does not fit, is refused."""
+    assert tbigk.cluster_plan(1024, 16, 16).smem == 131072 + 66048 + 18432 + 3072
+    assert tbigk.cluster_plan(256, 8, 1).smem == 256 * 256 * 2 + 2 * 16 * 264 * 2 + 4 * 16 * 264 * 4 + 3 * 4 * 64
+    for k, cs in [(512, 3), (512, 1), (64, 2)]:
+        with pytest.raises(ValueError, match="no slice"):
+            tbigk.cluster_plan(k, 16, cs)
+    with pytest.raises(ValueError, match="over 232448"):
+        tbigk.cluster_plan(1024, 16, 8)
+
+
+@pytest.mark.parametrize("kp,cs", [(64, 1), (512, 8), (1024, 16)])
+def test_cached_slice_index_gathers_the_cluster_layout(kp, cs):
+    """The wrapper's one-gather layout (a cached flat index into P) is
+    ``cluster_fragments`` bit for bit."""
+    pa = torch.randn(kp, kp, generator=torch.Generator().manual_seed(kp)).to(torch.bfloat16)
+    idx = tbigk._slice_index(kp, cs, torch.device("cpu"))
+    got = pa.reshape(-1)[idx].reshape(cs, kp // 16, kp // (8 * cs), 32, 4)
+    assert torch.equal(got, tbigk.cluster_fragments(pa, cs))
+
+
+def test_offset_view_of_log_obs_scores_as_its_copy():
+    """Log-obs in a contiguous view 4 bytes past its storage's start (on
+    the card, off the kernel's 16-byte loads) score as their copy."""
+    g = torch.Generator().manual_seed(7)
+    b, t, k = 3, 128, 64
+    buf = torch.randn(1 + b * t * k, generator=g)
+    view = buf[1:].view(b, t, k)
+    assert view.is_contiguous() and view.storage_offset() == 1
+    la = torch.log_softmax(torch.randn(k, k, generator=g), -1)
+    lp = torch.full((k,), -float(np.log(k)))
+    torch.testing.assert_close(tbigk.bigk_log_likelihood(view, la, lp),
+                               tbigk.bigk_log_likelihood(view.clone(), la, lp), rtol=0, atol=0)

@@ -147,3 +147,43 @@ def test_emission_gradients_match_jax(cov):
     (gmm_component_log_probs(*args, cov) * torch.from_numpy(w)).sum().backward()
     for a, g in zip(args, want):
         np.testing.assert_allclose(a.grad.numpy(), np.asarray(g), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("D", [1, 7, 16, 77, 80, 128, 200, 256])
+def test_column_tile_plan_covers_n_and_fits_shared_memory(D):
+    """Row 1's launch plan for N up to 2048: ceil(N / 64) column tiles of
+    8·tn columns that cover N with less than one column group of padding
+    a tile (N=48: one tile of 48; N=256: four of 64), and at most 232,448
+    bytes of shared memory a block, weights resident while they take at
+    most 96 KB."""
+    from pytorch_hmm_tpu_torch.ops import emit
+
+    for N in range(1, 2049):
+        plan = emit.dq_plan(D, N)
+        width = 8 * plan.tn
+        assert 1 <= plan.tn <= 8 and plan.col_tiles == -(-N // 64)
+        assert plan.col_tiles * width >= N > (plan.col_tiles - 1) * width
+        assert plan.col_tiles * width - N < 8 * plan.col_tiles
+        assert 0 < plan.smem <= emit.SMEM_LIMIT, (D, N, plan)
+        assert plan.resident == (8 * -(-D // 16) * 16 * width <= emit.DQ_RESIDENT_BYTES)
+    assert emit.dq_plan(80, 48)[:3] == (6, 1, True)
+    assert emit.dq_plan(80, 256)[:2] == (8, 4)
+    assert emit.dq_plan(80, 64)[:2] == (8, 1)
+
+
+def test_forward_without_gradient_matches_the_autograd_function():
+    """Where no input records a gradient the forward skips the autograd
+    Function; it returns the same values, and with a gradient the
+    Function still runs (a grad_fn, the same values)."""
+    from pytorch_hmm_tpu_torch.ops import emit
+
+    g = torch.Generator().manual_seed(3)
+    x, wq, wl = torch.randn(2, 9, 5, generator=g), torch.rand(5, 7, generator=g), torch.randn(5, 7, generator=g)
+    bias = torch.randn(7, generator=g)
+    plain = emit.diag_quadratic(x, wq, wl, bias)
+    assert plain.grad_fn is None
+    tracked = emit.diag_quadratic(x, wq.requires_grad_(), wl, bias)
+    assert tracked.grad_fn is not None
+    torch.testing.assert_close(plain, tracked.detach(), rtol=0, atol=0)
+    with torch.no_grad():
+        torch.testing.assert_close(emit.diag_quadratic(x, wq, wl, bias), plain, rtol=0, atol=0)
