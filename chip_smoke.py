@@ -88,8 +88,11 @@ T=131072, K=64) and full covariance at the width of two of its rows:
 
 * the prob-space chains of ``csrc/scan_prob.cu`` (rows 10-12) against
   their plain versions (headline B=32 T=4096 K=64, K=33, 128, 12, T not
-  a multiple of the rescale interval, T=1, rs=4, a finite left-to-right
-  ``safe_log`` matrix, whose posteriors are also held to float64);
+  a multiple of the rescale interval, K=33 at T=1001 off 16-byte
+  alignment, T=1, rs=4, a finite left-to-right
+  ``safe_log`` matrix, whose posteriors are also held to float64), then
+  timed by phase in a probe build of that source (``SCAN_PROB_PROBE``)
+  at B=32, T=4096 and K=12, 64, 128;
 * ``ops.auto_forward``, ``ops.auto_log_likelihood`` and its gradient at
   B=32, T=131072, K=64, each launching its prob-space kernel once and
   the log-space chains never; two rows against float64; a ``-inf``
@@ -149,10 +152,12 @@ and a fused ``MixtureGaussianHMMLayer`` decode, one long-context
 gradient call, three full-covariance calls and three CTC loss steps, and
 times the prob gate's host read.
 
-Phases, one line each: card, build, each kernel vs plain, decode,
+Phases, one line each: card, build, each kernel vs plain (with the
+bf16 scorers on the card against the CPU after row 1), decode,
 training, duration-model decode, duration-model training, stream
 kernels, streaming serve, fleets, neural kernels, neural models,
-general-K kernels, general-K slice, prob-space kernels, long context,
+general-K kernels, general-K slice, prob-space kernels, the prob-space
+probe (a line per row and K), long context,
 full covariance, CTC kernels, CTC slice, DTW kernel, DTW slice, scoring
 kernel, scoring, timing.
 Any failure exits non-zero
@@ -182,6 +187,10 @@ TIMED_RUNS = 20
 PLAIN_SUM_RUNS = 5      # the plain sum recursions are Python loops of T steps
 # Tolerance of the JAX kernel's own test (tests/test_ops_emit.py).
 DQ_ATOL, DQ_RTOL = 2e-4, 1e-5
+# compute_dtype=bfloat16 scores on the card against the same call on the
+# CPU: the same bf16-rounded operands, float32 products and sums in
+# another order.
+BF16_CARD_ATOL, BF16_CARD_RTOL = 1e-3, 1e-5
 # Row 1 at the other widths the main path gives it: N=256 (the S=64, C=4
 # GMM decode), N=64 (GaussianHMMLayer(64, 80)) and N=10 (HSMMLayer's S=10).
 DQ_WIDE = ((B, T, D, 256), (B, T, D, 64), (B, T, D, 10))
@@ -569,11 +578,12 @@ def phase_build():
     from pytorch_hmm_tpu_torch.ops import _build
 
     libs = sorted({Path(k["source"]).stem for k in KERNELS.values()})
+    jobs = [(lib, ()) for lib in libs] + [("scan_prob", PROBE_DEFINES)]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as pool:
-        for future in [pool.submit(_build.build, lib) for lib in libs]:
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for future in [pool.submit(_build.build, lib, defines) for lib, defines in jobs]:
             future.result()
-    return time.perf_counter() - t0, libs
+    return time.perf_counter() - t0, libs + ["scan_prob (probe)"]
 
 
 def kernel_fns():
@@ -625,6 +635,52 @@ def phase_diag_quadratic(dev, gen):
         check(torch.allclose(got, want, atol=DQ_ATOL, rtol=DQ_RTOL),
               f"diag_quadratic {(b, t, d, n)} disagrees: max abs err {err}")
     return errs
+
+
+def phase_bf16_scoring(dev):
+    """``emissions.gmm_log_probs(..., compute_dtype=torch.bfloat16)`` at
+    the GMM width (B, T, S, C, D) for each covariance type, on CUDA
+    tensors against the same call on the CPU. Full covariance is held
+    through ``full_gaussian_log_probs_prepared`` on the card's own
+    ``fullcov_prepare`` tables: the float32 Cholesky algebra differs in
+    its last bits between the devices, and rounding the precision
+    matrices to bf16 turns that into whole bf16 steps. This path is plain
+    torch on every device (row 1 computes only true float32), so it also
+    returns row 1's launches over the calls, 0 until row 1 has a bf16
+    mode. Returns ``({cov: max abs err}, launches)``."""
+    import torch
+    from pytorch_hmm_tpu_torch import emissions
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    obs = torch.randn(B, T, D, device=dev, generator=g)
+    means = torch.randn(S, C, D, device=dev, generator=g)
+    logits = torch.randn(S, C, device=dev, generator=g)
+    cov = {"diag": 0.3 * torch.randn(S, C, D, device=dev, generator=g),
+           "tied": 0.3 * torch.randn(D, device=dev, generator=g),
+           "spherical": 0.3 * torch.randn(S, C, device=dev, generator=g),
+           "full": 0.05 * torch.randn(S, C, D * (D + 1) // 2, device=dev, generator=g)}
+    cpu = lambda a: a.cpu() if torch.is_tensor(a) else a  # noqa: E731
+    errs = {}
+    reset_launches()
+    for kind, cp in cov.items():
+        args = (obs, means, cp, logits, kind)
+        got = emissions.gmm_log_probs(*args, compute_dtype=bf16)
+        check(got.shape == (B, T, S) and got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+              f"bf16 gmm_log_probs {kind}: {tuple(got.shape)} {got.dtype}")
+        if kind == "full":
+            prep = emissions.fullcov_prepare(means.reshape(S * C, D),
+                                             emissions.tril_from_flat(cp.reshape(S * C, -1), D))
+            got = emissions.full_gaussian_log_probs_prepared(obs, prep, compute_dtype=bf16)
+            want = emissions.full_gaussian_log_probs_prepared(
+                obs.cpu(), {k: cpu(v) for k, v in prep.items()}, compute_dtype=bf16)
+        else:
+            want = emissions.gmm_log_probs(*map(cpu, args), compute_dtype=bf16)
+        errs[kind] = (got.cpu() - want).abs().max().item()
+        check(torch.allclose(got.cpu(), want, atol=BF16_CARD_ATOL, rtol=BF16_CARD_RTOL),
+              f"bf16 {kind} scores on the card vs the CPU: max abs err {errs[kind]}")
+    torch.cuda.synchronize(dev)
+    return errs, read_launches(["diag_quadratic"])["diag_quadratic"]
 
 
 def _viterbi_cases(dev, gen):
@@ -2252,6 +2308,10 @@ def _prob_cases(dev, gen):
     return {
         "headline": rand(LB, PROB_T, LK),
         "K=33": rand(8, 1000, 33),
+        # T K odd: every other sequence starts off 16-byte alignment and the
+        # last chunk (41 rows of 33) is no multiple of 16 bytes, so the
+        # warp-specialised producer stages them by 4-byte cp.async.
+        "K=33 T=1001": rand(4, 1001, 33),
         "K=128": rand(8, 1000, 128),
         "K=12": rand(8, 1000, 12),
         "T=1001": rand(8, 1001, LK),
@@ -2314,6 +2374,66 @@ def phase_prob_kernels(dev, gen):
     l2r_err = (torch.softmax(f_alpha + f_beta, -1).double() - g64).abs().max().item()
     check(l2r_err <= GENK_POST_ATOL, f"left-to-right posteriors off float64 by {l2r_err}")
     return worst, worst_split, l2r_err, list(cases), cases["headline"][:3]
+
+
+# The phase probe of rows 10-12 (a separate build of csrc/scan_prob.cu with
+# SCAN_PROB_PROBE defined) at B=32, T=4096: each role of the chain's block
+# stamps its own phases of a chunk.
+PROBE_DEFINES = ("SCAN_PROB_PROBE",)
+PROBE_KS = (12, 64, 128)
+PROBE_PHASES = ("chain wait", "frame loop", "producer wait", "producer work", "epilogue work")
+PROBE_CHAINS = {"pallas_forward_prob": 1, "pallas_backward_prob": 2, "pallas_fb_prob": 3}
+
+
+def phase_prob_probe(dev, gen):
+    """Rows 10-12 timed by phase: per (row, K), each phase's median cycles
+    a chunk over every block and chunk, the kernel's time (CUDA events
+    around the probed launch) and the SM clock that time implies (the
+    median block's chain cycles, its wait and frame loop, over it), from
+    which each phase's µs a frame."""
+    import ctypes
+
+    import torch
+    from pytorch_hmm_tpu_torch.ops import _build
+
+    _P, _I = ctypes.c_void_p, ctypes.c_int
+    lib = _build.load("scan_prob", {"scan_prob_probe_f32": [_P] * 8 + [_I] * 6 + [_P]}, PROBE_DEFINES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    for k in PROBE_KS:
+        lo = torch.randn(LB, PROB_T, k, device=dev, generator=gen)
+        pa = torch.softmax(torch.randn(k, k, device=dev, generator=gen), -1).contiguous()
+        lp = torch.log_softmax(torch.randn(k, device=dev, generator=gen), -1)
+        tables = [torch.empty(LB, PROB_T, k, device=dev) for _ in range(2)]
+        shifts = [torch.empty(LB, PROB_T, device=dev) for _ in range(2)]
+        nch = -(-PROB_T // 64)
+        for row, chains in PROBE_CHAINS.items():
+            blocks = 2 * LB if chains == 3 else LB
+            probe = torch.zeros(blocks, nch, len(PROBE_PHASES), dtype=torch.int64, device=dev)
+
+            def run():
+                _build.check(lib.scan_prob_probe_f32(
+                    lo.data_ptr(), pa.data_ptr(), lp.data_ptr(), *(t.data_ptr() for t in tables),
+                    *(t.data_ptr() for t in shifts), probe.data_ptr(), LB, PROB_T, k, 8, chains,
+                    dev.index, stream), "probe")
+
+            ms = cuda_median_ms(run, runs=5, warmup=1)
+            cycles = probe.double()
+            mhz = cycles[..., :2].sum(dim=(1, 2)).median().item() / (ms * 1e3)
+            med = cycles.reshape(-1, len(PROBE_PHASES)).median(dim=0).values.tolist()
+            out[(row, k)] = {"ms": ms, "mhz": mhz, "cycles": dict(zip(PROBE_PHASES, med)),
+                             "us_frame": {n: c / 64 / mhz for n, c in zip(PROBE_PHASES, med)},
+                             "total_us_frame": ms * 1e3 / PROB_T}
+    return out
+
+
+def probe_lines(probe, card):
+    """One line per probed (row, K)."""
+    return [f"prob probe {row} (B={LB}, T={PROB_T}, K={k}): {r['ms']:.4f} ms, "
+            f"{r['total_us_frame']:.4f} us a frame at {r['mhz']:.0f} MHz; median a chunk: "
+            + ", ".join(f"{n} {c:.0f} cycles ({r['us_frame'][n]:.4f} us a frame)" for n, c in r["cycles"].items())
+            + f" on {card}"
+            for (row, k), r in probe.items()]
 
 
 def _ll_grads(lo, la, lp):
@@ -3442,6 +3562,12 @@ def main() -> int:
     print("diag_quadratic vs plain: ok, max abs err "
           + ", ".join(f"{k}: {v:.3g}" for k, v in dq_errs.items())
           + f" (atol {DQ_ATOL}, rtol {DQ_RTOL}, TF32 off)", flush=True)
+    bf16_errs, bf16_dq = phase_bf16_scoring(dev)
+    print(f"bf16 scoring (gmm_log_probs, compute_dtype=bfloat16, B={B} T={T} S={S} C={C} D={D}; full "
+          "from the card's prepared tables) on the "
+          "card vs the CPU: ok, max abs err " + ", ".join(f"{k}: {v:.3g}" for k, v in bf16_errs.items())
+          + f" (atol {BF16_CARD_ATOL}, rtol {BF16_CARD_RTOL}); plain torch on the card, diag_quadratic "
+          f"launches {bf16_dq} (row 1 has no bf16 mode)", flush=True)
 
     vit_err = phase_smallk_viterbi(dev, gen)
     print(f"smallk_viterbi vs plain: ok, paths identical on 6 cases, max abs score err {vit_err:.3g}",
@@ -3564,6 +3690,8 @@ def main() -> int:
           + f" (relative tables atol {PROB_REL_ATOL}; shifts and log Z atol {PROB_ATOL} + rtol "
           f"{PROB_RTOL}); left-to-right safe_log case posteriors vs "
           f"float64 {l2r_err:.3g} (atol {GENK_POST_ATOL})", flush=True)
+    for line in probe_lines(phase_prob_probe(dev, torch.Generator(device=dev).manual_seed(SEED + 11)), card):
+        print(line, flush=True)
     long = phase_long_context(dev)
     print(f"long context (B={LB}, T={LT}, K={LK}; ops.auto_forward, auto_log_likelihood and its "
           f"gradient): ok, launches {long['launches']}; {LONG_SUB} rows vs float64 (log Z, log alpha "

@@ -158,6 +158,7 @@ def viterbi_blocked(
     log_a: torch.Tensor,
     log_pi: torch.Tensor,
     blocks: int = 8,
+    unroll: int = 8,
     lengths: Optional[torch.Tensor] = None,
 ):
     """Time-block-parallel Viterbi on one device.
@@ -169,7 +170,9 @@ def viterbi_blocked(
     hypothesis, stitched from the last block back. Three chains of
     length T/P replace two of length T. Static transitions only;
     ``lengths`` make padded frames identity steps. Returns ``(states (B,
-    T) int32, score (B,))``, identical to :func:`viterbi`.
+    T) int32, score (B,))``, identical to :func:`viterbi`. ``unroll`` is
+    the JAX package's scan unroll hint for XLA; a torch loop has no such
+    hint, so it is accepted and unused.
     """
     B, T, K = log_obs.shape
     if log_a.ndim != 2:

@@ -22,6 +22,14 @@ package, which has no kernel for them either), chunked over time only
 to bound memory. Float32 products must run in full float32: the
 emission scores feed posterior-grade chains, so TF32
 (``torch.backends.cuda.matmul.allow_tf32``, off by default) stays off.
+
+Every scoring function takes ``compute_dtype``, as in the JAX package.
+``None`` or ``torch.float32`` is the path above: true float32, the diag
+quadratic through the kernel on the card. ``torch.bfloat16`` rounds the
+contractions' operands to bf16 and accumulates in float32
+(:func:`precision.mxu_einsum`), in plain torch on every device: the
+JAX package's own path off the TPU. The returned scores are float32
+either way.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ import torch
 
 from .core.semiring import logsumexp
 from .ops.emit import diag_quadratic
+from .precision import compute_dtype as _resolve_dtype
+from .precision import mxu_einsum
 
 __all__ = [
     "diag_gaussian_log_probs",
@@ -51,13 +61,19 @@ __all__ = [
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
+def _bf16(compute_dtype) -> bool:
+    """True when ``compute_dtype`` asks for bf16 contractions."""
+    return _resolve_dtype(compute_dtype) == torch.bfloat16
+
+
 def diag_gaussian_log_probs(
-    obs: torch.Tensor, means: torch.Tensor, log_vars: torch.Tensor
+    obs: torch.Tensor, means: torch.Tensor, log_vars: torch.Tensor, compute_dtype=None
 ) -> torch.Tensor:
     """Diagonal-covariance Gaussian scores.
 
     Args:
         obs: ``(B, T, D)``; means: ``(K, D)``; log_vars: ``(K, D)``.
+        compute_dtype: the contraction dtype (module docstring).
     Returns:
         ``(B, T, K)`` log N(obs; mean_k, diag(exp(log_vars_k))).
     """
@@ -65,6 +81,12 @@ def diag_gaussian_log_probs(
     inv_var = torch.exp(-log_vars)                        # (K, D)
     mm = torch.sum(means * means * inv_var, dim=-1)       # (K,)
     log_norm = -0.5 * (D * _LOG_2PI + torch.sum(log_vars, dim=-1))
+    if _bf16(compute_dtype):
+        # The JAX package's form off the TPU: [x², x, 1] @ [1/σ²; -2μ/σ²;
+        # Σμ²/σ²], x squared in float32 before the bf16 rounding.
+        W = torch.cat([inv_var, -2.0 * means * inv_var, mm[..., None]], dim=-1)
+        aug = torch.cat([obs * obs, obs, torch.ones_like(obs[..., :1])], dim=-1)
+        return log_norm - 0.5 * mxu_einsum("bte,ke->btk", aug, W, dtype=torch.bfloat16)
     mahal = diag_quadratic(
         obs.contiguous(),
         inv_var.T.contiguous(),
@@ -75,14 +97,17 @@ def diag_gaussian_log_probs(
 
 
 def spherical_gaussian_log_probs(
-    obs: torch.Tensor, means: torch.Tensor, log_vars: torch.Tensor
+    obs: torch.Tensor, means: torch.Tensor, log_vars: torch.Tensor, compute_dtype=None
 ) -> torch.Tensor:
     """Isotropic Gaussian scores; ``log_vars`` is ``(K,)`` (σ² shared over
     dimensions). A plain product on every device, as in the JAX package."""
     D = obs.shape[-1]
     inv_var = torch.exp(-log_vars)                        # (K,)
     x2 = torch.sum(obs * obs, dim=-1)                     # (B, T)
-    xm = obs @ means.T                                    # (B, T, K)
+    if _bf16(compute_dtype):
+        xm = mxu_einsum("btd,kd->btk", obs, means, dtype=torch.bfloat16)
+    else:
+        xm = obs @ means.T                                # (B, T, K)
     m2 = torch.sum(means * means, dim=-1)                 # (K,)
     mahal = (x2[..., None] - 2.0 * xm + m2) * inv_var
     log_norm = -0.5 * D * (_LOG_2PI + log_vars)
@@ -113,15 +138,20 @@ def fullcov_prepare(means: torch.Tensor, chol: torch.Tensor) -> dict:
     return {"prec": prec, "pm": pm, "mm": mm, "center": center, "log_norm": log_norm}
 
 
-def _fullcov_scored_prepared(obs, prep, time_chunk, mixture):
+def _fullcov_scored_prepared(obs, prep, time_chunk, compute_dtype, mixture):
     D = obs.shape[-1]
     prec, pm, mm = prep["prec"], prep["pm"], prep["mm"]
     K = prec.shape[0]
+    # bf16 contractions: the operands (centered x, Σ⁻¹, Σ⁻¹μ̃) rounded to
+    # bf16, every product and sum in float32, as the JAX package's
+    # mxu_einsum computes them off the TPU.
+    rnd = (lambda t: t.to(torch.bfloat16).to(torch.float32)) if _bf16(compute_dtype) else (lambda t: t)
+    prec, pm = rnd(prec), rnd(pm)
     # prec as one (D, K·D) operand: x @ W gives every component's Px.
     W = prec.permute(1, 0, 2).reshape(D, K * D)
 
     def score(x):
-        x = x - prep["center"]
+        x = rnd(x - prep["center"])
         px = (x @ W).reshape(*x.shape[:-1], K, D)
         xpx = torch.einsum("btkd,btd->btk", px, x)
         # A true Mahalanobis distance is non-negative; clamp so rounding
@@ -141,11 +171,11 @@ def _fullcov_scored_prepared(obs, prep, time_chunk, mixture):
 
 
 def full_gaussian_log_probs_prepared(
-    obs: torch.Tensor, prep: dict, time_chunk: int = 128
+    obs: torch.Tensor, prep: dict, time_chunk: int = 128, compute_dtype=None
 ) -> torch.Tensor:
     """Full-covariance scores ``(B, T, K)`` from :func:`fullcov_prepare`
     tables, ``time_chunk`` frames at a time."""
-    return _fullcov_scored_prepared(obs, prep, time_chunk, mixture=None)
+    return _fullcov_scored_prepared(obs, prep, time_chunk, compute_dtype, mixture=None)
 
 
 def fullcov_mixture_log_probs_prepared(
@@ -154,24 +184,29 @@ def fullcov_mixture_log_probs_prepared(
     num_states: int,
     num_components: int,
     time_chunk: int = 128,
+    compute_dtype=None,
 ) -> torch.Tensor:
     """Mixture-marginalized state scores ``(B, T, S)`` from
     :func:`fullcov_prepare` tables with the log mixture weights folded
     into ``prep["log_norm"]``; the logsumexp over components runs inside
     each time chunk, so no ``(B, T, S·C)`` tensor is formed (the serving
     decoder, ``MixtureGaussianHMMLayer.make_decoder``)."""
-    return _fullcov_scored_prepared(obs, prep, time_chunk,
+    return _fullcov_scored_prepared(obs, prep, time_chunk, compute_dtype,
                                     mixture=(num_states, num_components))
 
 
 def full_gaussian_log_probs(
-    obs: torch.Tensor, means: torch.Tensor, chol: torch.Tensor, time_chunk: int = 128
+    obs: torch.Tensor,
+    means: torch.Tensor,
+    chol: torch.Tensor,
+    time_chunk: int = 128,
+    compute_dtype=None,
 ) -> torch.Tensor:
     """Full-covariance Gaussian scores ``(B, T, K)`` from means ``(K, D)``
     and lower-triangular Cholesky factors ``chol (K, D, D)`` with
     positive diagonals: :func:`fullcov_prepare`, then
     :func:`full_gaussian_log_probs_prepared`."""
-    return full_gaussian_log_probs_prepared(obs, fullcov_prepare(means, chol), time_chunk)
+    return full_gaussian_log_probs_prepared(obs, fullcov_prepare(means, chol), time_chunk, compute_dtype)
 
 
 def gaussian_log_probs(
@@ -179,6 +214,7 @@ def gaussian_log_probs(
     means: torch.Tensor,
     log_scales: torch.Tensor,
     covariance_type: str = "diag",
+    compute_dtype=None,
 ) -> torch.Tensor:
     """``GaussianHMMLayer``'s scores ``(B, T, K)``: ``log_scales`` are
     log standard deviations, ``(K, D)`` for diag and ``(K, 1)`` for
@@ -186,13 +222,13 @@ def gaussian_log_probs(
     ``log_scales (K, D, D)`` are raw: the Cholesky factor is their strict
     lower triangle plus ``exp`` of their diagonal."""
     if covariance_type == "diag":
-        return diag_gaussian_log_probs(obs, means, 2.0 * log_scales)
+        return diag_gaussian_log_probs(obs, means, 2.0 * log_scales, compute_dtype)
     if covariance_type == "spherical":
-        return spherical_gaussian_log_probs(obs, means, 2.0 * log_scales[..., 0])
+        return spherical_gaussian_log_probs(obs, means, 2.0 * log_scales[..., 0], compute_dtype)
     if covariance_type == "full":
         diag = torch.exp(torch.diagonal(log_scales, dim1=-2, dim2=-1))
         chol = torch.tril(log_scales, diagonal=-1) + torch.diag_embed(diag)
-        return full_gaussian_log_probs(obs, means, chol)
+        return full_gaussian_log_probs(obs, means, chol, compute_dtype=compute_dtype)
     raise ValueError(f"Unknown covariance_type: {covariance_type}")
 
 
@@ -233,6 +269,8 @@ def gmm_component_log_probs(
     means: torch.Tensor,
     cov_params: torch.Tensor,
     covariance_type: str = "diag",
+    time_chunk: int = 128,
+    compute_dtype=None,
 ) -> torch.Tensor:
     """Per-component Gaussian scores ``(B, T, S, C)``.
 
@@ -240,22 +278,23 @@ def gmm_component_log_probs(
     ``(S, C, D)``; ``full`` → flattened Cholesky factors ``(S, C,
     D(D+1)/2)`` (:func:`tril_from_flat`); ``tied`` → shared
     log-variances ``(D,)``; ``spherical`` → log-variance ``(S, C)``.
+    ``time_chunk`` bounds the full-covariance scorer's intermediate.
     """
     B, T, D = obs.shape
     S, C, _ = means.shape
     m2 = means.reshape(S * C, D)
 
     if covariance_type == "diag":
-        out = diag_gaussian_log_probs(obs, m2, cov_params.reshape(S * C, D))
+        out = diag_gaussian_log_probs(obs, m2, cov_params.reshape(S * C, D), compute_dtype)
     elif covariance_type == "tied":
         # One diagonal covariance shared across all states/components.
         lv2 = cov_params.expand(S * C, D)
-        out = diag_gaussian_log_probs(obs, m2, lv2)
+        out = diag_gaussian_log_probs(obs, m2, lv2, compute_dtype)
     elif covariance_type == "spherical":
-        out = spherical_gaussian_log_probs(obs, m2, cov_params.reshape(S * C))
+        out = spherical_gaussian_log_probs(obs, m2, cov_params.reshape(S * C), compute_dtype)
     elif covariance_type == "full":
         chol = tril_from_flat(cov_params.reshape(S * C, -1), D)
-        out = full_gaussian_log_probs(obs, m2, chol)
+        out = full_gaussian_log_probs(obs, m2, chol, time_chunk, compute_dtype)
     else:
         raise ValueError(f"Unknown covariance_type: {covariance_type}")
     return out.reshape(B, T, S, C)
@@ -267,9 +306,11 @@ def gmm_log_probs(
     cov_params: torch.Tensor,
     mixture_logits: torch.Tensor,
     covariance_type: str = "diag",
+    time_chunk: int = 128,
+    compute_dtype=None,
 ) -> torch.Tensor:
     """Mixture-marginalized state scores ``(B, T, S)``:
     ``logsumexp_c(log w_{s,c} + log N_c(x))``."""
-    comp = gmm_component_log_probs(obs, means, cov_params, covariance_type)
+    comp = gmm_component_log_probs(obs, means, cov_params, covariance_type, time_chunk, compute_dtype)
     log_w = torch.log_softmax(mixture_logits, dim=-1)     # (S, C)
     return logsumexp(comp + log_w, dim=-1)

@@ -601,12 +601,13 @@ def auto_viterbi(
 def auto_gmm_viterbi(
     obs: torch.Tensor,
     means: torch.Tensor,
-    cov_params: torch.Tensor,
-    log_w: torch.Tensor,
-    log_a: torch.Tensor,
-    log_pi: torch.Tensor,
+    cov_params: Optional[torch.Tensor] = None,
+    log_w: Optional[torch.Tensor] = None,
+    log_a: Optional[torch.Tensor] = None,
+    log_pi: Optional[torch.Tensor] = None,
     lengths: Optional[torch.Tensor] = None,
     covariance_type: str = "diag",
+    log_vars: Optional[torch.Tensor] = None,
 ):
     """GMM-HMM decode ``(states, score)`` — the decode path, in the JAX
     package's order: off the CPU, S ≤ 32 scores the emissions
@@ -614,10 +615,13 @@ def auto_gmm_viterbi(
     and tied covariances) into ``smallk_viterbi``; diag covariance inside
     :func:`fused_gmm_supported` runs ``fused_gmm_viterbi`` (emission and
     trellis in one launch); everything else scores the emissions into
-    :func:`auto_viterbi`.
+    :func:`auto_viterbi`. ``log_vars`` is the JAX package's older name of
+    ``cov_params``, taken when ``cov_params`` is not given.
     """
     from ..emissions import gmm_log_probs
 
+    if cov_params is None:
+        cov_params = log_vars
     S, C = log_w.shape
     if (obs.device.type != "cpu" and not smallk_supported(S) and covariance_type == "diag"
             and fused_gmm_supported(S, C, covariance_type)):

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` functions that
 launch a kernel on the stream they are given and return
 ``cudaGetLastError()``. At first use it is compiled with ``nvcc`` for
 ``sm_90a`` into ``_build/lib<name>-<hash>.so``, where the hash covers
-the source and the compiler flags, and loaded with ``ctypes``. Nothing
+the source and the compiler flags, and loaded with ``ctypes``. A build
+with macros defined (``defines``, for example a probe build) is a
+separate library beside the plain one. Nothing
 is built or loaded when the package is imported, so it imports on
 machines with no GPU and no CUDA toolkit.
 
@@ -34,7 +36,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -55,16 +57,21 @@ def _nvcc() -> str:
     )
 
 
-def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built to, keyed by source and flags."""
+def _flags(defines: tuple) -> tuple:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def library_path(name: str, defines: tuple = ()) -> Path:
+    """Where ``csrc/<name>.cu`` is built to, keyed by source and flags
+    (``defines``: macros passed as ``-D``)."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + "\0".join(_flags(defines)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: tuple = ()) -> Path:
     """Compile ``csrc/<name>.cu`` unless its keyed library exists."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.is_file():
         return out
     nvcc = _nvcc()
@@ -73,7 +80,7 @@ def build(name: str) -> Path:
     # see a half-written library.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc, *_flags(defines), "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -88,16 +95,18 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
+def load(name: str, signatures: dict, defines: tuple = ()) -> ctypes.CDLL:
     """Build if needed, then load ``csrc/<name>.cu`` and declare the
     ``argtypes`` of each exported function in ``signatures`` (``{fn:
     [ctypes types]}``) not declared yet, so modules that share one
     library each declare the functions they call. Every function
-    returns a CUDA error code as ``int``."""
-    lib = _loaded.get(name)
+    returns a CUDA error code as ``int``. ``defines`` selects a build with
+    those macros defined."""
+    key = (name, tuple(defines))
+    lib = _loaded.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
-        _loaded[name] = lib
+        lib = ctypes.CDLL(str(build(name, tuple(defines))))
+        _loaded[key] = lib
     for fn, argtypes in signatures.items():
         f = getattr(lib, fn)
         if f.argtypes is None:

@@ -35,8 +35,11 @@ _ARGS = [
 _SIGNATURES = {"smallk_viterbi_f32": _ARGS, "smallk_viterbi_tv_f32": _ARGS}
 
 
-def smallk_supported(num_states: int) -> bool:
-    """True when the CUDA trellis kernel takes ``num_states`` states."""
+def smallk_supported(num_states: int, batch: Optional[int] = None) -> bool:
+    """True when the CUDA trellis kernel takes ``num_states`` states.
+    ``batch`` is the JAX package's batch gate (its kernel tiles the batch
+    on lanes); the CUDA kernel runs a block per sequence at any batch, so
+    it is accepted and unused."""
     return 1 <= num_states <= MAX_SMALLK
 
 

@@ -2,7 +2,7 @@
 
 Port of ``pytorch_hmm_tpu/precision.py``: the same two process-wide
 flags, ``USE_MIXED_PRECISION`` and ``USE_CHECKPOINTING``, both on by
-default, ``compute_dtype`` and ``maybe_remat``.
+default, ``compute_dtype``, ``mxu_einsum`` and ``maybe_remat``.
 
 On the H100 the mixed flag is meant to select bf16 or TF32 tensor-core
 contractions for emission scoring. No kernel of this package has such
@@ -10,6 +10,8 @@ a path yet: every kernel (``ops.emit``, ``ops.smallk``, ``ops.fbsum``,
 ``ops.hsmm_smallk``) computes in true float32 whatever the flag says,
 as the gradients and EM statistics need posterior-grade accuracy, and
 ``compute_dtype`` resolves to float32 unless the caller overrides it.
+An explicit ``torch.bfloat16`` override rounds a contraction's operands
+to bf16 with float32 accumulation (``mxu_einsum``), in plain torch.
 The checkpointing flag is read by ``maybe_remat``, which the GMM layer's
 ``log_likelihood`` wraps around its emission scoring.
 """
@@ -28,6 +30,7 @@ __all__ = [
     "set_checkpointing",
     "compute_dtype",
     "maybe_remat",
+    "mxu_einsum",
 ]
 
 _MIXED_PRECISION = True
@@ -59,6 +62,23 @@ def compute_dtype(override: Optional[torch.dtype] = None) -> torch.dtype:
     if override is not None:
         return override
     return torch.float32
+
+
+def mxu_einsum(spec: str, *operands: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``torch.einsum`` under the precision policy, with a float32 result
+    (float64 operands stay float64).
+
+    * ``dtype=torch.bfloat16``, passed explicitly: the operands are
+      rounded to bf16 and every product and sum runs in float32 (a
+      product of two bf16 values is exact in float32), as the JAX
+      package's explicit bf16 request off the TPU.
+    * anything else: true float32 products (TF32 stays off).
+    """
+    if dtype is not None and compute_dtype(dtype) == torch.bfloat16:
+        operands = tuple(x.to(torch.bfloat16).to(torch.float32) for x in operands)
+    else:
+        operands = tuple(x if x.dtype == torch.float64 else x.to(torch.float32) for x in operands)
+    return torch.einsum(spec, *operands)
 
 
 def maybe_remat(fn: Callable) -> Callable:

@@ -92,6 +92,21 @@ def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
     assert _build.library_path("diag_quadratic") != a
 
 
+def test_build_with_defines_is_its_own_library(monkeypatch, tmp_path):
+    """A build with macros defined (the prob-space probe) keys its own
+    library and passes each macro to nvcc as -D; the plain build stays."""
+    _isolated_build_dir(monkeypatch, tmp_path)
+    plain = _build.library_path("scan_prob")
+    probe = _build.library_path("scan_prob", ("SCAN_PROB_PROBE",))
+    assert probe != plain and probe.name.startswith("libscan_prob-")
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\necho "$@" >&2\nexit 2\n')
+    fake.chmod(fake.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    with pytest.raises(RuntimeError, match="-DSCAN_PROB_PROBE"):
+        _build.build("scan_prob", ("SCAN_PROB_PROBE",))
+
+
 def _grad_problem(rng, B, T, D, N, dtype=np.float32):
     return [rng.normal(size=s).astype(dtype) for s in ((B, T, D), (D, N), (D, N), (N,), (B, T, N))]
 
