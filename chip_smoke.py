@@ -31,6 +31,10 @@ from the model's own means):
   gradients (unragged and ragged) and one ``em_step`` against the same
   layer on the CPU in float64, five ``em_step``s (fixed durations) with
   the log-likelihood non-decreasing;
+* ``hsmm_smallk_fb`` (row 7) timed by phase in a probe build of its
+  source (``HSMM_SMALLK_PROBE``) at S=10 D=20, D=128 and S=32, each
+  chain apart: the chain's join, predecessor lse and barrier wait, the
+  helpers' terms, reduction and wait;
 
 then streaming decode at the width of the repo's streaming configuration
 (``StreamingHMMProcessor(12, 80, chunk_size=160)``: beam width 8,
@@ -75,7 +79,11 @@ means):
   B=4 T=256, ragged with a length-1 row, T=1, all ties, a left-to-right
   ``safe_log`` matrix; Viterbi paths and scores identical) and the
   fused GMM decode of ``csrc/fused_gmm.cu`` against its plain version
-  (S=64 C=2 D=80, S=128 C=1, S=40 C=2 D=13, ragged);
+  (S=64 C=2 D=80, S=128 C=1, S=40 C=2 D=13, ragged), then timed by phase
+  in a probe build of that source (``FUSED_GMM_PROBE``) at the first
+  three: the chain's slot and delta waits, max and argmax, the
+  producers' waits, transposes, products and scores, the store warp, the
+  backtrace;
 * ``GaussianHMMLayer``: training-mode posteriors, ``compute_loss``
   gradients against its CPU twin in float64, five Adam steps with the
   loss falling, eval decode against the CPU; ``HMMLayer(64)`` and
@@ -142,7 +150,8 @@ and times the kernels, a decode, a ``compute_loss`` step and an
 streaming chunk, a fleet step, a PCM step, a NeuralHMM forward, decode
 and ``compute_loss`` step (static and contextual), the general-K and
 long-sequence entry points with CUDA events (rows 8-12 at T=4096 and
-131072, row 12 against ``fbsum_smallk`` at K=12; rows 20-23 against
+131072, row 12 against ``fbsum_smallk`` at K=12; row 14 against the
+same decode unfused through rows 1 and 13; rows 20-23 against
 ``F.ctc_loss``; rows 19 and 15 and the DTW entry points; row 1, its plain
 version and ``torch.addmm`` also as device time, replaying CUDA graphs,
 at N=48, 64 and 256; row 15's cluster plans and a cluster-barrier probe), counts the launches of
@@ -154,10 +163,12 @@ times the prob gate's host read.
 
 Phases, one line each: card, build, each kernel vs plain (with the
 bf16 scorers on the card against the CPU after row 1), decode,
-training, duration-model decode, duration-model training, stream
+training, the segment-DP kernels and row 7's probe (a line per case and
+chain), duration-model decode, duration-model training, stream
 kernels, streaming serve, fleets, neural kernels, neural models,
-general-K kernels, general-K slice, prob-space kernels, the prob-space
-probe (a line per row and K), long context,
+general-K kernels and row 14's probe (a line per case), general-K
+slice, prob-space kernels, the prob-space probe (a line per row and K),
+long context,
 full covariance, CTC kernels, CTC slice, DTW kernel, DTW slice, scoring
 kernel, scoring, timing.
 Any failure exits non-zero
@@ -275,6 +286,8 @@ GMM_CS = (2, 4)
 # against its unfused route).
 SCAN_ATOL, SCAN_RTOL = 5e-4, 1e-6
 FUSED_AGREE, FUSED_RTOL, FUSED_ATOL = 0.999, 1e-4, 5e-3
+# The timing key of the S=64, C=2 decode through rows 1 and 13, unfused.
+UNFUSED = "fused_gmm_viterbi unfused route"
 # The slice on the card vs its CPU twin in float64: posteriors atol 5e-3
 # and gradients / EM parameters within 5e-3 of each tensor's largest
 # entry (f32 prob-space chains on max-shifted emissions, sums over 32,000
@@ -575,15 +588,17 @@ def graph_ms(fn, launches: int = DQ_GRAPH_LAUNCHES, replays: int = TIMED_RUNS) -
 
 def phase_build():
     """Build every kernel source at once, one nvcc each."""
-    from pytorch_hmm_tpu_torch.ops import _build
+    from pytorch_hmm_tpu_torch.ops import _build, fused, hsmm_smallk
 
     libs = sorted({Path(k["source"]).stem for k in KERNELS.values()})
-    jobs = [(lib, ()) for lib in libs] + [("scan_prob", PROBE_DEFINES)]
+    probes = [("scan_prob", PROBE_DEFINES), ("fused_gmm", fused.PROBE_DEFINES),
+              ("hsmm_smallk", hsmm_smallk.PROBE_DEFINES)]
+    jobs = [(lib, ()) for lib in libs] + probes
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         for future in [pool.submit(_build.build, lib, defines) for lib, defines in jobs]:
             future.result()
-    return time.perf_counter() - t0, libs + ["scan_prob (probe)"]
+    return time.perf_counter() - t0, libs + [f"{lib} (probe)" for lib, _ in probes]
 
 
 def kernel_fns():
@@ -999,21 +1014,26 @@ def phase_training(dev):
             "layer": layer, "em_layer": em_layer, "obs": obs, "lengths": lengths}
 
 
-def _hsmm_cases(dev, gen):
-    """Inputs of the segment-DP kernel checks: ``(log_obs, log_a,
-    log_pi, log_dur, lengths)``; no self-transitions."""
+def _hsmm_problem(dev, gen, b, t, k, d, lengths=None, min_duration=1):
+    """``(log_obs, log_a, log_pi, log_dur, lengths)`` of a segment-DP
+    check; no self-transitions."""
     import torch
 
-    def rand(b, t, k, d, lengths=None, min_duration=1):
-        lo = torch.randn(b, t, k, device=dev, generator=gen)
-        a = torch.rand(k, k, device=dev, generator=gen) + 0.1
-        a.fill_diagonal_(0.0)
-        la = torch.log(a / a.sum(-1, keepdim=True).clamp_min(1e-30))
-        lp = torch.log_softmax(torch.randn(k, device=dev, generator=gen), -1)
-        ld = torch.log_softmax(torch.randn(k, d, device=dev, generator=gen), -1)
-        ld[:, : min_duration - 1] = float("-inf")
-        ln = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
-        return lo, la, lp, ld, ln
+    lo = torch.randn(b, t, k, device=dev, generator=gen)
+    a = torch.rand(k, k, device=dev, generator=gen) + 0.1
+    a.fill_diagonal_(0.0)
+    la = torch.log(a / a.sum(-1, keepdim=True).clamp_min(1e-30))
+    lp = torch.log_softmax(torch.randn(k, device=dev, generator=gen), -1)
+    ld = torch.log_softmax(torch.randn(k, d, device=dev, generator=gen), -1)
+    ld[:, : min_duration - 1] = float("-inf")
+    ln = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return lo, la, lp, ld, ln
+
+
+def _hsmm_cases(dev, gen):
+    """Inputs of the segment-DP kernel checks, by case."""
+    def rand(*shape, **kw):
+        return _hsmm_problem(dev, gen, *shape, **kw)
 
     return {
         "headline": rand(HB, HT, HS, HD),
@@ -1997,6 +2017,85 @@ def phase_fused_kernel(dev, gen):
     return worst, agree
 
 
+# The phase probes of rows 14 and 7 (separate builds of csrc/fused_gmm.cu
+# and csrc/hsmm_smallk.cu with FUSED_GMM_PROBE and HSMM_SMALLK_PROBE
+# defined): each role stamps its own phases with clock64(), summed here
+# per 64-frame chunk. FUSED_PROBE_CLOCK and HSMM_PROBE_CLOCK name the
+# phases whose sum spans a block's run, from which the SM clock.
+FUSED_PROBE_PHASES = ("chain slot wait", "chain delta wait", "chain max", "chain argmax", "producer wait",
+                      "producer transpose", "producer products", "producer scores", "store work", "backtrace")
+FUSED_PROBE_CLOCK = (0, 1, 2, 3, 9)
+HSMM_PROBE_PHASES = ("chain join", "chain predecessor lse", "chain wait", "helper terms", "helper reduce",
+                     "helper wait")
+HSMM_PROBE_CLOCK = (0, 1, 2)
+FUSED_PROBE_CASES = {"S=64 C=2 D=80": (B, T, GK, 2, GD), "S=128 C=1": (8, 300, 128, 1, GD),
+                     "S=40 C=2 D=13": (4, 300, 40, 2, 13)}
+HSMM_PROBE_CASES = {"headline": (HB, HT, HS, HD), "D=128": (4, 600, HS, 128), "S=32": (8, 500, 32, HD)}
+
+
+def probe_summary(cycles, ms, frames, names, clock):
+    """A probed launch's phases: ``cycles`` (blocks, chunks, phases) int64
+    from one launch, ``ms`` its time. Per block, each phase's cycles over
+    all chunks per frame; the median over blocks, as cycles a 64-frame
+    chunk and µs a frame at the SM clock the run implies (the median
+    block's ``clock`` phases over ``ms``)."""
+    c = cycles.double()
+    mhz = c[..., list(clock)].sum(dim=(1, 2)).median().item() / (ms * 1e3)
+    per_frame = (c.sum(dim=1) / frames).median(dim=0).values.tolist()
+    return {"ms": ms, "mhz": mhz, "cycles": {n: f * 64 for n, f in zip(names, per_frame)},
+            "us_frame": {n: f / mhz for n, f in zip(names, per_frame)}, "total_us_frame": ms * 1e3 / frames}
+
+
+def probe_line(what, r, card):
+    return (f"{what}: {r['ms']:.4f} ms, {r['total_us_frame']:.4f} us a frame at {r['mhz']:.0f} MHz; "
+            "a 64-frame chunk: " + ", ".join(f"{n} {c:.0f} cycles ({r['us_frame'][n]:.4f} us a frame)"
+                                            for n, c in r["cycles"].items()) + f" on {card}")
+
+
+def phase_fused_probe(dev, gen):
+    """Row 14 timed by phase at ``FUSED_PROBE_CASES``: lines of
+    :func:`probe_line`."""
+    import torch
+    from pytorch_hmm_tpu_torch.ops import fused
+
+    out = {}
+    for name, (b, t, s, c, d) in FUSED_PROBE_CASES.items():
+        obs, means, lv, lw, la, lp, _ = _gmm_inputs(dev, gen, b, t, s, c, d)
+        probe = torch.zeros(b, -(-t // 64), len(FUSED_PROBE_PHASES), dtype=torch.int64, device=dev)
+        run = lambda: fused._launch(obs, means, lv, lw, la, lp, None, probe)  # noqa: E731
+        ms = cuda_median_ms(run, runs=5, warmup=1)
+        probe.zero_()
+        run()
+        torch.cuda.synchronize(dev)
+        out[f"fused probe {name} (B={b}, T={t})"] = probe_summary(probe, ms, t, FUSED_PROBE_PHASES,
+                                                                  FUSED_PROBE_CLOCK)
+    return out
+
+
+def phase_hsmm_probe(dev, gen):
+    """Row 7 timed by phase at ``HSMM_PROBE_CASES``, each chain apart:
+    lines of :func:`probe_line`."""
+    import torch
+    from pytorch_hmm_tpu_torch.ops import hsmm_smallk
+
+    out = {}
+    for name, (b, t, k, d) in HSMM_PROBE_CASES.items():
+        lo, la, lp, ld, _ = _hsmm_problem(dev, gen, b, t, k, d)
+        probe = torch.zeros(2, b, -(-t // 64), len(HSMM_PROBE_PHASES), dtype=torch.int64, device=dev)
+
+        def run():
+            probe.zero_()
+            hsmm_smallk._fb_launch(lo, la, lp, ld, None, probe)
+
+        ms = cuda_median_ms(run, runs=5, warmup=1)
+        run()
+        torch.cuda.synchronize(dev)
+        for i, chain in enumerate(("forward", "backward")):
+            out[f"hsmm probe {name} {chain} (B={b}, T={t}, S={k}, D={d})"] = probe_summary(
+                probe[i], ms, t, HSMM_PROBE_PHASES, HSMM_PROBE_CLOCK)
+    return out
+
+
 def _l2r_walk(means, b, t, seed):
     """Features ``(b, t, F)`` from left-to-right walks: each row visits
     the states in order, a random 8-24 frames each, and stays in the
@@ -2221,11 +2320,12 @@ def phase_genk_slice(dev):
 
 def phase_genk_timing(dev, gen, slice_out):
     """Rows 8, 9, 13 and 14 against their plain versions at the slice's
-    width, the chains at K=256 and 1024 as well; the slice's entry
-    points; launches per call. Returns ``(times, launches, profiles of the
-    GENK_PROFILED calls, inputs)``."""
+    width, the chains at K=256 and 1024 as well, row 14's decode through
+    rows 1 and 13 unfused; the slice's entry points; launches per call.
+    Returns ``(times, launches, profiles of the GENK_PROFILED calls,
+    inputs)``."""
     import torch
-    from pytorch_hmm_tpu_torch import ops
+    from pytorch_hmm_tpu_torch import emissions, ops
 
     slow = dict(runs=PLAIN_SUM_RUNS, warmup=1)
     cases = _scan_cases(dev, gen)
@@ -2241,6 +2341,9 @@ def phase_genk_timing(dev, gen, slice_out):
         "fused_gmm_viterbi": (cuda_median_ms(lambda: ops.fused_gmm_viterbi(*gmm_in)),
                               cuda_median_ms(lambda: ops.fused_gmm_viterbi_reference(*gmm_in),
                                              **slow)),
+        # The same decode unfused: row 1 and the logsumexp over C, then row 13.
+        UNFUSED: cuda_median_ms(lambda: ops.pallas_viterbi(
+            emissions.gmm_log_probs(*gmm_in[:4], "diag"), *gmm_in[4:6])),
     }
     for k in ("K=256", "K=1024"):
         klo, kla, klp, _ = cases[k]
@@ -3598,6 +3701,8 @@ def main() -> int:
           "headline max abs err " + ", ".join(f"{k}: {v:.3g}" for k, v in hsmm_errs.items()
                                               if k != "hsmm_smallk_viterbi")
           + f" (atol {HSMM_SUM_ATOL} + rtol {HSMM_SUM_RTOL})", flush=True)
+    for what, r in phase_hsmm_probe(dev, torch.Generator(device=dev).manual_seed(SEED + 13)).items():
+        print(probe_line(what, r, card), flush=True)
 
     dur = phase_duration_decode(dev)
     print(f"duration-model decode (HSMMLayer B={HB}, T={HT}, S={HS}, D={HD}, F={HF}; "
@@ -3669,6 +3774,8 @@ def main() -> int:
     print(f"fused_gmm_viterbi vs plain: ok on {len(FUSED_CASES)} cases, frame agreement "
           f"{fused_agree} (>= {FUSED_AGREE}), headline max abs score err {fused_err:.3g} "
           f"(rtol {FUSED_RTOL}, atol {FUSED_ATOL})", flush=True)
+    for what, r in phase_fused_probe(dev, torch.Generator(device=dev).manual_seed(SEED + 12)).items():
+        print(probe_line(what, r, card), flush=True)
     genk = phase_genk_slice(dev)
     print(f"general-K slice (GaussianHMMLayer({GK}, {GD}), HMMLayer({GK}), HMM K={GK}, "
           f"MixtureGaussianHMMLayer({GK}, {GD}, C={GMM_CS}); B={B}, T={T}): ok, launches "
@@ -3859,10 +3966,13 @@ def main() -> int:
     print(f"profile of 10 NeuralHMM forwards (B={NB}, T={NT}): host wall {nprof['host_ms']:.4f} ms, "
           f"device busy {nprof['device_ms']} ms, {nprof['kernels']} device ops per call, top "
           f"{nprof['top_ms']} on {card}", flush=True)
+    print(f"timing fused_gmm_viterbi (B={B}, T={T}, S={GK}, C=2, D={GD}): {times['fused_gmm_viterbi'][0]:.4f} ms "
+          f"fused, {times[UNFUSED]:.4f} ms unfused (gmm_log_probs: diag_quadratic and the logsumexp over C, "
+          f"then pallas_viterbi) (median, CUDA events) on {card}", flush=True)
     print("timing general-K chains (B=4): "
           + ", ".join(f"{k} {times[k]:.4f} ms" for k in btimes if " K=" in k)
           + f" (K=256 at T=300, K=1024 at T=256; median, CUDA events) on {card}", flush=True)
-    for name in (k for k in btimes if k not in GENK_KERNELS and " K=" not in k):
+    for name in (k for k in btimes if k not in GENK_KERNELS and " K=" not in k and k != UNFUSED):
         what = "forward+backward" if "step" in name else "call"
         print(f"timing {name}: {times[name]:.4f} ms per {what} of {B}x{T} frames (median of "
               f"{TIMED_RUNS}, CUDA events) on {card}", flush=True)

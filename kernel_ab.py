@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Rows 1, 15, 10 and 12 of the PyTorch port against another checkout's
-kernels, on one CUDA GPU.
+"""Rows 1, 15, 10, 12, 14 and 7 of the PyTorch port against another
+checkout's kernels, on one CUDA GPU.
 
-    python3 kernel_ab.py --base DIR [--rows dq bigk prob]
+    python3 kernel_ab.py --base DIR [--rows dq bigk prob fused hsmm] [--probe]
 
 Run from the root of a checkout. ``DIR`` is the root of another checkout
 (for example an earlier commit unpacked with ``git archive`` into a
@@ -27,10 +27,21 @@ on the same inputs, then timed in the order base, this, this, base:
   entry point's C function (``exp(log_a)``, the outputs' allocation and
   the kernel; CUDA events, median of 10, 5 at T=131072); checked against
   the plain versions at T ≤ 4096 and against the base's kernel at
-  T=131072 (the plain chains are T-step Python loops), split as written.
+  T=131072 (the plain chains are T-step Python loops), split as written;
+* row 14 (``fused_gmm_viterbi``, ``--rows fused``) at chip_smoke's
+  ``FUSED_CASES`` (S=64 C=2 D=80 at B=32 T=1000, S=128 C=1, S=40 C=2
+  D=13, ragged) and at B=512, the wrapper's call (CUDA events, median of
+  10), held to chip_smoke's frame agreement and score tolerance; at the
+  headline also the same decode unfused (``gmm_log_probs``, then
+  ``pallas_viterbi``: rows 1 and 13);
+* row 7 (``hsmm_smallk_fb``, ``--rows hsmm``) at chip_smoke's
+  ``_hsmm_cases`` (S=10 D=20 at B=32 T=1000, D=128, S=32, ragged, T<D,
+  min_duration=3) and at B=512, held to chip_smoke's sum tolerances.
 
-``--rows`` picks which of the three to run (all by default),
-``--prob-shapes`` which shapes of rows 10 and 12.
+``--rows`` picks which to run (all by default), ``--prob-shapes`` which
+shapes of rows 10 and 12. ``--probe`` also prints this checkout's phase
+probes of rows 14 and 7 (``fused probe`` and ``hsmm probe`` lines, as
+chip_smoke.py prints them).
 
 Prints one line per measurement, the card's name and power limit, and a
 JSON object of every number as the last line.
@@ -66,6 +77,26 @@ PROB_SHAPES = {"32x131072x64": (32, 131072, 64), "32x4096x64": (32, 4096, 64), "
                "512x4096x64": (512, 4096, 64), "512x4096x12": (512, 4096, 12), "512x1000x128": (512, 1000, 128)}
 PROB_CHAINS = {"pallas_forward_prob": ("forward", 1), "pallas_fb_prob": ("fb", 2)}
 PROB_RS = 8
+# Row 14 at the chip_smoke cases, and past one wave of blocks; (B, T, S, C,
+# D, lengths). The headline also times the unfused route of the same
+# decode (row 1, the logsumexp over C, then row 13).
+FUSED_SHAPES = {"32x1000 S=64 C=2 D=80": (32, 1000, 64, 2, 80, None),
+                "8x300 S=128 C=1": (8, 300, 128, 1, 80, None),
+                "4x300 S=40 C=2 D=13": (4, 300, 40, 2, 13, None),
+                "5x300 ragged": (5, 300, 64, 2, 80, [300, 31, 164, 1, 129]),
+                "512x1000 S=64 C=2 D=80": (512, 1000, 64, 2, 80, None)}
+# Row 7 at the chip_smoke cases, and past one wave; (B, T, S, D, lengths,
+# min_duration).
+HSMM_SHAPES = {"32x1000 S=10 D=20": (32, 1000, 10, 20, None, 1),
+               "4x600 D=128": (4, 600, 10, 128, None, 1),
+               "8x500 S=32": (8, 500, 32, 20, None, 1),
+               "5x300 ragged": (5, 300, 9, 15, [300, 31, 164, 1, 129], 1),
+               "3x12 T<D": (3, 12, 5, 20, None, 1),
+               "4x300 min_duration=3": (4, 300, 10, 20, None, 3),
+               "512x1000 S=10 D=20": (512, 1000, 10, 20, None, 1)}
+
+
+ROWS = ("dq", "bigk", "prob", "fused", "hsmm")
 
 
 def load_base(root: Path):
@@ -78,6 +109,8 @@ def load_base(root: Path):
     spec.loader.exec_module(mod)
     import base_port.ops.bigk
     import base_port.ops.emit
+    import base_port.ops.fused
+    import base_port.ops.hsmm_smallk
     import base_port.ops.scan  # noqa: F401
     return mod
 
@@ -211,11 +244,75 @@ def run_prob(dev, base, out, shapes):
         del lo
 
 
+def _ab_order(fns):
+    """base, the others, the others reversed, base."""
+    rest = [k for k in fns if k != "base"]
+    return ["base", *rest, *reversed(rest), "base"]
+
+
+def run_fused(dev, base, out):
+    import torch
+    from pytorch_hmm_tpu_torch import emissions, ops
+    from pytorch_hmm_tpu_torch.ops import fused
+
+    for tag, (b, t, s, c, d, ln) in FUSED_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(cs.SEED + b + s + d)
+        args = cs._gmm_inputs(dev, g, b, t, s, c, d, ln)
+        obs, means, lv, lw, la, lp, _ = args
+        want_st, want_sc = fused.fused_gmm_viterbi_reference(*args)
+        fns = {"base": lambda: base.ops.fused.fused_gmm_viterbi(*args),
+               "this": lambda: ops.fused_gmm_viterbi(*args)}
+        if tag.startswith("32x1000"):
+            fns["unfused (gmm_log_probs, pallas_viterbi)"] = lambda: ops.pallas_viterbi(
+                emissions.gmm_log_probs(obs, means, lv, lw, "diag"), la, lp)
+        res = {}
+        for name, fn in fns.items():
+            st, sc = fn()
+            agree = (st == want_st).float().mean().item()
+            err = (sc - want_sc).abs().max().item()
+            cs.check(agree >= cs.FUSED_AGREE and torch.allclose(sc, want_sc, rtol=cs.FUSED_RTOL,
+                                                                atol=cs.FUSED_ATOL),
+                     f"fused_gmm_viterbi {tag} {name}: frame agreement {agree}, max abs score err {err}")
+            res[name] = {"agreement": agree, "max_abs_err": err, "ms": []}
+        for name in _ab_order(fns):
+            res[name]["ms"].append(cs.cuda_median_ms(fns[name], runs=10, warmup=2))
+        out["fused_gmm_viterbi"][tag] = res
+        for name, r in res.items():
+            print(f"fused_gmm_viterbi {tag} {name}: ms {r['ms']}, us a frame {min(r['ms']) * 1e3 / t:.4f}, "
+                  f"frame agreement {r['agreement']}, max abs score err {r['max_abs_err']:.3g}", flush=True)
+
+
+def run_hsmm(dev, base, out):
+    import torch
+    from pytorch_hmm_tpu_torch import ops
+
+    for tag, (b, t, k, d, ln, md) in HSMM_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(cs.SEED + b + k + d)
+        args = cs._hsmm_problem(dev, g, b, t, k, d, ln, md)
+        want = ops.hsmm_smallk_fb_reference(*args)
+        fns = {"base": lambda: base.ops.hsmm_smallk.hsmm_smallk_fb(*args),
+               "this": lambda: ops.hsmm_smallk_fb(*args)}
+        res = {}
+        for name, fn in fns.items():
+            err = max(cs._sum_err(gt, w, args[4], cs.HSMM_SUM_ATOL, cs.HSMM_SUM_RTOL)
+                      for gt, w in zip(fn(), want))
+            cs.check(err != float("inf"), f"hsmm_smallk_fb {tag} {name}: disagrees with its plain version")
+            res[name] = {"max_abs_err": err, "ms": []}
+        for name in _ab_order(fns):
+            res[name]["ms"].append(cs.cuda_median_ms(fns[name], runs=10, warmup=2))
+        out["hsmm_smallk_fb"][tag] = res
+        for name, r in res.items():
+            print(f"hsmm_smallk_fb {tag} {name}: ms {r['ms']}, us a frame {min(r['ms']) * 1e3 / t:.4f}, "
+                  f"max abs err {r['max_abs_err']:.3g}", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--base", type=Path, required=True, help="root of the checkout to compare with")
-    parser.add_argument("--rows", nargs="+", choices=("dq", "bigk", "prob"), default=["dq", "bigk", "prob"],
+    parser.add_argument("--rows", nargs="+", choices=ROWS, default=list(ROWS),
                         help="which kernels to time (all by default)")
+    parser.add_argument("--probe", action="store_true",
+                        help="also print this checkout's phase probes of rows 14 and 7")
     parser.add_argument("--prob-shapes", nargs="+", choices=PROB_SHAPES, default=list(PROB_SHAPES),
                         help="which shapes of rows 10 and 12 to time (all by default)")
     args = parser.parse_args()
@@ -228,16 +325,31 @@ def main() -> int:
     base = load_base(args.base.resolve())
     from pytorch_hmm_tpu_torch.ops import _build
 
-    sources = {"dq": "diag_quadratic", "bigk": "bigk_scoring", "prob": "scan_prob"}
-    jobs = [(build, sources[row]) for row in args.rows for build in (_build.build, base.ops._build.build)]
+    from pytorch_hmm_tpu_torch.ops import fused, hsmm_smallk
+
+    sources = {"dq": ["diag_quadratic"], "bigk": ["bigk_scoring"], "prob": ["scan_prob"],
+               "fused": ["fused_gmm", "diag_quadratic", "scan_bigk"], "hsmm": ["hsmm_smallk"]}
+    probes = {"fused": ("fused_gmm", fused.PROBE_DEFINES), "hsmm": ("hsmm_smallk", hsmm_smallk.PROBE_DEFINES)}
+    jobs = {(build, src, ()) for row in args.rows for src in sources[row]
+            for build in (_build.build, base.ops._build.build)}
+    if args.probe:
+        jobs |= {(_build.build, *probes[row]) for row in args.rows if row in probes}
     with ThreadPoolExecutor(len(jobs)) as pool:
-        list(pool.map(lambda job: job[0](job[1]), jobs))
+        list(pool.map(lambda job: job[0](job[1], job[2]), jobs))
     card = cs.card_line()
-    out = {"card": card, "diag_quadratic": {}, "bigk_log_likelihood": {}, **{row: {} for row in PROB_CHAINS}}
-    runs = {"dq": run_dq, "bigk": run_bigk, "prob": lambda *a: run_prob(*a, args.prob_shapes)}
+    out = {"card": card, "diag_quadratic": {}, "bigk_log_likelihood": {}, "fused_gmm_viterbi": {},
+           "hsmm_smallk_fb": {}, **{row: {} for row in PROB_CHAINS}, "probe": {}}
+    runs = {"dq": run_dq, "bigk": run_bigk, "prob": lambda *a: run_prob(*a, args.prob_shapes),
+            "fused": run_fused, "hsmm": run_hsmm}
+    probe_phases = {"fused": cs.phase_fused_probe, "hsmm": cs.phase_hsmm_probe}
     with torch.no_grad():
         for row in args.rows:
             runs[row](dev, base, out)
+            if args.probe and row in probe_phases:
+                got = probe_phases[row](dev, torch.Generator(device=dev).manual_seed(cs.SEED + 12))
+                for what, r in got.items():
+                    print(cs.probe_line(what, r, card), flush=True)
+                out["probe"].update(got)
     print(card, flush=True)
     print(json.dumps(out), flush=True)
     return 0

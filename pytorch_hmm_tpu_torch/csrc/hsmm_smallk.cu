@@ -53,9 +53,8 @@
 // kernels shift the whole ring every frame, a VMEM idiom). log_dur is
 // staged once into shared memory, log_obs 64 frames at a time with
 // cp.async into a double buffer. Column s (forward, Viterbi) or row s
-// (backward) of log_a lives in registers. hsmm_fb runs the forward and
-// backward chains as two warps of one block, which the SM schedules
-// side by side.
+// (backward) of log_a lives in registers. hsmm_fb has a design of its
+// own, which takes the window's older terms off the chain (below).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -326,33 +325,426 @@ hsmm_backward_kernel(const float* __restrict__ log_obs, const float* __restrict_
                        threadIdx.x, beta_star + row, beta_start + row, lo_s, v_r);
 }
 
-// Warp 0 runs the forward chain, warp 1 the backward chain.
+// ---- hsmm_fb: both sum chains, the window's older terms off the chain ----
+//
+// Of frame t's window terms only j = 0 depends on the frame before: the
+// forward's alpha*(t) needs mu(t-1) there, while its terms j >= 1 use
+// mu(t-2..t-D) and emissions, all known a frame earlier; the backward's
+// beta_start(t) needs beta*(t) for j = 0 and beta*(t+1..) for j >= 1. So
+// each chain runs in two roles a frame apart, which meet at one block
+// barrier a frame:
+//   * the chain warp keeps the dependent step alone: the two-way lse of
+//     the j = 0 term with the older terms' (max, sum), then the
+//     predecessor lse. L = 32 / KP lanes hold a state, each taking KP / L
+//     predecessors; their maxima and sums join by xor shuffles, so a lane
+//     runs KP / L exps a frame instead of KP.
+//   * helper warps work a frame ahead: G lanes a state, lane g taking the
+//     window terms j = 1 + g + G i (at most NJ, their log_dur in
+//     registers), extend the window ring by the next frame's emission and
+//     reduce the next frame's older terms to their max and their sum
+//     under it (xor shuffles over the G lanes).
+// Each term and its grouping are forward_chain's and backward_chain's;
+// only the sums run in another order, and the exps and logs are the MUFU
+// approximations (see lse_join). The ring is laid out [state][slot] at a
+// stride of D rounded up to 32, plus G, so a warp's lanes fall in
+// distinct banks. One chain a block: block b < B runs sequence b's
+// forward chain, block B + b its backward chain. What is left bounds it:
+// the frame barrier and, at the bench's S = 10, D = 20, the helpers'
+// ~5 terms a lane and four shuffle levels against the chain's join and
+// predecessor lse, each several hundred cycles a frame (the phase probe;
+// PERF.md).
+//
+// The lane split (G, NJ) and the shared bytes are fb_plan in
+// ops/hsmm_smallk.py, which the entry point checks.
+
+constexpr int FB_MAX_LANES = 16;   // G, lanes a state
+constexpr int FB_TERMS = 8;        // NJ below D = 130; 16 above
+
+__host__ __device__ inline int fb_stride(int D, int G) { return (D + 31) / 32 * 32 + G % 32; }
+
+// Bytes of dynamic shared memory: the (K, stride) ring of float2, the
+// emissions of two 64-frame chunks, and the exchange vectors.
+__host__ __device__ inline size_t fb_bytes(int K, int D, int G) {
+    return sizeof(float) * (2 * static_cast<size_t>(K) * fb_stride(D, G) + 2 * CH * K + 6 * KMAX);
+}
+
+#ifdef HSMM_SMALLK_PROBE
+// The phase probe (-DHSMM_SMALLK_PROBE, reached only through
+// hsmm_fb_probe_f32): the chain's lane 0 and the first helper thread each
+// sum, over a 64-frame chunk, the cycles (clock64()) of their steps of a
+// frame, each stamped after an instruction that consumes the step's result
+// (so it has completed), into g_probe[(block * chunks + chunk) * 6 +
+// phase]: the chain's join (from its first loads' arrival: the two-way
+// lse, the table stores), its predecessor lse, its wait for the frame
+// barrier (which blocks at the first load after it); the helpers' terms
+// (ring loads and stores, the max), their reduction (the exps, the
+// shuffles, the exchange stores), their wait.
+constexpr int PROBE_PHASES = 6;
+__device__ long long* g_probe;
+#define PROBE_CLOCK() clock64()
+#else
+#define PROBE_CLOCK() 0ll
+#endif
+
+#ifdef HSMM_SMALLK_PROBE
+// A clock stamp that issues after a and b have arrived: the volatile add
+// consumes them and keeps its place before the volatile clock read.
+__device__ __forceinline__ long long stamp_after(float a, float b) {
+    float d;
+    asm volatile("add.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+    return clock64();
+}
+#endif
+
+// log(exp(x) + s exp(m)): the j = 0 term joined with the older terms'
+// max m and their sum s under it (m = -inf, s = 0 when there are none).
+// Branch-free, its two exps side by side. The chains' exps and logs are
+// the MUFU approximations (__expf, __logf): a few ulp on the terms near
+// the max, which carry the sums, and ~2^-21 absolute on a log, the order
+// of the sums' own rounding; the tables stay within chip_smoke.py's
+// tolerances against the plain version and float64.
+__device__ __forceinline__ float lse_join(float x, float m, float s) {
+    const float mx = fmaxf(x, m);
+    const float v = mx + __logf(__expf(x - mx) + s * __expf(m - mx));
+    return m == -INFINITY ? x : v;
+}
+
+// Shared-memory loads and stores at 32-bit shared addresses computed
+// outside the frame loop (through generic pointers the compiler rebuilds
+// the shared window's base inside it). Volatile: they keep their order
+// against the barriers.
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float lds(uint32_t a) {
+    float v;
+    asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(a));
+    return v;
+}
+
+__device__ __forceinline__ float2 lds2(uint32_t a) {
+    float2 v;
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(a));
+    return v;
+}
+
+__device__ __forceinline__ void sts(uint32_t a, float v) {
+    asm volatile("st.shared.f32 [%0], %1;" ::"r"(a), "f"(v));
+}
+
+// The predecessor lse of state s = lane / L over its lane's KP / L
+// predecessors k = h (KP / L) + i, from their values val (held by lane
+// k L) plus a[i], joined over the state's L lanes.
 template <int KP>
-__global__ void __launch_bounds__(2 * KMAX)
+__device__ __forceinline__ float lse_pred(float val, const float (&a)[KP * KP / 32], int h) {
+    constexpr int L = 32 / KP, M = KP / L;
+    float v[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) v[i] = __shfl_sync(FULL, val, (h * M + i) * L) + a[i];
+    float m = v[0];
+#pragma unroll
+    for (int i = 1; i < M; ++i) m = fmaxf(m, v[i]);
+#pragma unroll
+    for (int o = 1; o < L; o <<= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+    if (m == -INFINITY) m = 0.f;
+    float w[M];
+#pragma unroll
+    for (int i = 0; i < M; ++i) w[i] = __expf(v[i] - m);
+#pragma unroll
+    for (int st = 1; st < M; st <<= 1)
+#pragma unroll
+        for (int i = 0; i + st < M; i += 2 * st) w[i] += w[i + st];
+    float sum = w[0];
+#pragma unroll
+    for (int o = 1; o < L; o <<= 1) sum += __shfl_xor_sync(FULL, sum, o);
+    return m + __logf(sum);
+}
+
+// One chain of one sequence: FORWARD writes alpha* and log_z, else beta*
+// and beta_start.
+template <int KP, int NJ, int G, bool FORWARD>
+__device__ void fb_chain(float* dyn, const float* __restrict__ lo, const float* __restrict__ log_a,
+                         const float* __restrict__ log_pi, const float* __restrict__ log_dur, int len,
+                         int T, int K, int D, float* __restrict__ out0,
+                         float* __restrict__ out1, float* __restrict__ log_z) {
+    constexpr int L = 32 / KP, M = KP / L;
+    const int DP = fb_stride(D, G);
+    float* ring = dyn;                           // (K, DP) float2 (E, mu) forward, float backward
+    float* lo_s = ring + 2 * K * DP;             // frame t's emissions at (t & 127) K
+    float* xch = lo_s + 2 * CH * K;              // (2, KMAX): mu(t) or beta*(t)
+    float* om = xch + 2 * KMAX;                  // (2, KMAX): the older terms' max
+    float* os = om + 2 * KMAX;                   // (2, KMAX): their sum under it
+    float2* ring2 = reinterpret_cast<float2*>(ring);
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int nch = (T + CH - 1) / CH;
+    const bool chain = tid < 32;
+    // Chain lane: state cs = lane / L, part h. Helper thread: state hs,
+    // lane hg of its G.
+    const int cs = lane / L, h = lane % L;
+    const int hs = (tid - 32) / G, hg = (tid - 32) % G;
+    const bool live = chain ? cs < K : hs < K;
+    const int s = chain ? cs : hs;
+
+    // Stage chunk c of the emissions (helper warp 0), waited by the same
+    // lanes and published by the frame barrier.
+    auto stage_chunk = [&](int c) {
+        const int n = min(CH, T - c * CH);
+        stage(lo_s + (c & 1) * CH * K, lo + static_cast<long long>(c) * CH * K, n * K, lane);
+    };
+    const int last = nch - 1;
+    if (tid >= 32 && tid < 64) {
+        if (FORWARD) {
+            stage_chunk(0);
+            if (last >= 1) stage_chunk(1);
+        } else {
+            stage_chunk(last);
+            if (last >= 1) stage_chunk(last - 1);
+        }
+        __pipeline_wait_prior(0);
+    }
+
+    float carry = NEG;       // the chain's: mu(t-1), or beta*(t)
+    float ld0 = NEG, afin = NEG;
+    float a[M];              // forward log_a[k, s], backward log_a[s, k]; k = h M + i
+    float ldj[NJ];           // helper: log_dur[s, 1 + hg + G i]
+    if (chain) {
+        ld0 = live ? fmaxf(log_dur[s * D], NEG) : NEG;
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+            const int k = h * M + i;
+            a[i] = live && k < K ? fmaxf(FORWARD ? log_a[k * K + s] : log_a[s * K + k], NEG) : NEG;
+        }
+        if (FORWARD) {
+            carry = live ? fmaxf(log_pi[s], NEG) : NEG;
+            if (h == 0) {
+                xch[KMAX + s] = carry;   // mu(-1) for the helpers' frame 0
+                om[s] = -INFINITY;       // no older terms at frame 0
+                os[s] = 0.f;
+            }
+        } else if (h == 0) {
+            om[((T - 1) & 1) * KMAX + s] = -INFINITY;   // none past the end
+            os[((T - 1) & 1) * KMAX + s] = 0.f;
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < NJ; ++i) {
+            const int j = 1 + hg + G * i;
+            ldj[i] = live && j < D ? fmaxf(log_dur[s * D + j], NEG) : NEG;
+        }
+    }
+    __syncthreads();
+    if (chain && !FORWARD) {
+        // beta*(T-1): 0 at a row's last frame, else from beta_start(T) = NEG.
+        const float bs = lse_pred<KP>(NEG, a, h);
+        carry = T - 1 == len - 1 ? 0.f : (live ? bs : NEG);
+        if (h == 0) xch[((T - 1) & 1) * KMAX + s] = carry;
+    }
+    if (FORWARD && !chain && live && hg == 0) ring2[s * DP].x = lo_s[s];   // E(0..0)
+    __syncthreads();
+
+    long long acc[3] = {0, 0, 0};   // the probe's sums of this thread's steps
+    long long c0 = PROBE_CLOCK(), cb = 0, cm = 0;
+    int ck = FORWARD ? 0 : last;
+    int head = 0;            // helper: (t + 1) mod D forward, t mod D backward
+    if (!FORWARD) head = (T - 1) % D;
+    else head = D == 1 ? 0 : 1;
+    // This thread's shared addresses: its state's emission in chunk row 0,
+    // exchange entries, ring row.
+    const uint32_t a_lo = saddr(lo_s) + 4 * s, a_xch = saddr(xch) + 4 * s;
+    const uint32_t a_om = saddr(om) + 4 * s, a_os = saddr(os) + 4 * s;
+    const uint32_t a_ring = saddr(ring) + (FORWARD ? 8 : 4) * s * DP;
+    for (int step = 0; step < T; ++step) {
+        const int t = FORWARD ? step : T - 1 - step;
+        const uint32_t par = (t & 1) * KMAX * 4;       // frame t's exchange half
+        const uint32_t row = (t & 127) * K * 4;        // frame t's emission row
+        if (chain) {
+            if (FORWARD) {
+                const float o = live ? lds(a_lo + row) : 0.f;
+                const float term0 = (ld0 + o) + carry;
+                const float om_t = lds(a_om + par), os_t = lds(a_os + par);
+#ifdef HSMM_SMALLK_PROBE
+                cb = stamp_after(term0, om_t + os_t);
+#endif
+                const float val = live ? lse_join(term0, om_t, os_t) : NEG;
+                if (live && h == 0) out0[static_cast<long long>(t) * K + s] = val;
+                if (t == len - 1) afin = val;
+                cm = PROBE_CLOCK();
+                const float mu = lse_pred<KP>(val, a, h);
+                carry = live ? mu : NEG;
+                if (h == 0) sts(a_xch + par, carry);
+            } else {
+                const float o = live && t < len ? lds(a_lo + row) : 0.f;
+                const float om_t = lds(a_om + par), os_t = lds(a_os + par);
+#ifdef HSMM_SMALLK_PROBE
+                cb = stamp_after(o, om_t + os_t);
+#endif
+                float bs = -INFINITY;
+                if (t < len) bs = lse_join(ld0 + (carry + o), om_t, os_t);
+                if (live && h == 0) {
+                    const long long at = static_cast<long long>(t) * K + s;
+                    out0[at] = carry;
+                    out1[at] = bs;
+                }
+                cm = PROBE_CLOCK();
+                if (t > 0) {
+                    const float bn = live ? bs : NEG;
+                    const float next = lse_pred<KP>(bn, a, h);
+                    carry = t - 1 == len - 1 ? 0.f : next;
+                    if (h == 0) sts(a_xch + (KMAX * 4 - par), carry);
+                }
+            }
+        } else {
+            // The next frame's older terms: forward frame t + 1 from mu(t-1)
+            // on, backward frame t - 1 from beta*(t) on.
+            const bool more = FORWARD ? t + 1 < T : t >= 1;
+            if (more) {
+                const int tn = FORWARD ? t + 1 : t - 1;
+                const int nj = FORWARD ? min(D - 1, tn) : min(D - 1, len - 1 - tn);
+                const uint32_t npar = KMAX * 4 - par;    // frame tn's exchange half
+                const float in = live ? lds(a_xch + (FORWARD ? npar : par)) : 0.f;
+                float o1 = 0.f, o0 = 0.f;
+                if (live) {
+                    o1 = FORWARD || tn < len ? lds(a_lo + (tn & 127) * K * 4) : 0.f;
+                    if (!FORWARD) o0 = t < len ? lds(a_lo + row) : 0.f;
+                }
+#ifdef HSMM_SMALLK_PROBE
+                cb = stamp_after(in, o1 + o0);
+#endif
+                // Every ring load before any store, so the loads issue
+                // together (the compiler cannot tell the slots apart).
+                // Forward: segment start u = t + 1 - j, E(u..t+1) and
+                // mu(u-1); backward: segment end e = t - 1 + j, beta*(e) +
+                // E(t-1..e).
+                float term[NJ], upd[NJ];
+                int at[NJ];
+                float2 em[NJ];
+#pragma unroll
+                for (int i = 0; i < NJ; ++i) {
+                    const int j = 1 + hg + G * i;
+                    int slot = FORWARD ? head - j : head + j - 1;
+                    if (FORWARD && slot < 0) slot += D;
+                    if (!FORWARD && slot >= D) slot -= D;
+                    at[i] = live && j <= nj ? slot : -1;
+                    em[i] = make_float2(0.f, 0.f);
+                    if (at[i] >= 0) {
+                        if (FORWARD) em[i] = lds2(a_ring + 8 * slot);
+                        else if (j > 1) em[i].x = lds(a_ring + 4 * slot);
+                    }
+                }
+                float m = -INFINITY;
+#pragma unroll
+                for (int i = 0; i < NJ; ++i) {
+                    const int j = 1 + hg + G * i;
+                    if (FORWARD) {
+                        upd[i] = em[i].x + o1;
+                        term[i] = (ldj[i] + upd[i]) + (j == 1 ? in : em[i].y);
+                    } else {
+                        upd[i] = (j == 1 ? in + o0 : em[i].x) + o1;
+                        term[i] = ldj[i] + upd[i];
+                    }
+                    if (at[i] < 0) term[i] = -INFINITY;
+                    m = fmaxf(m, term[i]);
+                }
+#pragma unroll
+                for (int i = 0; i < NJ; ++i)
+                    if (at[i] >= 0) sts(a_ring + (FORWARD ? 8 : 4) * at[i], upd[i]);
+#pragma unroll
+                for (int o = 1; o < G; o <<= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+                const float mm = m == -INFINITY ? 0.f : m;
+#ifdef HSMM_SMALLK_PROBE
+                asm volatile("" ::"f"(mm));
+                cm = PROBE_CLOCK();
+#endif
+                float w[NJ];
+#pragma unroll
+                for (int i = 0; i < NJ; ++i) w[i] = __expf(term[i] - mm);
+#pragma unroll
+                for (int st = 1; st < NJ; st <<= 1)
+#pragma unroll
+                    for (int i = 0; i + st < NJ; i += 2 * st) w[i] += w[i + st];
+                float sum = w[0];
+#pragma unroll
+                for (int o = 1; o < G; o <<= 1) sum += __shfl_xor_sync(FULL, sum, o);
+                if (live && hg == 0) {
+                    sts(a_om + npar, m);
+                    sts(a_os + npar, sum);
+                    if (FORWARD) {
+                        sts(a_ring + 8 * head, o1);                                // E(t+1..t+1)
+                        sts(a_ring + 8 * (head == 0 ? D - 1 : head - 1) + 4, in);  // mu(t-1), slot t
+                    }
+                }
+            }
+            // The emissions a chunk ahead: issued at a chunk's first frame,
+            // waited at its middle (the chunk is whole whenever another
+            // follows), published by the barrier.
+            if (tid < 64) {
+                const int c = t / CH, f = t % CH;
+                if (FORWARD && c >= 1 && c + 1 <= last) {
+                    if (f == 0) stage_chunk(c + 1);
+                    if (f == CH / 2) __pipeline_wait_prior(0);
+                }
+                if (!FORWARD && c < last && c >= 1) {
+                    if (f == CH - 1) stage_chunk(c - 1);
+                    if (f == CH / 2) __pipeline_wait_prior(0);
+                }
+            }
+            head = FORWARD ? (head + 1 == D ? 0 : head + 1) : (head == 0 ? D - 1 : head - 1);
+        }
+#ifdef HSMM_SMALLK_PROBE
+        const long long c1 = PROBE_CLOCK();
+        __syncthreads();
+        const long long c2 = PROBE_CLOCK();
+        if (cm == 0) cb = cm = c0;   // no step this frame
+        acc[0] += cm - cb;
+        acc[1] += c1 - cm;
+        acc[2] += (c2 - c1) + (cb - c0);
+        c0 = c2;
+        cb = cm = 0;
+        const int nck = FORWARD ? (step + 1 < T ? (t + 1) / CH : -1) : (t >= 1 ? (t - 1) / CH : -1);
+        if (nck != ck) {
+            if (tid == 0 || tid == 32) {
+                long long* p = g_probe + (static_cast<long long>(blockIdx.x) * nch + ck) * PROBE_PHASES +
+                               (tid == 0 ? 0 : 3);
+                p[0] = acc[0];
+                p[1] = acc[1];
+                p[2] = acc[2];
+            }
+            acc[0] = acc[1] = acc[2] = 0;
+            ck = nck;
+        }
+#else
+        __syncthreads();
+#endif
+    }
+    if (FORWARD && chain) {
+        float v[KP];
+#pragma unroll
+        for (int k = 0; k < KP; ++k) v[k] = __shfl_sync(FULL, afin, k * L);
+        const float z = lse<KP>(v);
+        if (lane == 0) *log_z = z;
+    }
+}
+
+template <int KP, int NJ, int G>
+__global__ void __launch_bounds__(32 + (KP * G > 32 ? KP * G : 32))
 hsmm_fb_kernel(const float* __restrict__ log_obs, const float* __restrict__ log_a,
                const float* __restrict__ log_pi, const float* __restrict__ log_dur,
                const int* __restrict__ lengths, float* __restrict__ alpha,
                float* __restrict__ log_z, float* __restrict__ beta_star,
-               float* __restrict__ beta_start, int T, int K, int D) {
-    __shared__ Stage lo_s[2];
-    extern __shared__ float dyn[];
-    float* ld_s = dyn;
-    float* mu_r = ld_s + D * KMAX;
-    float* e_r = mu_r + D * KMAX;
-    float* v_r = e_r + D * KMAX;
-    const int b = blockIdx.x;
-    const int warp = threadIdx.x / KMAX;
-    const int lane = threadIdx.x % KMAX;
-    load_durations(ld_s, log_dur, K, D, threadIdx.x, 2 * KMAX);
-    __syncthreads();
+               float* __restrict__ beta_start, int B, int T, int K, int D) {
+    extern __shared__ __align__(16) float dyn_fb[];
+    const bool forward = blockIdx.x < B;
+    const int b = forward ? blockIdx.x : blockIdx.x - B;
     const long long row = static_cast<long long>(b) * T * K;
     const int len = row_length(lengths, b, T);
-    if (warp == 0)
-        forward_chain<KP>(log_obs + row, log_a, log_pi, ld_s, len, T, K, D, lane,
-                          alpha + row, log_z + b, lo_s[0], mu_r, e_r);
+    if (forward)
+        fb_chain<KP, NJ, G, true>(dyn_fb, log_obs + row, log_a, log_pi, log_dur, len, T, K, D,
+                               alpha + row, nullptr, log_z + b);
     else
-        backward_chain<KP>(log_obs + row, log_a, ld_s, len, T, K, D, lane,
-                           beta_star + row, beta_start + row, lo_s[1], v_r);
+        fb_chain<KP, NJ, G, false>(dyn_fb, log_obs + row, log_a, log_pi, log_dur, len, T, K, D,
+                                beta_star + row, beta_start + row, nullptr);
 }
 
 // Segment Viterbi of one sequence per block (one warp): the trellis
@@ -565,18 +957,76 @@ extern "C" int hsmm_backward_f32(const float* log_obs, const float* log_a, const
     return static_cast<int>(cudaGetLastError());
 }
 
-// alpha*, beta*, beta_start (B, T, K) and log_z (B,) out.
+// alpha*, beta*, beta_start (B, T, K) and log_z (B,) out; G lanes a
+// state and `bytes` of shared memory, fb_plan's (refused unless G is a
+// power of two up to 16 whose slices of 8 or 16 terms cover the window and
+// bytes hold fb_bytes).
+static cudaError_t hsmm_fb_launch(const float* log_obs, const float* log_a, const float* log_pi,
+                                  const float* log_dur, const int* lengths, float* alpha,
+                                  float* log_z, float* beta_star, float* beta_start, int B, int T,
+                                  int K, int D, int G, int bytes, cudaStream_t st) {
+    const int per_lane = (D - 1 + G - 1) / G;
+    const int threads = 32 * (1 + (K * G + 31) / 32);
+    if (G < 1 || G > FB_MAX_LANES || (G & (G - 1)) != 0 || per_lane > 2 * FB_TERMS ||
+        threads > 1024 || bytes < static_cast<long long>(fb_bytes(K, D, G)) || K < 1 || K > KMAX ||
+        D < 1 || B < 1 || T < 1)
+        return cudaErrorInvalidValue;
+    const bool wide = per_lane > FB_TERMS;
+#define FB_LAUNCH(KP_, NJ_, G_)                                                                 \
+    do {                                                                                        \
+        auto kernel = hsmm_fb_kernel<KP_, NJ_, G_>;                                             \
+        cudaError_t e_ = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                                              bytes);                                           \
+        if (e_ != cudaSuccess) return e_;                                                       \
+        kernel<<<2 * B, threads, bytes, st>>>(log_obs, log_a, log_pi, log_dur, lengths, alpha,   \
+                                              log_z, beta_star, beta_start, B, T, K, D);        \
+    } while (0)
+#define FB_LANES(KP_)                                                     \
+    do {                                                                  \
+        if (G == 1) FB_LAUNCH(KP_, FB_TERMS, 1);                          \
+        else if (G == 2) FB_LAUNCH(KP_, FB_TERMS, 2);                     \
+        else if (G == 4) FB_LAUNCH(KP_, FB_TERMS, 4);                     \
+        else if (G == 8) FB_LAUNCH(KP_, FB_TERMS, 8);                     \
+        else if (!wide) FB_LAUNCH(KP_, FB_TERMS, 16);                     \
+        else FB_LAUNCH(KP_, 2 * FB_TERMS, 16);                            \
+    } while (0)
+    if (K <= 8) FB_LANES(8);
+    else if (K <= 16) FB_LANES(16);
+    else FB_LANES(32);
+#undef FB_LANES
+#undef FB_LAUNCH
+    return cudaGetLastError();
+}
+
 extern "C" int hsmm_fb_f32(const float* log_obs, const float* log_a, const float* log_pi,
                            const float* log_dur, const int* lengths, float* alpha,
                            float* log_z, float* beta_star, float* beta_start,
-                           int B, int T, int K, int D, int device, void* stream) {
+                           int B, int T, int K, int D, int G, int bytes, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    LAUNCH_KP(hsmm_fb_kernel, 4, B, 2 * KMAX, st, log_obs, log_a, log_pi, log_dur, lengths,
-              alpha, log_z, beta_star, beta_start, T, K, D);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(hsmm_fb_launch(log_obs, log_a, log_pi, log_dur, lengths, alpha, log_z,
+                                           beta_star, beta_start, B, T, K, D, G, bytes,
+                                           static_cast<cudaStream_t>(stream)));
 }
+
+#ifdef HSMM_SMALLK_PROBE
+// hsmm_fb, probed: arguments as hsmm_fb_f32 plus probe, (2, B,
+// ceil(T / 64), 6) int64 cycles out (block x = chain B + b).
+extern "C" int hsmm_fb_probe_f32(const float* log_obs, const float* log_a, const float* log_pi,
+                                 const float* log_dur, const int* lengths, float* alpha,
+                                 float* log_z, float* beta_star, float* beta_start,
+                                 long long* probe, int B, int T, int K, int D, int G, int bytes,
+                                 int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaMemcpyToSymbolAsync(g_probe, &probe, sizeof(probe), 0, cudaMemcpyHostToDevice,
+                                  static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(hsmm_fb_launch(log_obs, log_a, log_pi, log_dur, lengths, alpha, log_z,
+                                           beta_star, beta_start, B, T, K, D, G, bytes,
+                                           static_cast<cudaStream_t>(stream)));
+}
+#endif
 
 // dstar, phi (B, T, K) uint8 scratch; states (B, T) int32 and score
 // (B,) float32 out.

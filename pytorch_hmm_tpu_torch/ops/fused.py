@@ -11,7 +11,9 @@ in matmul form::
     const = log w - (D log 2pi + Σ log var + Σ mu²/var) / 2
 
 reduced over C by logsumexp and fed to the trellis in shared memory, so
-the ``(B, T, S)`` scores never reach device memory. On CPU tensors it
+the ``(B, T, S)`` scores never reach device memory; the kernel builds
+the tables from the parameters itself, at the layout :func:`fused_plan`
+picks for the shape. On CPU tensors it
 runs :func:`fused_gmm_viterbi_reference`: the same matmul-form emission
 in plain torch, ``logsumexp`` over C, ``core.viterbi``. The two differ
 from the unfused decode (``emissions.gmm_log_probs`` into the trellis)
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,13 +36,64 @@ from ..core.semiring import logsumexp
 from . import _build
 
 __all__ = ["emission_tables", "fused_gmm_supported", "fused_gmm_viterbi",
-           "fused_gmm_viterbi_reference"]
+           "fused_gmm_viterbi_reference", "fused_plan"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _LANES, _SUBLANES = 128, 8
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"fused_gmm_viterbi_f32": [_P] * 10 + [_I] * 6 + [_P]}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {"fused_gmm_viterbi_f32": [_P] * 10 + [_F] + [_I] * 11 + [_P]}
+# The phase probe: a separate build of csrc/fused_gmm.cu, never on an
+# entry point's path (chip_smoke.py and kernel_ab.py read it).
+PROBE_DEFINES = ("FUSED_GMM_PROBE",)
+_PROBE_SIGNATURES = {"fused_gmm_probe_f32": [_P] * 11 + [_F] + [_I] * 11 + [_P]}
+
+# The kernel's shared-memory plan (csrc/fused_gmm.cu, fused_bytes): frames
+# a chunk, ring slots, the transposed rows' stride, the mbarriers' bytes,
+# and what a block may hold beside the kernel's static shared memory.
+_TC, _NS, _XS, _BAR_BYTES = 64, 2, 68, 80
+SMEM_LIMIT = 232448 - 2048
+# k-blocks tried below a whole D, largest first.
+_KD_STEPS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+class FusedPlan(NamedTuple):
+    """Shared memory of the fused decode at (S, C, D): ``kp`` the chain's
+    padded states, ``sp`` the ring's row (S rounded up to 8), ``cp`` the
+    padded components, ``n`` = sp cp table columns; features multiplied
+    ``kd`` at a time; ``resident`` tables built whole for the launch
+    (else rebuilt a k-block at a time); ``raw`` chunks staged by a bulk
+    copy (else read in place); ``smem`` the dynamic bytes."""
+
+    kp: int
+    sp: int
+    cp: int
+    n: int
+    kd: int
+    resident: bool
+    raw: bool
+    smem: int
+
+
+def fused_plan(num_states: int, num_components: int, feature_dim: int) -> FusedPlan:
+    """The first layout that fits ``SMEM_LIMIT``: resident tables before
+    streamed ones, a staged chunk before reads in place, then the largest
+    k-block. The envelope (:func:`fused_gmm_supported`) always fits."""
+    S, D = num_states, feature_dim
+    kp = 32 if S <= 32 else 64 if S <= 64 else 128
+    sp = -(-S // _SUBLANES) * _SUBLANES
+    cp = _next_pow2(num_components)
+    n = sp * cp
+    fixed = _BAR_BYTES + 4 * (2 * kp + n + _NS * _TC * sp)
+    kds = [D] + [k for k in _KD_STEPS if k < D]
+    for resident in (True, False):
+        for raw in (True, False):
+            for kd in kds:
+                smem = fixed + 4 * (2 * (D if resident else kd) * n + 2 * kd * _XS
+                                    + (_TC * D if raw else 0))
+                if smem <= SMEM_LIMIT:
+                    return FusedPlan(kp, sp, cp, n, kd, resident, raw, smem)
+    raise ValueError(f"fused_gmm_viterbi: no shared-memory plan for S={S}, C={num_components}, D={D}")
 
 
 def _next_pow2(n: int) -> int:
@@ -144,23 +197,35 @@ def fused_gmm_viterbi(
     if lengths is not None and (lengths.device != dev or lengths.dtype != torch.int32
                                 or tuple(lengths.shape) != (B,) or not lengths.is_contiguous()):
         raise ValueError(f"fused_gmm_viterbi: lengths must be contiguous int32 ({B},) on {dev}")
-    a, bm, const = emission_tables(means, log_vars, log_w)
-    # The kernel reads component-major, state-minor tables.
-    a_tab = a.permute(1, 2, 0).contiguous()       # (C, D, S)
-    b_tab = bm.permute(1, 2, 0).contiguous()
-    cn = const.T.contiguous()                     # (C, S)
-    lib = _build.load("fused_gmm", _SIGNATURES)
+    states, score = _launch(obs, means, log_vars, log_w, log_a, log_pi, lengths)
+    fused_gmm_viterbi.launches += 1
+    return states, score
+
+
+def _launch(obs, means, log_vars, log_w, log_a, log_pi, lengths, probe=None):
+    """Launch ``csrc/fused_gmm.cu`` on checked CUDA inputs at
+    :func:`fused_plan`'s layout; the kernel builds its tables from the
+    parameters. With ``probe`` (an int64 ``(B, ceil(T / 64), 10)``
+    tensor) the probe build instead, which writes each role's cycles
+    there."""
+    B, T, D = obs.shape
+    S, C, _ = means.shape
+    dev = obs.device
+    plan = fused_plan(S, C, D)
     psi = torch.empty((B, T, S), dtype=torch.uint8, device=dev)
     states = torch.empty((B, T), dtype=torch.int32, device=dev)
     score = torch.empty((B,), dtype=torch.float32, device=dev)
-    rc = lib.fused_gmm_viterbi_f32(
-        obs.data_ptr(), a_tab.data_ptr(), b_tab.data_ptr(), cn.data_ptr(), log_a.data_ptr(),
-        log_pi.data_ptr(), None if lengths is None else lengths.data_ptr(), psi.data_ptr(),
-        states.data_ptr(), score.data_ptr(), B, T, D, S, C, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    args = [obs.data_ptr(), means.data_ptr(), log_vars.data_ptr(), log_w.data_ptr(),
+            log_a.data_ptr(), log_pi.data_ptr(), None if lengths is None else lengths.data_ptr(),
+            psi.data_ptr(), states.data_ptr(), score.data_ptr()]
+    tail = [D * _LOG_2PI, B, T, D, S, C, plan.cp, plan.kd, int(plan.resident), int(plan.raw),
+            plan.smem, dev.index, torch.cuda.current_stream(dev).cuda_stream]
+    if probe is None:
+        rc = _build.load("fused_gmm", _SIGNATURES).fused_gmm_viterbi_f32(*args, *tail)
+    else:
+        lib = _build.load("fused_gmm", _PROBE_SIGNATURES, PROBE_DEFINES)
+        rc = lib.fused_gmm_probe_f32(*args, probe.data_ptr(), *tail)
     _build.check(rc, "fused_gmm_viterbi")
-    fused_gmm_viterbi.launches += 1
     return states, score
 
 

@@ -25,7 +25,7 @@ card takes any batch.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -51,8 +51,8 @@ __all__ = [
 ]
 
 # The duration rings, the duration table and the staging buffers of the
-# fused kernel fill 160 KB of shared memory at D = 256, and the Viterbi
-# tables hold a duration index in a byte.
+# Viterbi kernel fill 116 KB of shared memory at D = 256, and its tables
+# hold a duration index in a byte.
 MAX_DURATION = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -63,9 +63,47 @@ _UNIT_SIGNATURES = {
 _SIGNATURES = {
     "hsmm_forward_f32": [_P] * 7 + [_I] * 5 + [_P],
     "hsmm_backward_f32": [_P] * 6 + [_I] * 5 + [_P],
-    "hsmm_fb_f32": [_P] * 9 + [_I] * 5 + [_P],
+    "hsmm_fb_f32": [_P] * 9 + [_I] * 7 + [_P],
     "hsmm_viterbi_f32": [_P] * 9 + [_I] * 5 + [_P],
 }
+# The phase probe of hsmm_fb: a separate build of csrc/hsmm_smallk.cu,
+# never on an entry point's path (chip_smoke.py and kernel_ab.py read it).
+PROBE_DEFINES = ("HSMM_SMALLK_PROBE",)
+_PROBE_SIGNATURES = {"hsmm_fb_probe_f32": [_P] * 10 + [_I] * 7 + [_P]}
+
+# hsmm_fb's lane split: a helper lane takes at most FB_TERMS of a frame's
+# older window terms (2 FB_TERMS once G reaches FB_MAX_LANES lanes a state).
+FB_TERMS, FB_MAX_LANES = 8, 16
+_CH, _KMAX = 64, 32
+
+
+class FbPlan(NamedTuple):
+    """How ``hsmm_smallk_fb`` splits a frame's window: ``lanes`` (G) helper
+    lanes a state, each taking the ``terms`` (NJ) older terms j = 1 + g +
+    G i; ``threads`` a block (the chain warp and the helper warps);
+    ``stride`` of a state's ring row; ``smem`` bytes of shared memory."""
+
+    lanes: int
+    terms: int
+    threads: int
+    stride: int
+    smem: int
+
+
+def fb_plan(num_states: int, max_duration: int) -> FbPlan:
+    """The lane split of ``hsmm_smallk_fb`` at (S, D): the fewest lanes a
+    state (a power of two up to 16) that leave a lane at most 8 of the D -
+    1 older window terms, 16 past that; ``csrc/hsmm_smallk.cu``
+    (``hsmm_fb_launch``) refuses any other."""
+    older = max_duration - 1
+    g = 1
+    while g < FB_MAX_LANES and -(-older // g) > FB_TERMS:
+        g *= 2
+    terms = FB_TERMS if -(-older // g) <= FB_TERMS else 2 * FB_TERMS
+    threads = 32 * (1 + -(-num_states * g // 32))
+    stride = -(-max_duration // 32) * 32 + g % 32
+    smem = 4 * (2 * num_states * stride + 2 * _CH * num_states + 6 * _KMAX)
+    return FbPlan(g, terms, threads, stride, smem)
 
 
 def hsmm_smallk_supported(num_states: int, max_duration: int, batch: int) -> bool:
@@ -89,9 +127,10 @@ def _check_segment_problem(what, log_obs, log_a, log_pi, log_dur, lengths):
     return B, T, K, log_dur.shape[1], lengths
 
 
-def _launch(fn_name: str, what: str, *args) -> None:
+def _launch(fn_name: str, what: str, *args, probe=False) -> None:
     dev = args[0].device
-    lib = _build.load("hsmm_smallk", _SIGNATURES)
+    lib = (_build.load("hsmm_smallk", _PROBE_SIGNATURES, PROBE_DEFINES) if probe
+           else _build.load("hsmm_smallk", _SIGNATURES))
     ptrs = [None if a is None else a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
     rc = getattr(lib, fn_name)(*ptrs, dev.index, torch.cuda.current_stream(dev).cuda_stream)
@@ -214,6 +253,15 @@ def hsmm_smallk_fb(
     """
     if log_obs.device.type == "cpu":
         return hsmm_smallk_fb_reference(log_obs, log_a, log_pi, log_dur, lengths)
+    out = _fb_launch(log_obs, log_a, log_pi, log_dur, lengths)
+    hsmm_smallk_fb.launches += 1
+    return out
+
+
+def _fb_launch(log_obs, log_a, log_pi, log_dur, lengths, probe=None):
+    """Launch ``hsmm_fb`` on checked CUDA inputs at :func:`fb_plan`'s
+    split; with ``probe`` (an int64 ``(2, B, ceil(T / 64), 6)`` tensor)
+    the probe build instead, which writes each role's cycles there."""
     what = "hsmm_smallk_fb"
     B, T, K, D, lengths = _check_segment_problem(what, log_obs, log_a, log_pi, log_dur, lengths)
     dev = log_obs.device
@@ -221,9 +269,14 @@ def hsmm_smallk_fb(
     beta_star = torch.empty_like(alpha)
     beta_start = torch.empty_like(alpha)
     log_z = torch.empty((B,), dtype=torch.float32, device=dev)
-    _launch("hsmm_fb_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
-            alpha, log_z, beta_star, beta_start, B, T, K, D)
-    hsmm_smallk_fb.launches += 1
+    plan = fb_plan(K, D)
+    tail = (B, T, K, D, plan.lanes, plan.smem)
+    if probe is None:
+        _launch("hsmm_fb_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
+                alpha, log_z, beta_star, beta_start, *tail)
+    else:
+        _launch("hsmm_fb_probe_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
+                alpha, log_z, beta_star, beta_start, probe, *tail, probe=True)
     return alpha, log_z, beta_star, beta_start
 
 

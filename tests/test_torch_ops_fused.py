@@ -118,3 +118,48 @@ def test_cpu_decode_never_launches():
     got = ops.auto_gmm_viterbi(*(torch.from_numpy(a) for a in arrays))
     assert fused.fused_gmm_viterbi.launches == before
     assert got[0].shape == (3, 130)
+
+
+# -- the kernel's shared-memory plan and table layout ------------------------
+
+
+@pytest.mark.parametrize("D", [13, 80, 256])
+def test_plan_fits_every_envelope_shape(D):
+    """Every (S, C) the envelope takes has a layout within a block's shared
+    memory: the ring, the delta vectors, the tables (whole or a k-block),
+    the transposed k-block and the raw chunk."""
+    for S in range(1, 129):
+        for C in range(1, 17):
+            if not fused.fused_gmm_supported(S, C, "diag"):
+                continue
+            plan = fused.fused_plan(S, C, D)
+            assert plan.smem <= fused.SMEM_LIMIT, (S, C, D, plan)
+            assert plan.kp >= S and plan.kp in (32, 64, 128)
+            assert plan.sp >= S and plan.sp % 8 == 0 and plan.cp >= C
+            assert plan.n == plan.sp * plan.cp <= 128
+            assert 1 <= plan.kd <= D
+            tab = 2 * (D if plan.resident else plan.kd) * plan.n
+            raw = 64 * D if plan.raw else 0
+            assert plan.smem == 80 + 4 * (2 * plan.kp + plan.n + 2 * 64 * plan.sp + tab + 2 * plan.kd * 68 + raw)
+
+
+@pytest.mark.parametrize("S,C,D,resident,raw,kd", [
+    (64, 2, 80, True, True, 80),      # the headline: whole tables, whole k
+    (128, 1, 80, True, True, 80),     # the tight case: 213,072 bytes
+    (40, 2, 13, True, True, 13),
+    (96, 1, 96, True, True, 96),
+    (128, 1, 256, False, True, 32),   # tables streamed a k-block at a time
+    (8, 16, 256, False, True, 64),
+    (128, 1, 2000, False, False, 64),  # the chunk read in place
+])
+def test_plan_keeps_tables_resident_while_they_fit(S, C, D, resident, raw, kd):
+    plan = fused.fused_plan(S, C, D)
+    assert (plan.resident, plan.raw, plan.kd) == (resident, raw, kd)
+
+
+def test_probe_build_is_its_own_library():
+    from pytorch_hmm_tpu_torch.ops import _build
+
+    plain = _build.library_path("fused_gmm")
+    probe = _build.library_path("fused_gmm", fused.PROBE_DEFINES)
+    assert probe != plain and probe.name.startswith("libfused_gmm-")

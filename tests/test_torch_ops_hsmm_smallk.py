@@ -307,3 +307,50 @@ def test_general_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="K <= 32"):
         hsmm_smallk_viterbi(torch.empty(2, 10, 33, device="meta"), torch.empty(33, 33, device="meta"),
                             torch.empty(33, device="meta"), torch.empty(33, 5, device="meta"))
+
+
+# -- hsmm_smallk_fb's lane split -----------------------------------------------
+
+
+@pytest.mark.parametrize("S", [1, 5, 9, 10, 16, 17, 31, 32])
+def test_fb_plan_covers_every_window(S):
+    """Every D takes a power-of-two split of at most 16 lanes a state whose
+    slices of 8 (or 16) terms cover the D - 1 older terms, in one block
+    of at most 1024 threads and within a block's shared memory; the ring
+    stride keeps a state's lanes and the warp's states in distinct banks."""
+    from pytorch_hmm_tpu_torch.ops import hsmm_smallk
+
+    for D in range(1, hsmm_smallk.MAX_DURATION + 1):
+        plan = hsmm_smallk.fb_plan(S, D)
+        g = plan.lanes
+        assert g & (g - 1) == 0 and 1 <= g <= 16
+        assert plan.terms in (8, 16) and g * plan.terms >= D - 1
+        assert plan.terms == 8 or g == 16
+        assert g == 1 or -(-(D - 1) // (g // 2)) > 8          # the fewest lanes that do
+        assert plan.threads == 32 * (1 + -(-S * g // 32)) <= 1024
+        assert plan.stride >= D and plan.stride % 32 == g % 32
+        assert plan.smem == 4 * (2 * S * plan.stride + 2 * 64 * S + 6 * 32) <= 232448
+
+
+@pytest.mark.parametrize("S,D,lanes,terms,threads", [
+    (10, 20, 4, 8, 96),      # the bench's HSMMLayer: 5 terms a lane
+    (10, 128, 16, 8, 192),
+    (32, 20, 4, 8, 160),
+    (9, 15, 2, 8, 64),
+    (32, 256, 16, 16, 544),
+    (10, 1, 1, 8, 64),       # D = 1: no older terms
+    (10, 9, 1, 8, 64),
+])
+def test_fb_plan_values(S, D, lanes, terms, threads):
+    from pytorch_hmm_tpu_torch.ops import hsmm_smallk
+
+    plan = hsmm_smallk.fb_plan(S, D)
+    assert (plan.lanes, plan.terms, plan.threads) == (lanes, terms, threads)
+
+
+def test_fb_probe_build_is_its_own_library():
+    from pytorch_hmm_tpu_torch.ops import _build, hsmm_smallk
+
+    plain = _build.library_path("hsmm_smallk")
+    probe = _build.library_path("hsmm_smallk", hsmm_smallk.PROBE_DEFINES)
+    assert probe != plain and probe.name.startswith("libhsmm_smallk-")
