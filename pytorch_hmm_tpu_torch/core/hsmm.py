@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..trace import span
 from .semiring import LOG_ZERO, logsumexp
 
 __all__ = [
@@ -251,56 +252,59 @@ def hsmm_grads_from_tables(log_obs, log_a, log_pi, log_dur, log_alpha,
     sums, without the cancellation of two ~1e5 terms in f32 at speech
     widths.
     """
-    B, T, S = log_obs.shape
-    D = log_dur.shape[-1]
-    dev = log_obs.device
-    la = torch.clamp(log_a, min=_NEG)
-    ld = torch.clamp(log_dur, min=_NEG)
-    lz = log_z[:, None, None]
-    gb = g[:, None, None]
-    lengths = _as_lengths(lengths, dev)
-    valid = None if lengths is None else (
-        torch.arange(T, device=dev)[None, :, None] < lengths[:, None, None])
+    with span("core.hsmm_grads_from_tables"):
+        B, T, S = log_obs.shape
+        D = log_dur.shape[-1]
+        dev = log_obs.device
+        la = torch.clamp(log_a, min=_NEG)
+        ld = torch.clamp(log_dur, min=_NEG)
+        lz = log_z[:, None, None]
+        gb = g[:, None, None]
+        lengths = _as_lengths(lengths, dev)
+        valid = None if lengths is None else (
+            torch.arange(T, device=dev)[None, :, None] < lengths[:, None, None])
 
-    nu = _entry_scores(log_alpha, log_a, log_pi)
-    seg_end = torch.exp(log_alpha + log_bstar - lz)
-    seg_start = torch.exp(nu + log_bstart - lz)
-    if valid is not None:
-        seg_end = torch.where(valid, seg_end, 0.0)
-        seg_start = torch.where(valid, seg_start, 0.0)
-    gamma = _occupancy(seg_start, seg_end)
-    if valid is not None:
-        gamma = torch.where(valid, gamma, 0.0)
-    d_log_obs = gb * gamma
+        nu = _entry_scores(log_alpha, log_a, log_pi)
+        seg_end = torch.exp(log_alpha + log_bstar - lz)
+        seg_start = torch.exp(nu + log_bstart - lz)
+        if valid is not None:
+            seg_end = torch.where(valid, seg_end, 0.0)
+            seg_start = torch.where(valid, seg_start, 0.0)
+        gamma = _occupancy(seg_start, seg_end)
+        if valid is not None:
+            gamma = torch.where(valid, gamma, 0.0)
+        d_log_obs = gb * gamma
 
-    d_log_pi = torch.sum(g[:, None] * torch.exp(log_pi[None] + log_bstart[:, 0] - log_z[:, None]), 0)
+        d_log_pi = torch.sum(
+            g[:, None] * torch.exp(log_pi[None] + log_bstart[:, 0] - log_z[:, None]), 0)
 
-    # Expected transitions i→j: a segment of i ends at t, one of j
-    # starts at t+1 inside the row.
-    lxi = log_alpha[:, :-1, :, None] + la[None, None] + log_bstart[:, 1:, None, :] - lz[..., None]
-    if lengths is not None:
-        tmask = (torch.arange(1, T, device=dev)[None, :] < lengths[:, None])[..., None, None]
-        lxi = torch.where(tmask, lxi, float("-inf"))
-    d_log_a = torch.sum(gb[..., None] * torch.exp(lxi), dim=(0, 1))
+        # Expected transitions i→j: a segment of i ends at t, one of j
+        # starts at t+1 inside the row.
+        lxi = (log_alpha[:, :-1, :, None] + la[None, None] + log_bstart[:, 1:, None, :]
+               - lz[..., None])
+        if lengths is not None:
+            tmask = (torch.arange(1, T, device=dev)[None, :] < lengths[:, None])[..., None, None]
+            lxi = torch.where(tmask, lxi, float("-inf"))
+        d_log_a = torch.sum(gb[..., None] * torch.exp(lxi), dim=(0, 1))
 
-    # Expected segments of state s with duration d: start u, end
-    # u+d-1 <= the row's final frame.
-    t_fin = (torch.full((B, 1, 1), T - 1, device=dev) if lengths is None
-             else (lengths - 1)[:, None, None])
-    u_iota = torch.arange(T, device=dev)[None, :, None]
-    cols = []
-    window = torch.zeros_like(log_obs)
-    for d in range(1, D + 1):
-        n_u = T - d + 1
-        if n_u <= 0:
-            cols.append(torch.zeros((S,), dtype=log_obs.dtype, device=dev))
-            continue
-        window = window[:, :n_u] + log_obs[:, d - 1:]            # E(u..u+d-1)
-        expo = nu[:, :n_u] + ld[None, None, :, d - 1] + window + log_bstar[:, d - 1:] - lz
-        expo = torch.where(u_iota[:, :n_u] + (d - 1) <= t_fin, expo, float("-inf"))
-        cols.append(torch.sum(gb * torch.exp(expo), dim=(0, 1)))
-    d_log_dur = torch.stack(cols, 1)
-    return d_log_obs, d_log_a, d_log_pi, d_log_dur
+        # Expected segments of state s with duration d: start u, end
+        # u+d-1 <= the row's final frame.
+        t_fin = (torch.full((B, 1, 1), T - 1, device=dev) if lengths is None
+                 else (lengths - 1)[:, None, None])
+        u_iota = torch.arange(T, device=dev)[None, :, None]
+        cols = []
+        window = torch.zeros_like(log_obs)
+        for d in range(1, D + 1):
+            n_u = T - d + 1
+            if n_u <= 0:
+                cols.append(torch.zeros((S,), dtype=log_obs.dtype, device=dev))
+                continue
+            window = window[:, :n_u] + log_obs[:, d - 1:]            # E(u..u+d-1)
+            expo = nu[:, :n_u] + ld[None, None, :, d - 1] + window + log_bstar[:, d - 1:] - lz
+            expo = torch.where(u_iota[:, :n_u] + (d - 1) <= t_fin, expo, float("-inf"))
+            cols.append(torch.sum(gb * torch.exp(expo), dim=(0, 1)))
+        d_log_dur = torch.stack(cols, 1)
+        return d_log_obs, d_log_a, d_log_pi, d_log_dur
 
 
 class _HSMMLogZ(torch.autograd.Function):

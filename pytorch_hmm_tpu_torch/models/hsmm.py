@@ -32,6 +32,7 @@ from ..durations import (
 )
 from ..emissions import diag_gaussian_log_probs
 from ..ops import auto_hsmm_log_z, auto_hsmm_posteriors, auto_hsmm_viterbi
+from ..trace import span
 
 __all__ = ["HSMMLayer", "DurationConstrainedHMM"]
 
@@ -144,22 +145,24 @@ class HSMMLayer(nn.Module):
         return torch.exp(self._log_a())
 
     def _log_a(self) -> torch.Tensor:
-        return _masked_log_softmax(self.transition_logits)
+        with span("models.hsmm.transitions"):
+            return _masked_log_softmax(self.transition_logits)
 
     def _log_pi(self) -> torch.Tensor:
         # Uniform initial distribution: every state's first segment
         # scores equally.
-        return torch.full((self.num_states,), -math.log(self.num_states),
-                          device=self.transition_logits.device)
+        with span("models.hsmm.transitions"):
+            return torch.full((self.num_states,), -math.log(self.num_states),
+                              device=self.transition_logits.device)
 
     def get_duration_log_probs(self) -> torch.Tensor:
         """(S, D) duration log-pmf."""
         kw = dict(max_duration=self.max_duration, min_duration=self.min_duration,
                   normalize=self.normalize_durations)
-        params = [F.softplus(p) for p in self._duration_tensors()]
         pmf = {"gamma": gamma_duration_log_pmf, "poisson": poisson_duration_log_pmf,
                "weibull": weibull_duration_log_pmf}[self.duration_distribution]
-        return pmf(*params, **kw)
+        with span("models.hsmm.durations"):
+            return pmf(*[F.softplus(p) for p in self._duration_tensors()], **kw)
 
     def get_duration_probabilities(self) -> torch.Tensor:
         """(S, D) probabilities."""
@@ -167,8 +170,9 @@ class HSMMLayer(nn.Module):
 
     def get_observation_log_probs(self, observations: torch.Tensor) -> torch.Tensor:
         """(B, T, S) diagonal-Gaussian scores."""
-        return diag_gaussian_log_probs(observations, self.observation_means,
-                                       self.observation_log_vars)
+        with span("models.hsmm.emissions"):
+            return diag_gaussian_log_probs(observations, self.observation_means,
+                                           self.observation_log_vars)
 
     def _dp_args(self, observations):
         return (self.get_observation_log_probs(observations), self._log_a(), self._log_pi(),
@@ -182,7 +186,8 @@ class HSMMLayer(nn.Module):
         """Best segmentation: ``(states (B, T) int32, scores (B,))``.
         ``lengths (B,)`` masks ragged batches (padded frames repeat each
         row's final state)."""
-        return auto_hsmm_viterbi(*self._dp_args(observations), lengths)
+        with span("models.hsmm.decode"):
+            return auto_hsmm_viterbi(*self._dp_args(observations), lengths)
 
     def forward(self, observations: torch.Tensor, lengths: Optional[torch.Tensor] = None):
         return self.viterbi_decode_hsmm(observations, lengths)
@@ -192,7 +197,8 @@ class HSMMLayer(nn.Module):
     ) -> torch.Tensor:
         """Marginal log-likelihood over all segmentations ``(B,)``,
         differentiable."""
-        return auto_hsmm_log_z(*self._dp_args(observations), lengths)
+        with span("models.hsmm.log_likelihood"):
+            return auto_hsmm_log_z(*self._dp_args(observations), lengths)
 
     def compute_loss(
         self, observations: torch.Tensor, lengths: Optional[torch.Tensor] = None

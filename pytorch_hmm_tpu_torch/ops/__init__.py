@@ -75,6 +75,7 @@ from typing import Optional
 import torch
 
 from .. import core
+from ..trace import span
 from .bigk import bigk_log_likelihood, bigk_log_likelihood_reference, bigk_supported
 from .ctc_kernel import (
     ctc_lattice_backward,
@@ -662,10 +663,11 @@ class _HSMMLogZ(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        lo_hat, log_a, log_pi, log_dur, lengths, alpha_hat, lz_hat = ctx.saved_tensors
-        bstar, bstart = hsmm_smallk_backward(lo_hat, log_a, log_dur, lengths)
-        grads = core.hsmm_grads_from_tables(lo_hat, log_a, log_pi, log_dur, alpha_hat,
-                                            bstar, bstart, lz_hat, lengths, g.contiguous())
+        with span("ops.hsmm_log_z.backward"):
+            lo_hat, log_a, log_pi, log_dur, lengths, alpha_hat, lz_hat = ctx.saved_tensors
+            bstar, bstart = hsmm_smallk_backward(lo_hat, log_a, log_dur, lengths)
+            grads = core.hsmm_grads_from_tables(lo_hat, log_a, log_pi, log_dur, alpha_hat,
+                                                bstar, bstart, lz_hat, lengths, g.contiguous())
         return (*grads, None)
 
 
@@ -685,12 +687,13 @@ def auto_hsmm_log_z(log_obs, log_a, log_pi, log_dur, lengths=None):
     """Differentiable HSMM log-likelihood ``(B,)``: the sum kernels with
     closed-form cotangents (:class:`_HSMMLogZ`) on the kernel route,
     ``core.hsmm_log_z`` elsewhere."""
-    if not _hsmm_kernel_route(log_obs, log_dur):
-        return core.hsmm_log_z(log_obs, log_a, log_pi, log_dur, lengths)
-    args = _f32(log_obs, log_a, log_pi, log_dur)
-    if lengths is None:
-        return pallas_hsmm_log_z(*args)
-    return _pallas_hsmm_lz_masked(*args, _lengths_on(lengths, log_obs.device))
+    with span("ops.auto_hsmm_log_z"):
+        if not _hsmm_kernel_route(log_obs, log_dur):
+            return core.hsmm_log_z(log_obs, log_a, log_pi, log_dur, lengths)
+        args = _f32(log_obs, log_a, log_pi, log_dur)
+        if lengths is None:
+            return pallas_hsmm_log_z(*args)
+        return _pallas_hsmm_lz_masked(*args, _lengths_on(lengths, log_obs.device))
 
 
 def auto_hsmm_forward(log_obs, log_a, log_pi, log_dur, lengths=None):
@@ -728,11 +731,12 @@ def auto_hsmm_viterbi(log_obs, log_a, log_pi, log_dur, lengths=None):
     ``hsmm_smallk_viterbi`` on the kernel route, ``core.hsmm_viterbi``
     elsewhere. Paths and scores are identical on both, tie-breaks
     included."""
-    if not _hsmm_kernel_route(log_obs, log_dur):
-        return core.hsmm_viterbi(log_obs, log_a, log_pi, log_dur, lengths)
-    with torch.no_grad():
-        return hsmm_smallk_viterbi(*_f32(log_obs, log_a, log_pi, log_dur),
-                                   _lengths_on(lengths, log_obs.device))
+    with span("ops.auto_hsmm_viterbi"):
+        if not _hsmm_kernel_route(log_obs, log_dur):
+            return core.hsmm_viterbi(log_obs, log_a, log_pi, log_dur, lengths)
+        with torch.no_grad():
+            return hsmm_smallk_viterbi(*_f32(log_obs, log_a, log_pi, log_dur),
+                                       _lengths_on(lengths, log_obs.device))
 
 
 # -- streaming ------------------------------------------------------------------

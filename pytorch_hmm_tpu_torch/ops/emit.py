@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..trace import span
 from . import _build
 
 __all__ = ["DQPlan", "diag_quadratic", "diag_quadratic_reference", "dq_plan"]
@@ -115,7 +116,8 @@ def _forward(obs, wq, wl, bias) -> torch.Tensor:
     """The plain version on CPU tensors, else the kernel."""
     if obs.device.type == "cpu":
         return diag_quadratic_reference(obs, wq, wl, bias)
-    return _launch(obs, wq, wl, bias)
+    with span("kernels.diag_quadratic"):
+        return _launch(obs, wq, wl, bias)
 
 
 class _DiagQuadratic(torch.autograd.Function):
@@ -132,15 +134,16 @@ class _DiagQuadratic(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        obs, wq, wl = ctx.saved_tensors
-        x = obs.to(g.dtype)
-        g2 = g.reshape(-1, g.shape[-1])
-        x2 = x.reshape(-1, x.shape[-1])
-        need = ctx.needs_input_grad
-        d_obs = (2.0 * x * (g @ wq.T) + g @ wl.T).to(obs.dtype) if need[0] else None
-        d_wq = (x2 * x2).T @ g2 if need[1] else None
-        d_wl = x2.T @ g2 if need[2] else None
-        d_bias = g2.sum(0) if need[3] else None
+        with span("ops.diag_quadratic.backward"):
+            obs, wq, wl = ctx.saved_tensors
+            x = obs.to(g.dtype)
+            g2 = g.reshape(-1, g.shape[-1])
+            x2 = x.reshape(-1, x.shape[-1])
+            need = ctx.needs_input_grad
+            d_obs = (2.0 * x * (g @ wq.T) + g @ wl.T).to(obs.dtype) if need[0] else None
+            d_wq = (x2 * x2).T @ g2 if need[1] else None
+            d_wl = x2.T @ g2 if need[2] else None
+            d_bias = g2.sum(0) if need[3] else None
         return d_obs, d_wq, d_wl, d_bias
 
 
@@ -159,9 +162,10 @@ def diag_quadratic(
     ``torch.autograd.Function``, so the backward is the same on both;
     where no gradient is recorded the forward runs without it.
     """
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (obs, wq, wl, bias)):
-        return _DiagQuadratic.apply(obs, wq, wl, bias)
-    return _forward(obs, wq, wl, bias)
+    with span("ops.diag_quadratic"):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (obs, wq, wl, bias)):
+            return _DiagQuadratic.apply(obs, wq, wl, bias)
+        return _forward(obs, wq, wl, bias)
 
 
 diag_quadratic.launches = 0

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import core
+from ..trace import span
 from . import _build
 from .smallk import MAX_SMALLK, check_problem
 
@@ -201,12 +202,13 @@ def hsmm_smallk_forward_general(
     """
     if log_obs.device.type == "cpu":
         return hsmm_smallk_forward_general_reference(log_obs, log_a, log_pi, log_dur, lengths)
-    what = "hsmm_smallk_forward"
-    B, T, K, D, lengths = _check_segment_problem(what, log_obs, log_a, log_pi, log_dur, lengths)
-    alpha = torch.empty((B, T, K), dtype=torch.float32, device=log_obs.device)
-    log_z = torch.empty((B,), dtype=torch.float32, device=log_obs.device)
-    _launch("hsmm_forward_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
-            alpha, log_z, B, T, K, D)
+    with span("kernels.hsmm_smallk_forward"):
+        what = "hsmm_smallk_forward"
+        B, T, K, D, lengths = _check_segment_problem(what, log_obs, log_a, log_pi, log_dur, lengths)
+        alpha = torch.empty((B, T, K), dtype=torch.float32, device=log_obs.device)
+        log_z = torch.empty((B,), dtype=torch.float32, device=log_obs.device)
+        _launch("hsmm_forward_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
+                alpha, log_z, B, T, K, D)
     hsmm_smallk_forward_general.launches += 1
     return alpha, log_z
 
@@ -226,12 +228,13 @@ def hsmm_smallk_backward_general(
     """
     if log_obs.device.type == "cpu":
         return hsmm_smallk_backward_general_reference(log_obs, log_a, log_dur, lengths)
-    what = "hsmm_smallk_backward"
-    B, T, K, D, lengths = _check_segment_problem(what, log_obs, log_a, None, log_dur, lengths)
-    beta_star = torch.empty((B, T, K), dtype=torch.float32, device=log_obs.device)
-    beta_start = torch.empty_like(beta_star)
-    _launch("hsmm_backward_f32", what, log_obs, log_a, log_dur, lengths,
-            beta_star, beta_start, B, T, K, D)
+    with span("kernels.hsmm_smallk_backward"):
+        what = "hsmm_smallk_backward"
+        B, T, K, D, lengths = _check_segment_problem(what, log_obs, log_a, None, log_dur, lengths)
+        beta_star = torch.empty((B, T, K), dtype=torch.float32, device=log_obs.device)
+        beta_start = torch.empty_like(beta_star)
+        _launch("hsmm_backward_f32", what, log_obs, log_a, log_dur, lengths,
+                beta_star, beta_start, B, T, K, D)
     hsmm_smallk_backward_general.launches += 1
     return beta_star, beta_start
 
@@ -296,15 +299,16 @@ def hsmm_smallk_viterbi(
     """
     if log_obs.device.type == "cpu":
         return hsmm_smallk_viterbi_reference(log_obs, log_a, log_pi, log_dur, lengths)
-    what = "hsmm_smallk_viterbi"
-    B, T, K, D, lengths = _check_segment_problem(what, log_obs, log_a, log_pi, log_dur, lengths)
-    dev = log_obs.device
-    dstar = torch.empty((B, T, K), dtype=torch.uint8, device=dev)
-    phi = torch.empty((B, T, K), dtype=torch.uint8, device=dev)
-    states = torch.empty((B, T), dtype=torch.int32, device=dev)
-    score = torch.empty((B,), dtype=torch.float32, device=dev)
-    _launch("hsmm_viterbi_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
-            dstar, phi, states, score, B, T, K, D)
+    with span("kernels.hsmm_smallk_viterbi"):
+        what = "hsmm_smallk_viterbi"
+        B, T, K, D, lengths = _check_segment_problem(what, log_obs, log_a, log_pi, log_dur, lengths)
+        dev = log_obs.device
+        dstar = torch.empty((B, T, K), dtype=torch.uint8, device=dev)
+        phi = torch.empty((B, T, K), dtype=torch.uint8, device=dev)
+        states = torch.empty((B, T), dtype=torch.int32, device=dev)
+        score = torch.empty((B,), dtype=torch.float32, device=dev)
+        _launch("hsmm_viterbi_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
+                dstar, phi, states, score, B, T, K, D)
     hsmm_smallk_viterbi.launches += 1
     return states, score
 

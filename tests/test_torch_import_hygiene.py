@@ -68,6 +68,7 @@ def test_port_imports_no_jax_no_triton_and_builds_nothing():
         "pytorch_hmm_tpu_torch.ops.stream_multi",
         "pytorch_hmm_tpu_torch.precision",
         "pytorch_hmm_tpu_torch.streaming",
+        "pytorch_hmm_tpu_torch.trace",
         "pytorch_hmm_tpu_torch.utils",
     }
     assert expected <= set(got["modules"])

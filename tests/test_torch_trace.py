@@ -1,0 +1,124 @@
+"""The port's spans (``pytorch_hmm_tpu_torch.trace``): recorded, nested by
+layer, under any ``torch.profiler`` run, and never entered without one.
+
+The test marked ``card`` needs a CUDA card and skips elsewhere. On a card,
+without the JAX test configuration:
+
+    python3 -m pytest --noconftest -o addopts= -m card tests/test_torch_trace.py
+"""
+
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from pytorch_hmm_tpu_torch import HSMMLayer, trace
+
+ROOT = Path(__file__).resolve().parent.parent
+
+DECODE = {"models.hsmm.decode", "models.hsmm.emissions", "models.hsmm.transitions",
+          "models.hsmm.durations", "ops.diag_quadratic", "ops.auto_hsmm_viterbi"}
+LOSS = {"models.hsmm.log_likelihood", "models.hsmm.emissions", "models.hsmm.transitions",
+        "models.hsmm.durations", "ops.diag_quadratic", "ops.auto_hsmm_log_z"}
+BACKWARD = {"core.hsmm_grads_from_tables", "ops.diag_quadratic.backward"}
+KERNELS = {"kernels.diag_quadratic", "kernels.hsmm_smallk_viterbi",
+           "kernels.hsmm_smallk_forward", "kernels.hsmm_smallk_backward"}
+PREFIXES = ("models.", "ops.", "core.", "kernels.")
+
+
+def _problem(device, B=3, T=40, S=4, F=6, D=5):
+    gen = torch.Generator().manual_seed(7)
+    layer = HSMMLayer(S, F, max_duration=D, device=device,
+                      generator=torch.Generator().manual_seed(1))
+    obs = torch.randn((B, T, F), generator=gen).to(device)
+    lengths = torch.tensor([T] + [T - 7 * (b + 1) for b in range(B - 1)],
+                           dtype=torch.int32, device=device)
+    return layer, obs, lengths
+
+
+def _ancestors(event):
+    event = event.cpu_parent
+    while event is not None:
+        yield event.name
+        event = event.cpu_parent
+
+
+def test_spans_nest_by_layer_under_a_cpu_profile():
+    layer, obs, lengths = _problem("cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("test.decode"):
+            layer(obs, lengths)
+        with torch.profiler.record_function("test.loss"):
+            loss = layer.compute_loss(obs, lengths)
+        with torch.profiler.record_function("test.backward"):
+            loss.backward()
+    events = [e for e in prof.events() if e.name.startswith(PREFIXES)]
+    under = {}
+    for e in events:
+        top = next(a for a in _ancestors(e) if a.startswith("test."))
+        under.setdefault(top, set()).add(e.name)
+    assert under["test.decode"] == DECODE
+    assert under["test.loss"] == LOSS
+    assert under["test.backward"] == BACKWARD
+    for e in events:
+        parents = list(_ancestors(e))
+        if e.name == "models.hsmm.emissions":
+            assert parents[0] in ("models.hsmm.decode", "models.hsmm.log_likelihood")
+        if e.name == "ops.diag_quadratic":
+            assert parents[0] == "models.hsmm.emissions"
+        if e.name in ("ops.auto_hsmm_viterbi", "models.hsmm.durations"):
+            assert parents[0] in ("models.hsmm.decode", "models.hsmm.log_likelihood")
+    # Two transition spans a call (log_a, log_pi), one of each other span.
+    names = [e.name for e in events]
+    assert names.count("models.hsmm.transitions") == 4
+    assert names.count("models.hsmm.decode") == names.count("core.hsmm_grads_from_tables") == 1
+
+
+def test_no_profiler_enters_no_record_function(monkeypatch):
+    real = torch.profiler.record_function
+    entered = []
+
+    def counting(name, *args, **kwargs):
+        entered.append(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    layer, obs, lengths = _problem("cpu")
+    layer(obs, lengths)
+    layer.compute_loss(obs, lengths).backward()
+    assert entered == []
+    assert trace.span("a") is trace.span("b")
+    # The same calls under a profiler do enter them: the count above reads
+    # the function the spans call.
+    with profile(activities=[ProfilerActivity.CPU]):
+        layer(obs, lengths)
+    assert set(entered) == DECODE
+
+
+@pytest.mark.card
+def test_card_spans_cover_every_device_op():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from bench_torch.spans import from_profile
+
+    layer, obs, lengths = _problem("cuda", B=32, T=1000, S=10, F=80, D=20)
+    layer(obs, lengths)
+    layer.compute_loss(obs, lengths).backward()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as decode:
+        layer(obs, lengths)
+        torch.cuda.synchronize()
+    with profile(activities=acts) as step:
+        layer.compute_loss(obs, lengths).backward()
+        torch.cuda.synchronize()
+    d, s = from_profile(decode), from_profile(step)
+    names = {x[0] for x in d["spans"]} | {x[0] for x in s["spans"]}
+    assert KERNELS <= names
+    assert BACKWARD | {"ops.hsmm_log_z.backward"} <= {x[0] for x in s["spans"]}
+    assert d["ops"] and None not in d["op_span"]
+    under = {d["spans"][i][0] for i in d["op_span"]}
+    assert {"kernels.diag_quadratic", "kernels.hsmm_smallk_viterbi"} <= under
