@@ -35,6 +35,13 @@ from the model's own means):
   source (``HSMM_SMALLK_PROBE``) at S=10 D=20, D=128 and S=32, each
   chain apart: the chain's join, predecessor lse and barrier wait, the
   helpers' terms, reduction and wait;
+* the training backward's cotangents (``csrc/hsmm_grads.cu``, row 24)
+  against their plain version ``core.hsmm_grads_from_tables`` and
+  against float64 on the card, run twice and equal bit for bit: at the
+  training cell's shape (B=1024, T=1000, S=10, D=20, lengths 250-1000),
+  at B=32 and at the envelope's edges (S=1, S=32, D=1, D=256, T<D,
+  unragged, ragged with a length-1 row, ``g`` of mixed signs); timed
+  beside the plain version and the bound at the first two;
 
 then streaming decode at the width of the repo's streaming configuration
 (``StreamingHMMProcessor(12, 80, chunk_size=160)``: beam width 8,
@@ -232,6 +239,18 @@ HSMM_SUM_ATOL, HSMM_SUM_RTOL = 5e-4, 1e-6
 # them, within 5e-3 of each tensor's largest entry.
 HSMM_POST_ATOL = 5e-3
 HSMM_GRAD_RTOL = HSMM_EM_RTOL = 5e-3
+# Row 24, the training backward's cotangents, vs their plain version on
+# the same tables (float32 both). Both take each posterior as exp(alpha +
+# beta - log Z) from exponents of ~1e3 (ulp 6e-5), and the plain version
+# the occupancy as a difference of two running sums where the kernel
+# scans start - end; d_log_obs within 2e-4 of max |g| (measured 4.9e-5
+# at the cell's shape). The parameters' cotangents are sums over up to
+# 6.4e5 frames taken in another order (float32 partials a block, then
+# float64; the plain's own float32 reductions): within 1e-5 of each
+# tensor's largest entry (measured 1.3e-6). Against float64 on the same
+# tables the kernel may be at most TABLE_GRADS_F64 times as far off as
+# the plain version, plus 1e-7.
+TABLE_GRADS_OBS_ATOL, TABLE_GRADS_RTOL, TABLE_GRADS_F64 = 2e-4, 1e-5, 1.5
 # Training on the card vs the same layer on the CPU in float64. The loss
 # and EM log-likelihood (mean log Z ~ -1.5e5): rtol 1e-5, about 80 f32
 # ulps of a sum of 1000 frames of ~150. Gradients and EM parameters are
@@ -430,6 +449,10 @@ KERNELS = {
         "source": "pytorch_hmm_tpu_torch/csrc/hsmm_smallk.cu",
         "replaces": "pytorch_hmm_tpu/ops/hsmm_smallk.py:903",
     },
+    "hsmm_table_grads": {
+        "source": "pytorch_hmm_tpu_torch/csrc/hsmm_grads.cu",
+        "replaces": "none (pytorch_hmm_tpu/core/hsmm.py:289, the table algebra left to XLA)",
+    },
     "greedy_chunk": {
         "source": "pytorch_hmm_tpu_torch/csrc/stream_greedy.cu",
         "replaces": "pytorch_hmm_tpu/ops/stream.py:136",
@@ -514,7 +537,7 @@ TRAINING_KERNELS = ("diag_quadratic", "fbsum_smallk", "hsmm_smallk_forward",
                     "hsmm_smallk_backward")
 DURATION_DECODE_KERNELS = ("diag_quadratic", "hsmm_smallk_viterbi")
 DURATION_TRAINING_KERNELS = ("diag_quadratic", "hsmm_smallk_fb", "hsmm_smallk_forward_general",
-                             "hsmm_smallk_backward_general")
+                             "hsmm_smallk_backward_general", "hsmm_table_grads")
 NEURAL_KERNELS = {
     "NeuralHMM": ("fused_gaussian_emission", "smallk_viterbi", "fbsum_smallk",
                   "hsmm_smallk_forward", "hsmm_smallk_backward"),
@@ -1080,6 +1103,111 @@ def phase_hsmm_kernels(dev, gen):
     return worst, list(cases)
 
 
+def _grid_lengths(b, t, shortest):
+    """``b`` lengths on an even grid from ``shortest`` to ``t``."""
+    return [round(shortest + (t - shortest) * i / (b - 1)) for i in range(b)]
+
+
+# Row 24's checks: (B, T, S, D, lengths, g of mixed signs). The cell's
+# shape (hsmm.train.b1024: lengths on an even grid over 250-1000) and
+# B=32 first, then the envelope's edges.
+TABLE_GRADS_CASES = {
+    "cell": (1024, HT, HS, HD, _grid_lengths(1024, HT, 250), False),
+    "B=32": (HB, HT, HS, HD, _grid_lengths(HB, HT, 250), False),
+    "S=1": (16, 20, 1, HD, None, False),
+    "S=32": (8, 500, 32, HD, None, False),
+    "D=1": (8, 300, HS, 1, [300, 31, 164, 1, 129, 300, 2, 77], False),
+    "D=256": (4, 600, HS, 256, None, False),
+    "S=32 D=256": (4, 700, 32, 256, [700, 300, 1, 650], False),
+    "T<D": (3, 12, 5, HD, None, False),
+    "unragged": (16, 300, HS, HD, None, False),
+    "ragged": (5, 300, 9, 15, [300, 31, 164, 1, 129], False),
+    "g mixed": (64, 400, HS, HD, _grid_lengths(64, 400, 10), True),
+}
+TABLE_GRADS_TIMED = ("cell", "B=32")
+
+
+def table_grads_work(frames, k, dm, b):
+    """Bytes and float32 operations of row 24 over ``frames`` valid
+    frames: log-obs, alpha, beta* and beta_start read once and d log-obs
+    written once over them, the parameters read and their cotangents
+    written once, log Z and g; per frame and state the entry logsumexp
+    and the transition terms (4 a predecessor), the duration terms (6 a
+    duration: the window sum, four adds and the exp with its sum) and
+    start, end and the occupancy (6)."""
+    return (4 * (5 * frames * k + 2 * (k * k + k + k * dm) + 2 * b),
+            frames * k * (4 * k + 6 * dm + 6))
+
+
+def check_table_grads(dev, gen, case):
+    """Row 24 vs its plain version and vs float64 on the same tables (the
+    sum kernels' on max-shifted emissions, as the training backward makes
+    them) at ``TABLE_GRADS_CASES[case]``, run twice and equal bit for bit,
+    one count a call. Returns ``{output: (kernel vs plain, kernel vs
+    float64, plain vs float64)}`` and the call's arguments."""
+    import torch
+    from pytorch_hmm_tpu_torch import core, ops
+
+    b, t, k, d, lens, mixed = TABLE_GRADS_CASES[case]
+    lo, la, lp, ld, ln = _hsmm_problem(dev, gen, b, t, k, d, lens)
+    lo = (lo - ops._frame_shift(lo, ln)).contiguous()
+    alpha, lz = ops.hsmm_smallk_forward(lo, la, lp, ld, ln)
+    bstar, bstart = ops.hsmm_smallk_backward(lo, la, ld, ln)
+    g = (torch.randn(b, device=dev, generator=gen) if mixed
+         else torch.full((b,), 1.0 / b, device=dev))
+    args = (lo, la, lp, ld, alpha, bstar, bstart, lz, ln, g)
+    before = ops.hsmm_table_grads.launches
+    got = ops.hsmm_table_grads(*args)
+    again = ops.hsmm_table_grads(*args)
+    torch.cuda.synchronize(dev)
+    check(ops.hsmm_table_grads.launches == before + 2,
+          f"hsmm_table_grads {case}: counted {ops.hsmm_table_grads.launches - before} of 2 calls")
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"hsmm_table_grads {case}: two runs differ")
+    plain = core.hsmm_grads_from_tables(*args)
+    exact = core.hsmm_grads_from_tables(
+        *(x.double() if x is not None and x.is_floating_point() else x for x in args))
+    gmax = g.abs().max().item()
+    errs = {}
+    for n, x, w, e in zip(("d_log_obs", "d_log_a", "d_log_pi", "d_log_dur"), got, plain, exact):
+        check(bool(torch.isfinite(x).all()), f"hsmm_table_grads {case}: {n} not finite")
+        scale = gmax if n == "d_log_obs" else max(e.abs().max().item(), 1e-30)
+        err = (x.double() - w.double()).abs().max().item() / scale
+        err64 = (x.double() - e).abs().max().item() / scale
+        plain64 = (w.double() - e).abs().max().item() / scale
+        errs[n] = (err, err64, plain64)
+        limit = TABLE_GRADS_OBS_ATOL if n == "d_log_obs" else TABLE_GRADS_RTOL
+        check(err <= limit, f"hsmm_table_grads {case}: {n} off its plain version by {err:.3g} "
+                            f"(limit {limit})")
+        check(err64 <= TABLE_GRADS_F64 * plain64 + 1e-7,
+              f"hsmm_table_grads {case}: {n} off float64 by {err64:.3g}, the plain version "
+              f"by {plain64:.3g}")
+    if ln is not None:
+        pad = torch.arange(t, device=dev)[None, :] >= ln[:, None]
+        check(bool((got[0][pad] == 0).all()), f"hsmm_table_grads {case}: padded frames not 0")
+    return errs, args
+
+
+def phase_table_grads(dev, gen):
+    """Row 24 on every case of ``TABLE_GRADS_CASES``
+    (:func:`check_table_grads`), timed beside its plain version and its
+    bound at ``TABLE_GRADS_TIMED``. Returns the errors by case and
+    ``{case: (kernel ms, plain ms, bound)}``."""
+    from pytorch_hmm_tpu_torch import core, ops
+
+    errs, timed = {}, {}
+    for case in TABLE_GRADS_CASES:
+        errs[case], args = check_table_grads(dev, gen, case)
+        if case in TABLE_GRADS_TIMED:
+            b, t, k, d, lens, _ = TABLE_GRADS_CASES[case]
+            frames = b * t if lens is None else sum(lens)
+            timed[case] = (cuda_median_ms(lambda: ops.hsmm_table_grads(*args)),
+                           cuda_median_ms(lambda: core.hsmm_grads_from_tables(*args),
+                                          runs=PLAIN_SUM_RUNS, warmup=1),
+                           _bound(*table_grads_work(frames, k, d, b)))
+    return errs, timed
+
+
 def _segment_walk(means, b, t, seed):
     """Observations ``(b, t, F)`` from segments of 2..HD frames, each of
     a state other than the one before, and ragged lengths (one full row,
@@ -1265,6 +1393,10 @@ def phase_duration_training(dev, obs, lengths):
     launches = read_launches(DURATION_TRAINING_KERNELS)
     for name, n in launches.items():
         check(n > 0, f"the duration-model training path never launched {name}")
+    # Every backward on the card, one row-24 call each: two compute_loss
+    # steps and the E-steps of 1 + EM_STEPS em_steps (log Z's gradients).
+    check(launches["hsmm_table_grads"] == 3 + EM_STEPS,
+          f"hsmm_table_grads counted {launches['hsmm_table_grads']} calls, not {3 + EM_STEPS}")
     for a, b in zip(lls, lls[1:]):
         check(b >= a - LL_SLACK * abs(a), f"HSMM em_step: log-likelihood fell: {lls}")
     return {"launches": launches, "errs": errs, "lls": lls, "layer": layer, "em_layer": em_layer}
@@ -3703,6 +3835,18 @@ def main() -> int:
           + f" (atol {HSMM_SUM_ATOL} + rtol {HSMM_SUM_RTOL})", flush=True)
     for what, r in phase_hsmm_probe(dev, torch.Generator(device=dev).manual_seed(SEED + 13)).items():
         print(probe_line(what, r, card), flush=True)
+    grads_errs, grads_times = phase_table_grads(dev, torch.Generator(device=dev).manual_seed(SEED + 14))
+    for case, e in grads_errs.items():
+        print(f"hsmm_table_grads vs plain {case} {TABLE_GRADS_CASES[case][:4]}: ok, bit-identical "
+              "twice; max abs err over max |g| (d_log_obs) or the tensor's largest entry, kernel vs "
+              "plain / kernel vs float64 / plain vs float64: "
+              + ", ".join(f"{n} {a:.3g} / {b_:.3g} / {c:.3g}" for n, (a, b_, c) in e.items())
+              + f" (limits {TABLE_GRADS_OBS_ATOL}, {TABLE_GRADS_RTOL}; float64 within "
+              f"{TABLE_GRADS_F64}x the plain's)", flush=True)
+    for case, (ms, plain, (b_ms, b_by)) in grads_times.items():
+        print(f"timing hsmm_table_grads {case} {TABLE_GRADS_CASES[case][:4]}: {ms:.4f} ms kernel "
+              f"(two launches), {plain:.4f} ms plain torch, bound {b_ms:.6f} ms ({b_by}) (median, "
+              f"CUDA events) on {card}", flush=True)
 
     dur = phase_duration_decode(dev)
     print(f"duration-model decode (HSMMLayer B={HB}, T={HT}, S={HS}, D={HD}, F={HF}; "
@@ -3894,6 +4038,8 @@ def main() -> int:
     launches_per_call.update(blaunches)
     launches_per_call.update(llaunches)
     bound = bounds(stream_inputs, neural_inputs, genk_inputs, prob_inputs)
+    times["hsmm_table_grads"] = grads_times["cell"][:2]
+    bound["hsmm_table_grads"] = grads_times["cell"][2]
     # Rows 20-22 at the headline, row 23 at S=2001: each at the shape its
     # entry point runs it.
     ctc_main = {name: "S=2001" if name == "ctc_lattice_viterbi_wide" else "headline"
@@ -4045,7 +4191,7 @@ def main() -> int:
     print(f"DTW and scoring timing {t_new:.1f} s", flush=True)
 
     errs = {"diag_quadratic": dq_errs[(B, T, D, S * C)], "smallk_viterbi": vit_err, **sum_errs,
-            **hsmm_errs, **stream_errs, "fused_gaussian_emission": emit_errs["headline"],
+            **hsmm_errs, "hsmm_table_grads": grads_errs["cell"]["d_log_obs"][0], **stream_errs, "fused_gaussian_emission": emit_errs["headline"],
             **scan_errs, "fused_gmm_viterbi": fused_err, **prob_errs,
             **{n: ctc_errs[ctc_main[n]][n] for n in CTC_KERNELS}, "pallas_dtw": dtw_err,
             "bigk_log_likelihood": bigk_errs["K=512"]}

@@ -35,7 +35,9 @@ path, as the backend does in the JAX package:
 * The duration models' segment DP (``auto_hsmm_viterbi``,
   ``auto_hsmm_log_z``, ``auto_hsmm_posteriors``): CUDA tensors with
   S ≤ 32 states and D ≤ 256 durations run the ``hsmm_smallk`` kernels,
-  the sum chains on max-shifted emissions. Larger shapes, which the JAX
+  the sum chains on max-shifted emissions, and the likelihood's
+  cotangents in one more kernel (``hsmm_table_grads``, which the JAX
+  package leaves to XLA). Larger shapes, which the JAX
   package never gives a kernel either, run the plain ``core.hsmm_*`` on
   the tensors' own device.
 * The streaming chunk decoders (``auto_greedy_chunk``,
@@ -113,6 +115,7 @@ from .hsmm_smallk import (
     hsmm_smallk_supported,
     hsmm_smallk_viterbi,
     hsmm_smallk_viterbi_reference,
+    hsmm_table_grads,
 )
 from .scan import (
     MAX_K,
@@ -202,6 +205,7 @@ __all__ = [
     "hsmm_smallk_supported",
     "hsmm_smallk_viterbi",
     "hsmm_smallk_viterbi_reference",
+    "hsmm_table_grads",
     "MAX_DURATION",
     "MAX_K",
     "PROB_MAX_K",
@@ -646,8 +650,8 @@ def _hsmm_kernel_route(log_obs: torch.Tensor, log_dur: torch.Tensor) -> bool:
 class _HSMMLogZ(torch.autograd.Function):
     """HSMM ``log Z (B,)``, ragged when ``lengths`` is given, with the
     closed-form posterior-expectation cotangents. Forward: the forward
-    sum kernel; backward: the backward sum kernel, then
-    ``core.hsmm_grads_from_tables`` in plain torch. Both chains run on
+    sum kernel; backward: the backward sum kernel, then the cotangents'
+    kernel (:func:`hsmm_table_grads`). Both chains run on
     emissions shifted by each frame's max (:func:`_frame_shift`): every
     segmentation emits each frame once, so the shift moves log Z by its
     sum and cancels from every posterior, and the chains stay at O(1e3)
@@ -666,8 +670,8 @@ class _HSMMLogZ(torch.autograd.Function):
         with span("ops.hsmm_log_z.backward"):
             lo_hat, log_a, log_pi, log_dur, lengths, alpha_hat, lz_hat = ctx.saved_tensors
             bstar, bstart = hsmm_smallk_backward(lo_hat, log_a, log_dur, lengths)
-            grads = core.hsmm_grads_from_tables(lo_hat, log_a, log_pi, log_dur, alpha_hat,
-                                                bstar, bstart, lz_hat, lengths, g.contiguous())
+            grads = hsmm_table_grads(lo_hat, log_a, log_pi, log_dur, alpha_hat, bstar, bstart,
+                                     lz_hat, lengths, g.contiguous())
         return (*grads, None)
 
 

@@ -4,7 +4,9 @@ Port of ``pytorch_hmm_tpu/ops/hsmm_smallk.py``: the segment Viterbi
 (:func:`hsmm_smallk_viterbi`), the forward and backward sum recursions
 (:func:`hsmm_smallk_forward`, :func:`hsmm_smallk_backward`) and both sum
 chains in one launch (:func:`hsmm_smallk_fb`), for durations 1..D with
-D ≤ 256.
+D ≤ 256; and the likelihood's cotangents from the sum chains' tables
+(:func:`hsmm_table_grads`, ``csrc/hsmm_grads.cu``), which the JAX package
+leaves to XLA.
 
 * D > 1 runs the kernels of ``csrc/hsmm_smallk.cu``. The forward and
   backward have wrappers of their own, :func:`hsmm_smallk_forward_general`
@@ -49,6 +51,8 @@ __all__ = [
     "hsmm_smallk_supported",
     "hsmm_smallk_viterbi",
     "hsmm_smallk_viterbi_reference",
+    "hsmm_table_grads",
+    "table_grads_plan",
 ]
 
 # The duration rings, the duration table and the staging buffers of the
@@ -313,6 +317,89 @@ def hsmm_smallk_viterbi(
     return states, score
 
 
+# -- the likelihood's cotangents: csrc/hsmm_grads.cu -------------------------------
+
+_GRADS_SIGNATURES = {"hsmm_table_grads_f32": [_P] * 16 + [_I] * 8 + [_P]}
+# Frames a tile of hsmm_table_grads; a block's shared memory and threads
+# the card holds at once on one SM.
+GRADS_TILE = 64
+_SM_SMEM, _SM_THREADS, _SM_BLOCKS = 232448, 2048, 32
+
+
+class GradsPlan(NamedTuple):
+    """How ``hsmm_table_grads`` splits the batch: each row in ``parts``
+    blocks of ``span`` frames (a block has a warp a state), ``smem``
+    bytes of shared memory a block."""
+
+    parts: int
+    span: int
+    smem: int
+
+
+def table_grads_plan(num_states: int, max_duration: int, batch: int, frames: int,
+                     sms: int) -> GradsPlan:
+    """The split of ``hsmm_table_grads`` at (S, D, B, T) on a card of
+    ``sms`` SMs: enough parts a row that the B * P blocks fill the card
+    twice over at the blocks an SM holds, and no part shorter than a tile
+    (one part a row once B alone does that); ``csrc/hsmm_grads.cu``
+    refuses a split that leaves frames uncovered or too little shared
+    memory."""
+    S, D = num_states, max_duration
+    smem = 4 * ((S | 1) * (7 * GRADS_TILE + 2 * D - 1) + S * S + S * D)
+    resident = max(1, min(_SM_THREADS // (32 * S), _SM_SMEM // smem, _SM_BLOCKS))
+    parts = max(1, min(-(-frames // GRADS_TILE), -(-2 * sms * resident // batch)))
+    span = -(-frames // parts)
+    return GradsPlan(-(-frames // span), span, smem)
+
+
+def hsmm_table_grads(log_obs, log_a, log_pi, log_dur, log_alpha, log_bstar, log_bstart,
+                     log_z, lengths, g):
+    """Cotangents ``(d_log_obs, d_log_a, d_log_pi, d_log_dur)`` of ``Σ_b
+    g_b · log Z_b`` from the forward and backward tables, as
+    ``core.hsmm.hsmm_grads_from_tables``; zero at padded frames. CUDA
+    tensors run the kernel, two launches (counted once a call in
+    ``hsmm_table_grads.launches``): every float tensor float32 and
+    contiguous, the tables ``(B, T, S)``, ``log_z`` and ``g`` ``(B,)``,
+    ``lengths`` int32 or None, S ≤ 32, D ≤ 256, all on one device;
+    anything else raises. The sums over the batch are taken in a fixed
+    order, so the same inputs give the same gradients bit for bit. CPU
+    tensors run the plain version.
+    """
+    if log_obs.device.type == "cpu":
+        return core.hsmm.hsmm_grads_from_tables(log_obs, log_a, log_pi, log_dur, log_alpha,
+                                                log_bstar, log_bstart, log_z, lengths, g)
+    with span("kernels.hsmm_table_grads"):
+        what = "hsmm_table_grads"
+        tables = dict(log_alpha=log_alpha, log_bstar=log_bstar, log_bstart=log_bstart)
+        for name, t in dict(log_obs=log_obs, log_a=log_a, log_pi=log_pi, log_dur=log_dur,
+                            **tables, log_z=log_z, g=g).items():
+            if t.dtype != torch.float32:
+                raise ValueError(f"{what}: {name} must be float32, got {t.dtype}")
+        for name, t, shape in (*((n, t, log_obs.shape) for n, t in tables.items()),
+                               ("log_z", log_z, log_obs.shape[:1]), ("g", g, log_obs.shape[:1])):
+            if t.shape != shape:
+                raise ValueError(f"{what}: {name} must be {tuple(shape)}, got {tuple(t.shape)}")
+        B, T, K, D, lengths = _check_segment_problem(what, log_obs, log_a, log_pi, log_dur, lengths)
+        dev = log_obs.device
+        _build.check_tensors(what, dev, **tables, log_z=log_z, g=g)
+        plan = table_grads_plan(K, D, B, T, torch.cuda.get_device_properties(dev).multi_processor_count)
+        d_log_obs = torch.empty((B, T, K), dtype=torch.float32, device=dev)
+        d_log_a = torch.empty((K, K), dtype=torch.float32, device=dev)
+        d_log_pi = torch.empty((K,), dtype=torch.float32, device=dev)
+        d_log_dur = torch.empty((K, D), dtype=torch.float32, device=dev)
+        part = torch.empty((B * plan.parts, K * K + K + K * D), dtype=torch.float32, device=dev)
+        tot = torch.empty((B * plan.parts, K), dtype=torch.float32, device=dev)
+        args = (log_obs, log_a, log_pi, log_dur, log_alpha, log_bstar, log_bstart, log_z, lengths,
+                g, d_log_obs, d_log_a, d_log_pi, d_log_dur, part, tot)
+        lib = _build.load("hsmm_grads", _GRADS_SIGNATURES)
+        rc = lib.hsmm_table_grads_f32(*(None if a is None else a.data_ptr() for a in args),
+                                      B, T, K, D, plan.parts, plan.span, plan.smem, dev.index,
+                                      torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(rc, what)
+    hsmm_table_grads.launches += 1
+    return d_log_obs, d_log_a, d_log_pi, d_log_dur
+
+
 # -- D routing; D = 1 on csrc/smallk_sum.cu ---------------------------------------
 
 
@@ -397,3 +484,4 @@ hsmm_smallk_forward_general.launches = 0
 hsmm_smallk_backward_general.launches = 0
 hsmm_smallk_fb.launches = 0
 hsmm_smallk_viterbi.launches = 0
+hsmm_table_grads.launches = 0

@@ -176,6 +176,7 @@ def test_port_never_names_jax_in_its_sources():
     # The scan reaches every kernel source's wrapper module.
     wrappers = {"diag_quadratic": "emit.py", "emit_mlp": "emit_mlp.py", "smallk_viterbi": "smallk.py",
                 "smallk_sum": "hsmm_smallk.py", "hsmm_smallk": "hsmm_smallk.py",
+                "hsmm_grads": "hsmm_smallk.py",
                 "stream_greedy": "stream.py", "stream_beam": "stream_multi.py",
                 "scan_bigk": "scan.py", "scan_prob": "scan.py", "fused_gmm": "fused.py",
                 "ctc_lattice": "ctc_kernel.py", "dtw": "dtw.py", "bigk_scoring": "bigk.py"}

@@ -38,6 +38,7 @@ from pytorch_hmm_tpu_torch.ops.hsmm_smallk import (
     hsmm_smallk_supported,
     hsmm_smallk_viterbi,
     hsmm_smallk_viterbi_reference,
+    hsmm_table_grads,
 )
 
 ATOL = 2e-4
@@ -354,3 +355,110 @@ def test_fb_probe_build_is_its_own_library():
     plain = _build.library_path("hsmm_smallk")
     probe = _build.library_path("hsmm_smallk", hsmm_smallk.PROBE_DEFINES)
     assert probe != plain and probe.name.startswith("libhsmm_smallk-")
+
+
+# -- hsmm_table_grads: the training backward's cotangents -----------------------
+
+
+def _table_grads_args(case):
+    """The cotangents' inputs as ``_HSMMLogZ`` makes them on CPU tensors:
+    max-shifted emissions, their forward and backward tables, ``g``."""
+    (lo, la, lp, ld), lens, _, tl = _seg_case(case)
+    lo = torch.from_numpy(lo)
+    lo = lo - ops._frame_shift(lo, tl)
+    la, lp, ld = (torch.from_numpy(x) for x in (la, lp, ld))
+    alpha, lz = hsmm_smallk_forward(lo, la, lp, ld, tl)
+    bstar, bstart = hsmm_smallk_backward(lo, la, ld, tl)
+    g = torch.linspace(-1.0, 2.0, lo.shape[0])
+    return lo, la, lp, ld, alpha, bstar, bstart, lz, tl, g
+
+
+@pytest.mark.parametrize("case", sorted(SEG_CASES))
+def test_table_grads_on_cpu_run_the_plain_version_without_launching(case):
+    from pytorch_hmm_tpu_torch import core
+
+    args = _table_grads_args(case)
+    before = hsmm_table_grads.launches
+    for got, want in zip(hsmm_table_grads(*args), core.hsmm_grads_from_tables(*args)):
+        assert torch.equal(got, want)
+    assert hsmm_table_grads.launches == before
+
+
+def _meta(*shapes, dtype=torch.float32):
+    return [torch.empty(s, device="meta", dtype=dtype) for s in shapes]
+
+
+def _table_grads_meta(B=2, T=10, S=4, D=5, **swap):
+    lo, la, lp, ld, al, bs, bt = _meta((B, T, S), (S, S), (S,), (S, D), (B, T, S), (B, T, S),
+                                       (B, T, S))
+    lz, g = _meta((B,), (B,))
+    args = dict(log_obs=lo, log_a=la, log_pi=lp, log_dur=ld, log_alpha=al, log_bstar=bs,
+                log_bstart=bt, log_z=lz, lengths=None, g=g)
+    args.update(swap)
+    return args
+
+
+@pytest.mark.parametrize("swap,error,match", [
+    ({}, ValueError, "CPU or CUDA"),
+    (_table_grads_meta(S=33), ValueError, "K <= 32"),
+    (_table_grads_meta(D=MAX_DURATION + 1), ValueError, "D <= 256"),
+    ({"log_bstar": _meta((2, 10, 4), dtype=torch.float64)[0]}, ValueError, "log_bstar must be float32"),
+    ({"g": _meta((2,), dtype=torch.float16)[0]}, ValueError, "g must be float32"),
+    ({"lengths": torch.empty(2, device="meta", dtype=torch.int64)}, ValueError, "int32"),
+    ({"log_alpha": _meta((2, 9, 4))[0]}, ValueError, r"log_alpha must be \(2, 10, 4\)"),
+    ({"log_z": _meta((3,))[0]}, ValueError, r"log_z must be \(2,\)"),
+], ids=["meta", "S>32", "D>256", "float64 table", "float16 g", "int64 lengths", "table shape",
+        "log_z shape"])
+def test_table_grads_refuse_what_the_kernel_does_not_take(swap, error, match):
+    args = swap if "log_obs" in swap else _table_grads_meta(**swap)
+    before = hsmm_table_grads.launches
+    with pytest.raises(error, match=match):
+        hsmm_table_grads(**args)
+    assert hsmm_table_grads.launches == before
+
+
+@pytest.mark.parametrize("case", ["basic", "ragged", "T<D", "min_duration=3"])
+def test_hsmm_log_z_function_cpu_gradients_are_the_plain_table_algebra(case):
+    """``_HSMMLogZ`` on CPU tensors: its gradients are the plain table
+    algebra's on the shifted emissions' tables, bit for bit, as before the
+    cotangents had a kernel."""
+    from pytorch_hmm_tpu_torch import core
+
+    lo, la, lp, ld, alpha, bstar, bstart, lz, tl, g = _table_grads_args(case)
+    raw = torch.from_numpy(_seg_case(case)[0][0])
+    leaves = [t.clone().requires_grad_(True) for t in (raw, la, lp, ld)]
+    z = ops._HSMMLogZ.apply(*leaves, tl)
+    z.backward(g)
+    want = core.hsmm_grads_from_tables(lo, la, lp, ld, alpha, bstar, bstart, lz, tl, g)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.parametrize("S", [1, 2, 10, 17, 32])
+def test_table_grads_plan_covers_every_frame(S):
+    """Every (D, B, T) splits each row into parts that cover its frames,
+    none empty, no more than a tile's worth of parts, within a block's
+    shared memory."""
+    from pytorch_hmm_tpu_torch.ops import hsmm_smallk
+
+    for D in (1, 2, 20, 128, 256):
+        for B in (1, 3, 32, 1024, 4096):
+            for T in (1, 12, 63, 64, 1000, 4097):
+                plan = hsmm_smallk.table_grads_plan(S, D, B, T, sms=132)
+                assert plan.parts * plan.span >= T > (plan.parts - 1) * plan.span
+                assert 1 <= plan.parts <= -(-T // hsmm_smallk.GRADS_TILE)
+                assert plan.smem == 4 * ((S | 1) * (7 * 64 + 2 * D - 1) + S * S + S * D) <= 232448
+
+
+@pytest.mark.parametrize("S,D,B,T,parts,span", [
+    (10, 20, 1024, 1000, 2, 500),   # hsmm.train.b1024: two parts a row
+    (10, 20, 32, 1000, 16, 63),     # B=32: a part a tile
+    (10, 20, 4096, 1000, 1, 1000),  # B alone fills the card
+    (32, 256, 32, 1000, 9, 112),    # one block an SM
+    (10, 20, 32, 12, 1, 12),        # T < D
+])
+def test_table_grads_plan_values(S, D, B, T, parts, span):
+    from pytorch_hmm_tpu_torch.ops import hsmm_smallk
+
+    plan = hsmm_smallk.table_grads_plan(S, D, B, T, sms=132)
+    assert (plan.parts, plan.span) == (parts, span)

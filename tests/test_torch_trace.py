@@ -24,7 +24,12 @@ LOSS = {"models.hsmm.log_likelihood", "models.hsmm.emissions", "models.hsmm.tran
         "models.hsmm.durations", "ops.diag_quadratic", "ops.auto_hsmm_log_z"}
 BACKWARD = {"core.hsmm_grads_from_tables", "ops.diag_quadratic.backward"}
 KERNELS = {"kernels.diag_quadratic", "kernels.hsmm_smallk_viterbi",
-           "kernels.hsmm_smallk_forward", "kernels.hsmm_smallk_backward"}
+           "kernels.hsmm_smallk_forward", "kernels.hsmm_smallk_backward",
+           "kernels.hsmm_table_grads"}
+# A card step's backward: the cotangents' kernel under the likelihood's
+# backward span; the plain table algebra's span opens on the CPU only.
+CARD_BACKWARD = {"kernels.hsmm_table_grads", "ops.hsmm_log_z.backward",
+                 "ops.diag_quadratic.backward"}
 PREFIXES = ("models.", "ops.", "core.", "kernels.")
 
 
@@ -118,7 +123,13 @@ def test_card_spans_cover_every_device_op():
     d, s = from_profile(decode), from_profile(step)
     names = {x[0] for x in d["spans"]} | {x[0] for x in s["spans"]}
     assert KERNELS <= names
-    assert BACKWARD | {"ops.hsmm_log_z.backward"} <= {x[0] for x in s["spans"]}
+    step_spans = {x[0] for x in s["spans"]}
+    assert CARD_BACKWARD <= step_spans and "core.hsmm_grads_from_tables" not in step_spans
+    parents = {x[0]: s["spans"][x[4]][0] for x in s["spans"] if x[4] is not None}
+    assert parents["kernels.hsmm_table_grads"] == "ops.hsmm_log_z.backward"
+    table_ops = [s["ops"][k][0] for k, i in enumerate(s["op_span"])
+                 if i is not None and s["spans"][i][0] == "kernels.hsmm_table_grads"]
+    assert len(table_ops) == 2 and all("hsmm_table_grads" in name for name in table_ops)
     assert d["ops"] and None not in d["op_span"]
     under = {d["spans"][i][0] for i in d["op_span"]}
     assert {"kernels.diag_quadratic", "kernels.hsmm_smallk_viterbi"} <= under
