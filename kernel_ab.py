@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Rows 1, 15, 10, 12, 14 and 7 of the PyTorch port against another
+"""Rows 1, 15, 10, 12, 14, 7 and 2 of the PyTorch port against another
 checkout's kernels, on one CUDA GPU.
 
-    python3 kernel_ab.py --base DIR [--rows dq bigk prob fused hsmm] [--probe]
+    python3 kernel_ab.py --base DIR [--rows dq bigk prob fused hsmm smallk] [--probe]
 
 Run from the root of a checkout. ``DIR`` is the root of another checkout
 (for example an earlier commit unpacked with ``git archive`` into a
@@ -36,7 +36,14 @@ on the same inputs, then timed in the order base, this, this, base:
   ``pallas_viterbi``: rows 1 and 13);
 * row 7 (``hsmm_smallk_fb``, ``--rows hsmm``) at chip_smoke's
   ``_hsmm_cases`` (S=10 D=20 at B=32 T=1000, D=128, S=32, ragged, T<D,
-  min_duration=3) and at B=512, held to chip_smoke's sum tolerances.
+  min_duration=3) and at B=512, held to chip_smoke's sum tolerances;
+* row 2 (``smallk_viterbi``, ``--rows smallk``) at chip_smoke's headline
+  (B=32, T=1000, K=12, standard-normal scores), K=32, the time-varying
+  headline (B=16), and at GMM scale (``chip_smoke.gmm_scale_problem``:
+  B=32 and B=4096 at T=1000, the decode cells' shapes, and B=8 at
+  T=4096), the wrapper's call (CUDA events, median of 20); each side's
+  scores against the plain trellis in float64 as a share of chip_smoke's
+  tolerance and its worst path gap in nats, this checkout's held to them.
 
 ``--rows`` picks which to run (all by default), ``--prob-shapes`` which
 shapes of rows 10 and 12. ``--probe`` also prints this checkout's phase
@@ -96,7 +103,16 @@ HSMM_SHAPES = {"32x1000 S=10 D=20": (32, 1000, 10, 20, None, 1),
                "512x1000 S=10 D=20": (512, 1000, 10, 20, None, 1)}
 
 
-ROWS = ("dq", "bigk", "prob", "fused", "hsmm")
+# Row 2: (B, T, K, scores, time-varying); scores "normal" as chip_smoke's
+# headline, "gmm" from chip_smoke.gmm_scale_problem at D=80.
+SMALLK_SHAPES = {"32x1000 K=12": (32, 1000, 12, "normal", False),
+                 "8x500 K=32": (8, 500, 32, "normal", False),
+                 "16x1000 K=12 time-varying": (16, 1000, 12, "normal", True),
+                 "32x1000 K=12 GMM scale": (32, 1000, 12, "gmm", False),
+                 "8x4096 K=12 GMM scale": (8, 4096, 12, "gmm", False),
+                 "4096x1000 K=12 GMM scale": (4096, 1000, 12, "gmm", False)}
+
+ROWS = ("dq", "bigk", "prob", "fused", "hsmm", "smallk")
 
 
 def load_base(root: Path):
@@ -111,7 +127,8 @@ def load_base(root: Path):
     import base_port.ops.emit
     import base_port.ops.fused
     import base_port.ops.hsmm_smallk
-    import base_port.ops.scan  # noqa: F401
+    import base_port.ops.scan
+    import base_port.ops.smallk  # noqa: F401
     return mod
 
 
@@ -306,6 +323,49 @@ def run_hsmm(dev, base, out):
                   f"max abs err {r['max_abs_err']:.3g}", flush=True)
 
 
+def _smallk_problem(dev, g, b, t, k, scores, tv):
+    import torch
+
+    if scores == "gmm":
+        return cs.gmm_scale_problem(dev, g, b, t, k, 80)
+    lo = torch.randn(b, t, k, device=dev, generator=g)
+    shape = (b, t, k, k) if tv else (k, k)
+    la = torch.log_softmax(torch.randn(*shape, device=dev, generator=g), -1).contiguous()
+    lp = torch.log_softmax(torch.randn(k, device=dev, generator=g), -1)
+    return lo, la, lp, None
+
+
+def run_smallk(dev, base, out):
+    import torch
+    from pytorch_hmm_tpu_torch import core, ops
+
+    for tag, (b, t, k, scores, tv) in SMALLK_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(cs.SEED + b + t + k)
+        args = _smallk_problem(dev, g, b, t, k, scores, tv)
+        lo, la, lp, ln = args
+        _, best = core.viterbi(lo.double(), la.double(), lp.double(), ln)
+        fns = {"base": lambda: base.ops.smallk.smallk_viterbi(*args),
+               "this": lambda: ops.smallk_viterbi(*args)}
+        res = {}
+        for name, fn in fns.items():
+            states, score = fn()
+            share = cs.score_share(best, score, t)
+            gap = cs._gap(best, cs.path_score64(lo, la, lp, states, ln)).max().item()
+            err = cs._gap(best, score.double()).abs().max().item()
+            if name == "this":
+                cs.check(share <= 1.0 and gap <= cs.VIT_PATH_GAP,
+                         f"smallk_viterbi {tag}: {share:.3g} of the score tolerance, path gap {gap:.3g}")
+            res[name] = {"of_tolerance": share, "path_gap": gap, "max_abs_err": err, "ms": []}
+        for name in _ab_order(fns):
+            res[name]["ms"].append(cs.cuda_median_ms(fns[name], runs=20, warmup=3))
+        out["smallk_viterbi"][tag] = res
+        for name, r in res.items():
+            print(f"smallk_viterbi {tag} {name}: ms {r['ms']}, us a frame {min(r['ms']) * 1e3 / t:.4f}, "
+                  f"scores vs float64 {r['max_abs_err']:.3g} nats ({r['of_tolerance']:.3g} of the "
+                  f"tolerance), path gap {r['path_gap']:.3g} nats", flush=True)
+        del args, lo, la, best
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--base", type=Path, required=True, help="root of the checkout to compare with")
@@ -328,7 +388,8 @@ def main() -> int:
     from pytorch_hmm_tpu_torch.ops import fused, hsmm_smallk
 
     sources = {"dq": ["diag_quadratic"], "bigk": ["bigk_scoring"], "prob": ["scan_prob"],
-               "fused": ["fused_gmm", "diag_quadratic", "scan_bigk"], "hsmm": ["hsmm_smallk"]}
+               "fused": ["fused_gmm", "diag_quadratic", "scan_bigk"], "hsmm": ["hsmm_smallk"],
+               "smallk": ["smallk_viterbi"]}
     probes = {"fused": ("fused_gmm", fused.PROBE_DEFINES), "hsmm": ("hsmm_smallk", hsmm_smallk.PROBE_DEFINES)}
     jobs = {(build, src, ()) for row in args.rows for src in sources[row]
             for build in (_build.build, base.ops._build.build)}
@@ -338,9 +399,10 @@ def main() -> int:
         list(pool.map(lambda job: job[0](job[1], job[2]), jobs))
     card = cs.card_line()
     out = {"card": card, "diag_quadratic": {}, "bigk_log_likelihood": {}, "fused_gmm_viterbi": {},
-           "hsmm_smallk_fb": {}, **{row: {} for row in PROB_CHAINS}, "probe": {}}
+           "hsmm_smallk_fb": {}, "smallk_viterbi": {}, **{row: {} for row in PROB_CHAINS},
+           "probe": {}}
     runs = {"dq": run_dq, "bigk": run_bigk, "prob": lambda *a: run_prob(*a, args.prob_shapes),
-            "fused": run_fused, "hsmm": run_hsmm}
+            "fused": run_fused, "hsmm": run_hsmm, "smallk": run_smallk}
     probe_phases = {"fused": cs.phase_fused_probe, "hsmm": cs.phase_hsmm_probe}
     with torch.no_grad():
         for row in args.rows:

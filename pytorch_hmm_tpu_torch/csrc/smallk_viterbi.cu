@@ -3,16 +3,30 @@
 //
 // Replaces the TPU kernel pytorch_hmm_tpu/ops/smallk.py: smallk_viterbi
 // (_trellis_psi_kernel + _gather_backtrace_kernel, two launches there).
-// Paths and scores are bit-identical to pytorch_hmm_tpu.core.viterbi and
-// to its port pytorch_hmm_tpu_torch.core.viterbi: each frame computes
+// Each frame computes, as pytorch_hmm_tpu.core.viterbi and its port
+// pytorch_hmm_tpu_torch.core.viterbi do,
 //
 //     delta_t[j] = max_k(delta_{t-1}[k] + log_a[k, j]) + log_obs[t, j]
 //
-// in exactly that add order, ties go to the lowest predecessor k (a
-// strict '>' that never lets a higher index displace an equal lower one,
-// and no -inf sentinel seed), frames t >= lengths[b] keep delta frozen and
-// point psi at their own state (so padded frames repeat the last valid
-// state), and the score is the max of each row's frozen final delta.
+// in that add order; ties go to the lowest predecessor k (a strict '>'
+// that never lets a higher index displace an equal lower one, and no
+// -inf sentinel seed), frames t >= lengths[b] keep delta frozen and point
+// psi at their own state (so padded frames repeat the last valid state),
+// and the score is the max of each row's frozen final delta.
+//
+// Bounded chain. The plain versions run that recursion on raw scores:
+// at GMM scale (|log_obs| ~ 125 a frame) delta reaches ~1.25e5 by
+// T=1000, where one float32 ulp is ~8e-3, and the score drifts by tenths
+// of a nat there and by whole nats at T=4096. This kernel keeps delta at
+// O(1e2) whatever T is: each frame's largest score m_t is taken out of its
+// log_obs where the chunk is staged into shared memory, off the chain,
+// and once a staged chunk delta is renormalised by its largest lane (one
+// warp reduce a chunk). Both are constants across a frame's states, so
+// every argmax, tie and path is the recursion's own; what was taken out
+// (m_t on each row's valid frames, and each chunk's renormaliser) is
+// summed in double and added to the final best. The paths equal the
+// plain versions' except where two candidates tie to within the plain
+// versions' own rounding; the scores are closer to the exact ones.
 //
 // What bounds it on an H100: the serial chain of T frames per sequence,
 // each about KP shuffles and adds and a log2(KP)-deep compare tree long
@@ -26,22 +40,24 @@
 // Design: one warp (one block) per sequence; lane j owns state j and
 // keeps column j of log_a in registers. delta_k reaches lane j by
 // __shfl_sync. log_obs is staged in shared memory a chunk of frames at a
-// time (one coalesced read of CH*K contiguous floats per chunk), so the
-// frame loop waits on device memory once per chunk, not once per frame.
+// time (one coalesced read of CH*K contiguous floats per chunk, written
+// at a frame stride of K | 1), so the frame loop waits on device memory
+// once per chunk, not once per frame; then each lane shifts two of the
+// chunk's frames by their largest score.
 // Backpointers are written to device memory as uint8 (B, T, K). After the
 // trellis the same warp stages psi back chunk by chunk, newest first, and
 // lane 0 walks it from the lowest-index argmax of the final delta.
 //
 // Time-varying mode (smallk_viterbi_tv_f32): log_a is (B, T, K, K) and
 // frame t's step reads log_a[b, t] (log_a[b, 0] is never read), with the
-// same add order, ties and padding rule. Each frame's column no longer
-// fits a register file loaded once, so the sequence's matrices are
-// staged into dynamic shared memory with cp.async, TV_CHUNK(KP) frames
-// at a time (32, 16 or 8 frames for KP = 8, 16, 32) into a double
-// buffer: the next chunk's copy runs behind the current chunk's frames,
-// and lane j reads column j of its frame's matrix from shared memory
-// (consecutive lanes, consecutive words) where the static mode reads
-// registers.
+// same add order, ties, padding rule and bounded chain. Each frame's
+// column no longer fits a register file loaded once, so the sequence's
+// matrices are staged into dynamic shared memory with cp.async,
+// TV_CHUNK(KP) frames at a time (32, 16 or 8 frames for KP = 8, 16, 32)
+// into a double buffer: the next chunk's copy runs behind the current
+// chunk's frames, and lane j reads column j of its frame's matrix from
+// shared memory (consecutive lanes, consecutive words) where the static
+// mode reads registers.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -106,7 +122,7 @@ smallk_viterbi_kernel(const float* __restrict__ log_obs,   // (B, T, K)
                       int* __restrict__ states,            // (B, T)
                       float* __restrict__ score,           // (B,)
                       int T, int K) {
-    __shared__ float lo_s[CH * KMAX];
+    __shared__ float lo_s[CH * (KMAX + 1)];
     __shared__ uint8_t psi_s[CH * KMAX];
     __shared__ int st_s[CH];
     extern __shared__ float la_s[];   // TV: two chunks of tv_chunk<KP>() (K, K) frames
@@ -118,6 +134,12 @@ smallk_viterbi_kernel(const float* __restrict__ log_obs,   // (B, T, K)
     uint8_t* psi = psi_g + static_cast<long long>(b) * T * K;
     int* st = states + static_cast<long long>(b) * T;
     const int len = lengths[b];
+    // Staged frames sit ks = K | 1 floats apart: an odd stride, so the 32
+    // lanes reading one state of 32 frames (the shift pass) hit 32 banks.
+    // Element i of a chunk, frame i / K and state i % K, goes to (f, r),
+    // stepped along with i.
+    const int ks = K | 1;
+    const int f0 = lane / K, r0 = lane % K, df = KMAX / K, dr = KMAX % K;
 
     // Column `lane` of log_a: a_col[k] = log_a[k, lane]. Predecessors
     // k >= K get -inf: they can never win a strict '>' against a real
@@ -133,11 +155,44 @@ smallk_viterbi_kernel(const float* __restrict__ log_obs,   // (B, T, K)
     if constexpr (TV) stage(la_s, la, min(CT, T) * KK, lane);
 
     float delta = 0.f;
+    // What this lane took out of the chain: the shifts of its frames of
+    // each chunk, and on lane 0 the renormalisers too.
+    double removed = 0.0;
     for (int t0 = 0; t0 < T; t0 += CH) {
         const int n = min(CH, T - t0);
-        for (int i = lane; i < n * K; i += KMAX)
-            lo_s[i] = lo[static_cast<long long>(t0) * K + i];
+        for (int i = lane, f = f0, r = r0; i < n * K; i += KMAX) {
+            lo_s[f * ks + r] = lo[static_cast<long long>(t0) * K + i];
+            f += df;
+            r += dr;
+            if (r >= K) {
+                r -= K;
+                ++f;
+            }
+        }
         __syncthreads();
+        // Lane i shifts frames i and i + 32 of the chunk by their largest
+        // score (none where it is not finite: an all -inf frame stays so).
+        for (int tf = lane; tf < n; tf += KMAX) {
+            float* f = lo_s + tf * ks;
+            float m = f[0];
+            for (int k = 1; k < K; ++k) m = fmaxf(m, f[k]);
+            if (!isfinite(m)) m = 0.f;
+            for (int k = 0; k < K; ++k) f[k] -= m;
+            const int t = t0 + tf;
+            if (t == 0 || t < len) removed += m;
+        }
+        __syncthreads();
+        if (t0 > 0) {
+            // Renormalise delta by its largest live lane: lanes 0..KP-1
+            // hold every live state, so a KP-wide butterfly reaches lane 0.
+            float c = live ? delta : -INFINITY;
+#pragma unroll
+            for (int off = KP / 2; off > 0; off >>= 1)
+                c = fmaxf(c, __shfl_xor_sync(FULL, c, off));
+            if (!isfinite(c)) c = 0.f;
+            if (live) delta -= c;
+            if (lane == 0) removed += c;
+        }
         for (int tf = 0; tf < n; ++tf) {
             const int t = t0 + tf;
             if constexpr (TV) {
@@ -153,7 +208,7 @@ smallk_viterbi_kernel(const float* __restrict__ log_obs,   // (B, T, K)
                               la + static_cast<long long>(nt) * KK, min(CT, T - nt) * KK, lane);
                 }
             }
-            const float o = live ? lo_s[tf * K + lane] : 0.f;
+            const float o = live ? lo_s[tf * ks + lane] : 0.f;
             if (t == 0) {
                 delta = live ? log_pi[lane] + o : 0.f;
                 continue;
@@ -193,7 +248,10 @@ smallk_viterbi_kernel(const float* __restrict__ log_obs,   // (B, T, K)
             s = k;
         }
     }
-    if (lane == 0) score[b] = best;
+#pragma unroll
+    for (int off = KMAX / 2; off > 0; off >>= 1)
+        removed += __shfl_down_sync(FULL, removed, off);
+    if (lane == 0) score[b] = static_cast<float>(static_cast<double>(best) + removed);
 
     // Backtrace, newest chunk first. The chunk grid is the trellis's, so
     // the last chunk may be short.

@@ -42,6 +42,7 @@ from .core.semiring import logsumexp
 from .ops.emit import diag_quadratic
 from .precision import compute_dtype as _resolve_dtype
 from .precision import mxu_einsum
+from .trace import span
 
 __all__ = [
     "diag_gaussian_log_probs",
@@ -311,6 +312,8 @@ def gmm_log_probs(
 ) -> torch.Tensor:
     """Mixture-marginalized state scores ``(B, T, S)``:
     ``logsumexp_c(log w_{s,c} + log N_c(x))``."""
-    comp = gmm_component_log_probs(obs, means, cov_params, covariance_type, time_chunk, compute_dtype)
-    log_w = torch.log_softmax(mixture_logits, dim=-1)     # (S, C)
-    return logsumexp(comp + log_w, dim=-1)
+    with span("ops.gmm_log_probs"):
+        comp = gmm_component_log_probs(obs, means, cov_params, covariance_type, time_chunk,
+                                       compute_dtype)
+        log_w = torch.log_softmax(mixture_logits, dim=-1)     # (S, C)
+        return logsumexp(comp + log_w, dim=-1)

@@ -42,6 +42,7 @@ from ..emissions import (flat_dim, fullcov_mixture_log_probs_prepared, fullcov_p
 from ..ops import (MAX_SMALLK, auto_forward_backward, auto_gmm_viterbi, auto_log_likelihood,
                    auto_viterbi)
 from ..precision import maybe_remat
+from ..trace import span
 
 __all__ = ["MixtureGaussianHMMLayer", "PreparedGMMDecoder"]
 
@@ -159,16 +160,18 @@ class MixtureGaussianHMMLayer(nn.Module):
         return self.transition_matrix
 
     def _log_a(self) -> torch.Tensor:
-        if self.learnable_transitions:
-            return torch.log_softmax(self.transition_logits, dim=-1)
-        return safe_log(self.transition_matrix)
+        with span("models.gmm.transitions"):
+            if self.learnable_transitions:
+                return torch.log_softmax(self.transition_logits, dim=-1)
+            return safe_log(self.transition_matrix)
 
     def _log_pi(self) -> torch.Tensor:
         # Uniform decode prior, as in the JAX package.
-        return torch.full(
-            (self.num_states,), -math.log(self.num_states),
-            device=self.means.device,
-        )
+        with span("models.gmm.transitions"):
+            return torch.full(
+                (self.num_states,), -math.log(self.num_states),
+                device=self.means.device,
+            )
 
     # -- emissions --------------------------------------------------------------
     def get_component_log_probs(self, observations: torch.Tensor) -> torch.Tensor:
@@ -194,12 +197,14 @@ class MixtureGaussianHMMLayer(nn.Module):
         """Viterbi decode: ``(states (B, T) int32, score (B,) | None)``.
         ``lengths`` masks ragged batches (padded frames repeat each row's
         final valid state)."""
-        log_w = torch.log_softmax(self.mixture_weights_logits, dim=-1)
-        states, score = auto_gmm_viterbi(
-            observations, self.means, self.cov_params, log_w,
-            self._log_a(), self._log_pi(), lengths,
-            covariance_type=self.covariance_type,
-        )
+        with span("models.gmm.decode"):
+            with span("models.gmm.transitions"):
+                log_w = torch.log_softmax(self.mixture_weights_logits, dim=-1)
+            states, score = auto_gmm_viterbi(
+                observations, self.means, self.cov_params, log_w,
+                self._log_a(), self._log_pi(), lengths,
+                covariance_type=self.covariance_type,
+            )
         return (states, score) if return_log_probs else (states, None)
 
     @torch.no_grad()

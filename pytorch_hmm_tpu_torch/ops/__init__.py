@@ -591,8 +591,10 @@ def auto_viterbi(
     """``(states (B, T) int32, score (B,))``: off the CPU
     ``smallk_viterbi`` (K ≤ 32, static or time-varying transitions) or
     ``pallas_viterbi`` (33 ≤ K ≤ 1024, static); the plain ``core.viterbi``
-    on CPU and where no kernel exists. Paths are identical on every
-    route, tie-breaks included."""
+    on CPU and where no kernel exists. Every route breaks ties alike;
+    ``smallk_viterbi`` runs its chain bounded, so its paths can differ
+    from the plain float32 chain's where two paths tie within that
+    chain's rounding."""
     K = log_obs.shape[-1]
     dev = log_obs.device
     if dev.type != "cpu":
@@ -628,12 +630,13 @@ def auto_gmm_viterbi(
     if cov_params is None:
         cov_params = log_vars
     S, C = log_w.shape
-    if (obs.device.type != "cpu" and not smallk_supported(S) and covariance_type == "diag"
-            and fused_gmm_supported(S, C, covariance_type)):
-        return fused_gmm_viterbi(*_f32(obs, means, cov_params, log_w, log_a, log_pi),
-                                 _lengths_on(lengths, obs.device))
-    log_obs = gmm_log_probs(obs, means, cov_params, log_w, covariance_type)
-    return auto_viterbi(log_obs, log_a, log_pi, lengths)
+    with span("ops.auto_gmm_viterbi"):
+        if (obs.device.type != "cpu" and not smallk_supported(S) and covariance_type == "diag"
+                and fused_gmm_supported(S, C, covariance_type)):
+            return fused_gmm_viterbi(*_f32(obs, means, cov_params, log_w, log_a, log_pi),
+                                     _lengths_on(lengths, obs.device))
+        log_obs = gmm_log_probs(obs, means, cov_params, log_w, covariance_type)
+        return auto_viterbi(log_obs, log_a, log_pi, lengths)
 
 
 # -- duration models ------------------------------------------------------------

@@ -5,9 +5,14 @@ Port of ``pytorch_hmm_tpu/ops/smallk.py``. On CUDA tensors
 ``csrc/smallk_viterbi.cu``: one warp per sequence, trellis and
 backtrace in one launch, any batch size, static ``(K, K)`` or
 time-varying ``(B, T, K, K)`` transitions. On CPU tensors it runs
-:func:`smallk_viterbi_reference`, the ported ``core.viterbi``. Both give
+:func:`smallk_viterbi_reference`, the ported ``core.viterbi``, which gives
 the same paths and scores as ``pytorch_hmm_tpu.core.viterbi``, ties
-(lowest state index) and ragged padding included.
+(lowest state index) and ragged padding included. The kernel keeps the
+same tie and padding rules but runs its chain bounded: each frame is
+shifted by its largest score and the chain renormalised once a staged
+chunk, what was taken out summed in double. Its scores are closer to
+the exact ones than the plain float32 chain's, which drift with T, and
+its paths are the plain version's except on ties within that drift.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import core
+from ..trace import span
 from . import _build
 
 __all__ = ["smallk_viterbi", "smallk_viterbi_reference", "smallk_supported",
@@ -108,27 +114,28 @@ def smallk_viterbi(
     """
     if log_obs.device.type == "cpu":
         return smallk_viterbi_reference(log_obs, log_a, log_pi, lengths)
-    B, T, K, lengths = check_problem("smallk_viterbi", log_obs, log_a, log_pi, lengths,
-                                     time_varying=True)
-    _build.check_tensors("smallk_viterbi", log_obs.device,
-                         log_obs=log_obs, log_a=log_a, log_pi=log_pi)
-    dev = log_obs.device
-    if lengths is None:
-        lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
+    with span("kernels.smallk_viterbi"):
+        B, T, K, lengths = check_problem("smallk_viterbi", log_obs, log_a, log_pi, lengths,
+                                         time_varying=True)
+        _build.check_tensors("smallk_viterbi", log_obs.device,
+                             log_obs=log_obs, log_a=log_a, log_pi=log_pi)
+        dev = log_obs.device
+        if lengths is None:
+            lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
 
-    lib = _build.load("smallk_viterbi", _SIGNATURES)
-    tv = log_a.ndim == 4
-    psi = torch.empty((B, T, K), dtype=torch.uint8, device=dev)
-    states = torch.empty((B, T), dtype=torch.int32, device=dev)
-    score = torch.empty((B,), dtype=torch.float32, device=dev)
-    launch = lib.smallk_viterbi_tv_f32 if tv else lib.smallk_viterbi_f32
-    rc = launch(
-        log_obs.data_ptr(), log_a.data_ptr(), log_pi.data_ptr(),
-        lengths.data_ptr(), psi.data_ptr(), states.data_ptr(),
-        score.data_ptr(), B, T, K, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(rc, "smallk_viterbi")
+        lib = _build.load("smallk_viterbi", _SIGNATURES)
+        tv = log_a.ndim == 4
+        psi = torch.empty((B, T, K), dtype=torch.uint8, device=dev)
+        states = torch.empty((B, T), dtype=torch.int32, device=dev)
+        score = torch.empty((B,), dtype=torch.float32, device=dev)
+        launch = lib.smallk_viterbi_tv_f32 if tv else lib.smallk_viterbi_f32
+        rc = launch(
+            log_obs.data_ptr(), log_a.data_ptr(), log_pi.data_ptr(),
+            lengths.data_ptr(), psi.data_ptr(), states.data_ptr(),
+            score.data_ptr(), B, T, K, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check(rc, "smallk_viterbi")
     smallk_viterbi.launches += 1
     smallk_viterbi.time_varying_launches += tv
     return states, score

@@ -7,6 +7,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 _PROBE = r"""
 import json, os, pkgutil, sys
 import pytorch_hmm_tpu_torch as pkg
@@ -183,3 +185,28 @@ def test_port_never_names_jax_in_its_sources():
     sources = {fn[:-3] for fn in os.listdir(os.path.join(pkg, "csrc")) if fn.endswith(".cu")}
     assert sources == set(wrappers)
     assert {os.path.join("ops", w) for w in wrappers.values()} <= seen
+
+
+@pytest.mark.parametrize("name", ["hsmm", "gmm_hmm", "tf32"])
+def test_benchmark_references_import_neither_jax_nor_either_package(name):
+    """The benchmark's plain references (``bench_torch/reference/``) are
+    plain torch: importing one loads no JAX and no module of the JAX
+    package or of the port, and its source imports none of them."""
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    probe = (
+        "import sys\n"
+        f"import bench_torch.reference.{name}\n"
+        "banned = [m for m in sys.modules if m.split('.')[0] in\n"
+        "          ('jax', 'jaxlib', 'flax', 'triton', 'pytorch_hmm_tpu', 'pytorch_hmm_tpu_torch')]\n"
+        "assert not banned, banned\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                       timeout=300, env=env, cwd=repo_root)
+    assert r.returncode == 0, r.stdout + r.stderr
+    path = os.path.join(repo_root, "bench_torch", "reference", f"{name}.py")
+    with open(path) as f:
+        imported = [line.split()[1].split(".")[0] for line in f
+                    if line.split()[:1] in (["import"], ["from"])]
+    assert not set(imported) & {"jax", "flax", "triton", "pytorch_hmm_tpu", "pytorch_hmm_tpu_torch"}

@@ -7,6 +7,7 @@ without the JAX test configuration:
     python3 -m pytest --noconftest -o addopts= -m card tests/test_torch_trace.py
 """
 
+import contextlib
 import sys
 from pathlib import Path
 
@@ -14,7 +15,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from pytorch_hmm_tpu_torch import HSMMLayer, trace
+from pytorch_hmm_tpu_torch import HSMMLayer, MixtureGaussianHMMLayer, ops, trace
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -31,6 +32,10 @@ KERNELS = {"kernels.diag_quadratic", "kernels.hsmm_smallk_viterbi",
 CARD_BACKWARD = {"kernels.hsmm_table_grads", "ops.hsmm_log_z.backward",
                  "ops.diag_quadratic.backward"}
 PREFIXES = ("models.", "ops.", "core.", "kernels.")
+# A GMM-HMM decode on the CPU: the transitions span opens three times (the
+# mixture weights, log_a, log_pi); row 2's kernel span only on the card.
+GMM_DECODE = {"models.gmm.decode", "models.gmm.transitions", "ops.auto_gmm_viterbi",
+              "ops.gmm_log_probs", "ops.diag_quadratic"}
 
 
 def _problem(device, B=3, T=40, S=4, F=6, D=5):
@@ -39,6 +44,16 @@ def _problem(device, B=3, T=40, S=4, F=6, D=5):
                       generator=torch.Generator().manual_seed(1))
     obs = torch.randn((B, T, F), generator=gen).to(device)
     lengths = torch.tensor([T] + [T - 7 * (b + 1) for b in range(B - 1)],
+                           dtype=torch.int32, device=device)
+    return layer, obs, lengths
+
+
+def _gmm(device, B=3, T=40, S=4, C=2, F=6):
+    gen = torch.Generator().manual_seed(8)
+    layer = MixtureGaussianHMMLayer(S, F, num_components=C, device=device,
+                                    generator=torch.Generator().manual_seed(2))
+    obs = torch.randn((B, T, F), generator=gen).to(device)
+    lengths = torch.tensor([T] + [T - 9 * (b + 1) for b in range(B - 1)],
                            dtype=torch.int32, device=device)
     return layer, obs, lengths
 
@@ -100,6 +115,63 @@ def test_no_profiler_enters_no_record_function(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]):
         layer(obs, lengths)
     assert set(entered) == DECODE
+
+
+def test_gmm_spans_nest_by_layer_under_a_cpu_profile():
+    layer, obs, lengths = _gmm("cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("test.decode"):
+            layer(obs, lengths=lengths, return_log_probs=True)
+    events = [e for e in prof.events() if e.name.startswith(PREFIXES)]
+    assert {e.name for e in events} == GMM_DECODE
+    parent = {"models.gmm.transitions": "models.gmm.decode",
+              "ops.auto_gmm_viterbi": "models.gmm.decode",
+              "ops.gmm_log_probs": "ops.auto_gmm_viterbi",
+              "ops.diag_quadratic": "ops.gmm_log_probs",
+              "models.gmm.decode": "test.decode"}
+    for e in events:
+        assert next(_ancestors(e)) == parent[e.name], e.name
+    names = [e.name for e in events]
+    assert names.count("models.gmm.transitions") == 3
+    assert all(names.count(n) == 1 for n in GMM_DECODE - {"models.gmm.transitions"})
+
+
+def test_gmm_decode_enters_no_record_function_without_a_profiler(monkeypatch):
+    real = torch.profiler.record_function
+    entered = []
+
+    def counting(name, *args, **kwargs):
+        entered.append(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    layer, obs, lengths = _gmm("cpu")
+    layer(obs, lengths=lengths, return_log_probs=True)
+    assert entered == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        layer(obs, lengths=lengths, return_log_probs=True)
+    assert set(entered) == GMM_DECODE
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_smallk_kernel_span_opens_in_the_cuda_branch_only_under_a_profiler(monkeypatch, profiled):
+    """``kernels.smallk_viterbi`` opens where the wrapper leaves the CPU
+    path, before its checks: here on meta tensors, which the checks then
+    refuse; never on CPU tensors."""
+    real = torch.profiler.record_function
+    entered = []
+
+    def counting(name, *args, **kwargs):
+        entered.append(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    meta = [torch.empty(s, device="meta") for s in ((2, 10, 4), (4, 4), (4,))]
+    with profile(activities=[ProfilerActivity.CPU]) if profiled else contextlib.nullcontext():
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            ops.smallk_viterbi(*meta)
+        ops.smallk_viterbi(*(torch.zeros(t.shape) for t in meta))
+    assert entered == (["kernels.smallk_viterbi"] if profiled else [])
 
 
 @pytest.mark.card
