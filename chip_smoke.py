@@ -11,7 +11,11 @@ port's CUDA kernels from ``pytorch_hmm_tpu_torch/csrc`` (one nvcc per
 source, all at once), checks each kernel against its plain PyTorch
 version on the card (row 2, ``smallk_viterbi``, whose chain runs
 bounded, also against the plain trellis in float64, with a long-T case
-at GMM scale: ``trellis_vs_f64``), then drives
+at GMM scale: ``trellis_vs_f64``; row 1's mixture mode, the GMM
+decode's emission with the logsumexp over components in its output
+stage, against row 1 plus the plain epilogue and float64 at the
+``gmm.decode.b4096`` shape and three others, and timed there against
+both), then drives
 ``MixtureGaussianHMMLayer`` at the width of the repo's GMM-HMM
 configuration (B=32, T=1000, S=12, C=4, D=80, diag covariance; random
 weights from a seed):
@@ -235,6 +239,17 @@ VIT_PATH_GAP = 0.01
 # The long-T, GMM-scale case of row 2 (the card test's too): B, T, K, and
 # the features' width behind its diagonal-Gaussian scores.
 VIT_LONG = (8, 4096, 12, 80)
+# Row 1's mixture mode (the GMM decode's emission with the logsumexp over
+# components in its output stage) against row 1 plus the plain epilogue it
+# replaces: the same row-1 sums and component scores rounded alike, so only
+# the logsumexp's sum order, exp and log differ, well under an ulp of
+# |score| (~7.6e-6 at 125); MIX_ATOL at |score| <= MIX_SCALE and in
+# proportion above. The cases: the
+# gmm.decode.b4096 cell's shape (B, T, S, C, D), ragged; two and five
+# column tiles (N > 64, D % 4 != 0); one tile with padded columns.
+MIX_ATOL, MIX_SCALE = 2e-5, 125.0
+MIX_CASES = {"cell": (4096, 1000, 12, 4, 80), "N=80": (32, 1000, 40, 2, 80),
+             "N=264 D=39": (32, 300, 33, 8, 39), "N=15 D=13": (8, 300, 5, 3, 13)}
 # Sum recursions vs their plain versions: the JAX kernel tests' atol
 # 2e-4 (tests/test_ops_fbsum.py), plus rtol 1e-6 (8 f32 ulps) of the
 # running magnitude, which reaches ~2.5e3 at T=1000 on these inputs.
@@ -654,6 +669,8 @@ def reset_launches():
         fn.launches = 0
         if hasattr(fn, "time_varying_launches"):
             fn.time_varying_launches = 0
+        if hasattr(fn, "mixture_launches"):
+            fn.mixture_launches = 0
 
 
 def read_launches(names):
@@ -691,6 +708,124 @@ def phase_diag_quadratic(dev, gen):
         check(torch.allclose(got, want, atol=DQ_ATOL, rtol=DQ_RTOL),
               f"diag_quadratic {(b, t, d, n)} disagrees: max abs err {err}")
     return errs
+
+
+def mixture_problem(dev, gen, b, t, s, c, d, cov="diag"):
+    """A GMM decode batch at the benchmark's scale: means N(0, 1), log
+    variances and mixture logits 0.1·N(0, 1); each frame drawn from one
+    component of a state held 8 frames, half a unit off its mean plus unit
+    noise (the true state ~ -125 a frame at d=80); lengths from ``t`` down
+    to a quarter, padded frames zero. Returns ``(obs, means, cov_params,
+    logits, lengths)``."""
+    import torch
+
+    means = torch.randn(s, c, d, device=dev, generator=gen)
+    cov_p = 0.1 * torch.randn((s, c, d) if cov == "diag" else (d,), device=dev, generator=gen)
+    logits = 0.1 * torch.randn(s, c, device=dev, generator=gen)
+    states = torch.randint(0, s, (b, -(-t // 8)), device=dev, generator=gen)
+    states = states.repeat_interleave(8, 1)[:, :t]
+    comps = torch.randint(0, c, (b, t), device=dev, generator=gen)
+    off = 0.5 * torch.randn(s, c, d, device=dev, generator=gen)
+    x = means[states, comps] + off[states, comps]
+    x += torch.randn(b, t, d, device=dev, generator=gen)
+    ln = torch.linspace(t, max(1, t // 4), b, device=dev).round().to(torch.int32)
+    x *= (torch.arange(t, device=dev) < ln[:, None].long())[..., None]
+    return x, means, cov_p, logits, ln
+
+
+def mixture_vs_plain(obs, means, cov_p, logits, cov="diag"):
+    """``emissions.gmm_log_probs`` on the card (row 1's mixture mode, one
+    launch, no gradient), beside the route it replaces (row 1, then the
+    plain epilogue) and the plain version in float64. Returns ``(got,
+    composite, want64, launches)``, ``launches`` the change in
+    ``(diag_quadratic.launches, .mixture_launches)`` of the first call."""
+    import torch
+    from pytorch_hmm_tpu_torch import emissions, ops
+    from pytorch_hmm_tpu_torch.core.semiring import logsumexp
+
+    dq = ops.diag_quadratic
+    with torch.no_grad():
+        before = dq.launches, dq.mixture_launches
+        got = emissions.gmm_log_probs(obs, means, cov_p, logits, cov)
+        launches = (dq.launches - before[0], dq.mixture_launches - before[1])
+        comp = emissions.gmm_component_log_probs(obs, means, cov_p, cov)
+        composite = logsumexp(comp + torch.log_softmax(logits, dim=-1), dim=-1)
+        del comp
+        tables = emissions._diag_mixture_tables(means.double(), cov_p.double(), logits.double(), cov)
+        want64 = ops.emit.diag_gmm_log_probs_reference(obs.double(), *tables, means.shape[1])
+    return got, composite, want64, launches
+
+
+def mixture_share(got, want):
+    """The worst ``|got - want|`` as a share of the mixture mode's
+    tolerance (``MIX_ATOL`` at ``|want| <= MIX_SCALE``, in proportion
+    above); non-finite entries must match exactly."""
+    import torch
+
+    fin = torch.isfinite(want)
+    check(torch.equal(fin, torch.isfinite(got)) and torch.equal(got[~fin], want[~fin].to(got.dtype)),
+          "mixture scores: non-finite entries differ")
+    tol = MIX_ATOL * torch.clamp(want[fin].abs() / MIX_SCALE, min=1.0)
+    return ((got[fin].double() - want[fin].double()).abs() / tol).max().item()
+
+
+def phase_mixture_epilogue(dev, gen):
+    """Row 1's mixture mode against row 1 plus the plain epilogue on every
+    ``MIX_CASES`` case (diag; tied at the cell's shape too), each launch
+    counted, and both against float64; then timed at the cell's shape:
+    the fused launch against row 1 alone and against row 1 plus the plain
+    epilogue, and ``gmm_log_probs`` whole (the tables too) on the fused
+    route against the composite. Returns ``(errs, times, launches)``:
+    per case the fused result's share of the tolerance against the
+    composite, and the worst abs error against float64 of the fused and
+    the composite result."""
+    import torch
+    from pytorch_hmm_tpu_torch import emissions, ops
+    from pytorch_hmm_tpu_torch.core.semiring import logsumexp
+
+    errs, launches = {}, None
+    for name, shape in [*MIX_CASES.items(), ("cell tied", MIX_CASES["cell"])]:
+        cov = "tied" if name.endswith("tied") else "diag"
+        obs, means, cov_p, logits, _ = mixture_problem(dev, gen, *shape, cov=cov)
+        got, composite, want64, launches = mixture_vs_plain(obs, means, cov_p, logits, cov)
+        torch.cuda.synchronize(dev)
+        check(launches == (1, 1), f"mixture {name}: launches {launches}, expected one fused")
+        check(got.shape == composite.shape == shape[:2] + (shape[2],), f"mixture {name}: shape")
+        share = mixture_share(got, composite)
+        check(share <= 1.0, f"mixture {name}: {share:.3g} of the tolerance off row 1 + plain")
+        f64 = [(v.double() - want64).abs().max().item() for v in (got, composite)]
+        check(f64[0] <= f64[1] + MIX_ATOL * max(1.0, want64.abs().max().item() / MIX_SCALE),
+              f"mixture {name}: float64 error {f64[0]:.3g} past the composite's {f64[1]:.3g}")
+        errs[name] = (share, *f64)
+        del obs, got, composite, want64
+
+    obs, means, cov_p, logits, _ = mixture_problem(dev, gen, *MIX_CASES["cell"])
+    Cc = means.shape[1]
+    with torch.no_grad():
+        tables = emissions._diag_mixture_tables(means, cov_p, logits, "diag")
+        wq, wl, bias, log_norm, log_w = tables
+
+        def plain_route():
+            mahal = ops.diag_quadratic(obs, wq, wl, bias)
+            comp = (log_norm - 0.5 * mahal).reshape(*mahal.shape[:-1], -1, Cc)
+            return logsumexp(comp + log_w.reshape(-1, Cc), dim=-1)
+
+        def composite_call():
+            comp = emissions.gmm_component_log_probs(obs, means, cov_p, "diag")
+            return logsumexp(comp + torch.log_softmax(logits, dim=-1), dim=-1)
+
+        fns = {"fused launch": lambda: ops.emit.diag_gmm_log_probs(obs, *tables, Cc),
+               "row 1 alone": lambda: ops.diag_quadratic(obs, wq, wl, bias),
+               "row 1 + plain epilogue": plain_route,
+               "gmm_log_probs fused route": lambda: emissions.gmm_log_probs(obs, means, cov_p, logits),
+               "gmm_log_probs composite": composite_call}
+        times = {}
+        for name in fns:
+            times[name] = cuda_median_ms(fns[name])
+        before = ops.diag_quadratic.mixture_launches
+        emissions.gmm_log_probs(obs, means, cov_p, logits)
+        launches = ops.diag_quadratic.mixture_launches - before
+    return errs, times, launches
 
 
 def phase_bf16_scoring(dev):
@@ -3931,6 +4066,18 @@ def main() -> int:
     print("diag_quadratic vs plain: ok, max abs err "
           + ", ".join(f"{k}: {v:.3g}" for k, v in dq_errs.items())
           + f" (atol {DQ_ATOL}, rtol {DQ_RTOL}, TF32 off)", flush=True)
+    mix_errs, mix_times, mix_launches = phase_mixture_epilogue(
+        dev, torch.Generator(device=dev).manual_seed(SEED + 18))
+    print("mixture epilogue (row 1's mixture mode, gmm_log_probs on the card) vs row 1 + the plain "
+          f"epilogue: ok; per case the share of the tolerance (atol {MIX_ATOL} at |score| <= "
+          f"{MIX_SCALE}, in proportion above) and the max abs err vs float64 of the fused / the "
+          "composite result: " + "; ".join(f"{k} {MIX_CASES.get(k.split(' tied')[0])} {a:.3g}, "
+                                           f"{b:.3g} / {c:.3g}" for k, (a, b, c) in mix_errs.items()),
+          flush=True)
+    print(f"timing mixture epilogue at gmm.decode.b4096's shape (B, T, S, C, D = "
+          f"{MIX_CASES['cell']}): " + ", ".join(f"{k} {v:.4f} ms" for k, v in mix_times.items())
+          + f" (median of {TIMED_RUNS}, CUDA events); mixture_launches a gmm_log_probs call "
+          f"{mix_launches}; on {card}", flush=True)
     bf16_errs, bf16_dq = phase_bf16_scoring(dev)
     print(f"bf16 scoring (gmm_log_probs, compute_dtype=bfloat16, B={B} T={T} S={S} C={C} D={D}; full "
           "from the card's prepared tables) on the "
@@ -4254,7 +4401,7 @@ def main() -> int:
           f"device busy {nprof['device_ms']} ms, {nprof['kernels']} device ops per call, top "
           f"{nprof['top_ms']} on {card}", flush=True)
     print(f"timing fused_gmm_viterbi (B={B}, T={T}, S={GK}, C=2, D={GD}): {times['fused_gmm_viterbi'][0]:.4f} ms "
-          f"fused, {times[UNFUSED]:.4f} ms unfused (gmm_log_probs: diag_quadratic and the logsumexp over C, "
+          f"fused, {times[UNFUSED]:.4f} ms unfused (gmm_log_probs: diag_quadratic with the logsumexp over C, "
           f"then pallas_viterbi) (median, CUDA events) on {card}", flush=True)
     print("timing general-K chains (B=4): "
           + ", ".join(f"{k} {times[k]:.4f} ms" for k in btimes if " K=" in k)

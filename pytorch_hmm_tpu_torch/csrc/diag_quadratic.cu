@@ -40,6 +40,23 @@
 //   out as 16-byte row segments, so every store fills whole sectors (a
 //   thread's own 24-byte segments did not, and cost more than the FMAs).
 //
+// Mixture mode (MIX, the GMM decode's emission: diag_gmm_f32 below). The
+// columns are S states of C components each, and only the state scores
+//
+//     out[r, s] = logsumexp_c((log_norm - 0.5 * mahal[r, j]) + log_w[j]),
+//     j = s*C + c,
+//
+// leave the kernel. The plain torch epilogue it replaces made ~8 passes
+// over the (R, S*C) scores (786 MB at the B=4096 decode) for a (R, S)
+// result a quarter that size. Here the staged tile holds each state's C
+// columns side by side, so after the barrier the block reduces them by
+// state, with the max shift of core.semiring.logsumexp (a non-finite max
+// shifts by 0) in full precision expf/logf, and writes each row's states
+// once, contiguous. Each component score is rounded as the plain epilogue
+// rounds it, log_w added last (folded into log_norm, it moved the state
+// scores by up to ~2 ulp). The plan (ops/emit.py:mixture_plan) makes every column
+// tile hold whole states; padded columns (c >= N) are never read.
+//
 // Measured times are in PERF.md (chip_smoke.py, H100).
 
 #include <cuda_runtime.h>
@@ -129,14 +146,16 @@ __device__ __forceinline__ void load_cols(float (&v)[TN], const float* p, int sw
     }
 }
 
-template <int TN>
+template <int TN, bool MIX>
 __global__ void __launch_bounds__(THREADS)
 diag_quadratic_kernel(const float* __restrict__ x,
                       const float* __restrict__ wq,
                       const float* __restrict__ wl,
                       const float* __restrict__ bias,
-                      float* __restrict__ out,
-                      long long R, int D, int N, int resident, int xvec, int wvec) {
+                      const float* __restrict__ lnorm,  // (N,) MIX only: log_norm
+                      const float* __restrict__ lw,     // (N,) MIX only: log_w
+                      float* __restrict__ out,         // (R, N); MIX: (R, N / C)
+                      long long R, int D, int N, int C, int resident, int xvec, int wvec) {
     constexpr int BN = 8 * TN;
     constexpr int WRS = BN;                  // floats per feature row of a weight tile
     constexpr int OS = BN + 4;               // row stride of the output staging tile
@@ -211,11 +230,15 @@ diag_quadratic_kernel(const float* __restrict__ x,
         if (++ic == nch) ic = 0, ++it;
     };
 
-    float b[TN];
+    float b[TN], ln[MIX ? TN : 1], w[MIX ? TN : 1];
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
         const int c = col0 + cg * TN + j;
         b[j] = c < N ? bias[c] : 0.f;
+        if constexpr (MIX) {
+            ln[j] = c < N ? lnorm[c] : 0.f;
+            w[j] = c < N ? lw[c] : 0.f;
+        }
     }
     float acc[TM][TN];
 #pragma unroll
@@ -266,22 +289,59 @@ diag_quadratic_kernel(const float* __restrict__ x,
         }
 
         if (ch == nch - 1) {
-            // Stage the tile (plus the bias), then write it out row segment
-            // by row segment, 16 bytes a thread where N % 4 == 0, so every
-            // store fills whole sectors.
+            // Stage the tile (plus the bias; MIX: each component's score),
+            // then write it out row segment by row segment, 16 bytes a
+            // thread where N % 4 == 0, so every store fills whole sectors.
 #pragma unroll
             for (int i = 0; i < TM; ++i) {
                 float* o = ostage + (rbase + i) * OS + cg * TN;
 #pragma unroll
                 for (int j = 0; j < TN; ++j) {
-                    o[j] = acc[i][j] + b[j];
+                    if constexpr (MIX) o[j] = __fadd_rn(ln[j] - 0.5f * (acc[i][j] + b[j]), w[j]);
+                    else o[j] = acc[i][j] + b[j];
                     acc[i][j] = 0.f;
                 }
             }
             __syncthreads();
             const long long row0 = (blockIdx.x + static_cast<long long>(ct) * gridDim.x) * BM;
             const int ncols = N - col0 < BN ? N - col0 : BN;
-            if (N % 4 == 0) {
+            if constexpr (MIX) {
+                // Item i = r * sv + st (row r, state st of the tile) goes to
+                // thread i % THREADS, which steps its (r, st) by THREADS
+                // with no division: the row's logsumexp over its C staged
+                // columns (16-byte reads where C % 4 == 0), stored beside
+                // its neighbours' states.
+                const int sv = ncols / C, dr = THREADS / sv, ds = THREADS - dr * sv;
+                const int rows = R - row0 < BM ? static_cast<int>(R - row0) : BM;
+                float* o = out + row0 * (N / C) + col0 / C;
+                int r = tid / sv, st = tid - r * sv;
+                while (r < rows) {
+                    const float* v = ostage + r * OS + st * C;
+                    float m = v[0], sum = 0.f;
+                    if (C % 4 == 0) {
+                        for (int c = 0; c < C; c += 4) {
+                            const float4 q = *reinterpret_cast<const float4*>(v + c);
+                            m = fmaxf(fmaxf(m, q.x), fmaxf(fmaxf(q.y, q.z), q.w));
+                        }
+                        if (!(fabsf(m) <= 3.402823466e+38f)) m = 0.f;   // not finite: shift by 0
+                        for (int c = 0; c < C; c += 4) {
+                            const float4 q = *reinterpret_cast<const float4*>(v + c);
+                            sum += expf(q.x - m);
+                            sum += expf(q.y - m);
+                            sum += expf(q.z - m);
+                            sum += expf(q.w - m);
+                        }
+                    } else {
+                        for (int c = 1; c < C; ++c) m = fmaxf(m, v[c]);
+                        if (!(fabsf(m) <= 3.402823466e+38f)) m = 0.f;
+                        for (int c = 0; c < C; ++c) sum += expf(v[c] - m);
+                    }
+                    o[r * (N / C) + st] = m + logf(sum);
+                    st += ds;
+                    r += dr;
+                    if (st >= sv) st -= sv, ++r;
+                }
+            } else if (N % 4 == 0) {
                 for (int i = tid; i < BM * (BN / 4); i += THREADS) {
                     const int r = i / (BN / 4), c = 4 * (i % (BN / 4));
                     if (row0 + r < R && c < ncols)
@@ -309,15 +369,18 @@ struct Occupancy {
     int blocks = 0;
 };
 
-template <int TN>
-cudaError_t launch(const float* x, const float* wq, const float* wl, const float* bias, float* out,
-                   long long R, int D, int N, int ct, int resident, int smem, int device,
-                   cudaStream_t stream) {
+template <int TN, bool MIX>
+cudaError_t launch(const float* x, const float* wq, const float* wl, const float* bias,
+                   const float* lnorm, const float* lw, float* out, long long R, int D, int N,
+                   int C, int ct, int resident, int smem, int device, cudaStream_t stream) {
     static Occupancy occ;
     if (smem > SMEM_LIMIT || smem < 4LL * layout(D, TN, resident).end
         || static_cast<long long>(ct) * 8 * TN < N)
         return cudaErrorInvalidValue;
-    auto kernel = diag_quadratic_kernel<TN>;
+    // A mixture's column tiles hold whole states: one tile, or C | 8 TN.
+    if (MIX && (C < 1 || N % C != 0 || (ct > 1 && (8 * TN) % C != 0)))
+        return cudaErrorInvalidValue;
+    auto kernel = diag_quadratic_kernel<TN, MIX>;
     cudaError_t err;
     if (!occ.raised) {
         err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
@@ -344,8 +407,28 @@ cudaError_t launch(const float* x, const float* wq, const float* wl, const float
     const int wvec = (N % 4 == 0 && reinterpret_cast<uintptr_t>(wq) % 16 == 0
                       && reinterpret_cast<uintptr_t>(wl) % 16 == 0) ? 1 : 0;
     kernel<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(ct)), THREADS, smem, stream>>>(
-        x, wq, wl, bias, out, R, D, N, resident, xvec, wvec);
+        x, wq, wl, bias, lnorm, lw, out, R, D, N, C, resident, xvec, wvec);
     return cudaGetLastError();
+}
+
+template <bool MIX>
+cudaError_t launch_tn(const float* x, const float* wq, const float* wl, const float* bias,
+                      const float* lnorm, const float* lw, float* out, long long R, int D, int N,
+                      int C, int tn, int ct, int resident, int smem, int device, cudaStream_t s) {
+#define DQ_LAUNCH(TN) \
+    launch<TN, MIX>(x, wq, wl, bias, lnorm, lw, out, R, D, N, C, ct, resident, smem, device, s)
+    switch (tn) {
+        case 1: return DQ_LAUNCH(1);
+        case 2: return DQ_LAUNCH(2);
+        case 3: return DQ_LAUNCH(3);
+        case 4: return DQ_LAUNCH(4);
+        case 5: return DQ_LAUNCH(5);
+        case 6: return DQ_LAUNCH(6);
+        case 7: return DQ_LAUNCH(7);
+        case 8: return DQ_LAUNCH(8);
+        default: return cudaErrorInvalidValue;
+    }
+#undef DQ_LAUNCH
 }
 
 }  // namespace
@@ -362,17 +445,25 @@ extern "C" int diag_quadratic_f32(const float* x, const float* wq, const float* 
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (R < 1 || D < 1 || N < 1 || ct < 1) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (tn) {
-        case 1: err = launch<1>(x, wq, wl, bias, out, R, D, N, ct, resident, smem, device, s); break;
-        case 2: err = launch<2>(x, wq, wl, bias, out, R, D, N, ct, resident, smem, device, s); break;
-        case 3: err = launch<3>(x, wq, wl, bias, out, R, D, N, ct, resident, smem, device, s); break;
-        case 4: err = launch<4>(x, wq, wl, bias, out, R, D, N, ct, resident, smem, device, s); break;
-        case 5: err = launch<5>(x, wq, wl, bias, out, R, D, N, ct, resident, smem, device, s); break;
-        case 6: err = launch<6>(x, wq, wl, bias, out, R, D, N, ct, resident, smem, device, s); break;
-        case 7: err = launch<7>(x, wq, wl, bias, out, R, D, N, ct, resident, smem, device, s); break;
-        case 8: err = launch<8>(x, wq, wl, bias, out, R, D, N, ct, resident, smem, device, s); break;
-        default: err = cudaErrorInvalidValue; break;
-    }
-    return static_cast<int>(err);
+    return static_cast<int>(launch_tn<false>(x, wq, wl, bias, nullptr, nullptr, out, R, D, N, 1,
+                                             tn, ct, resident, smem, device,
+                                             static_cast<cudaStream_t>(stream)));
+}
+
+// The mixture mode: the same inputs as diag_quadratic_f32 with N = S * C
+// columns, state s's components at columns s*C .. s*C + C - 1, plus
+// `lnorm` and `lw` (N,), and out (R, S) =
+// logsumexp_c((lnorm - 0.5 * (x² Wq + x Wl + b)) + lw).
+// The plan is ops/emit.py:mixture_plan's: every column tile holds whole
+// states (one tile, or 8 tn a multiple of C).
+extern "C" int diag_gmm_f32(const float* x, const float* wq, const float* wl, const float* bias,
+                            const float* lnorm, const float* lw, float* out, long long R, int D,
+                            int N, int C, int tn, int ct, int resident, int smem, int device,
+                            void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (R < 1 || D < 1 || N < 1 || ct < 1) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_tn<true>(x, wq, wl, bias, lnorm, lw, out, R, D, N, C, tn, ct,
+                                            resident, smem, device,
+                                            static_cast<cudaStream_t>(stream)));
 }

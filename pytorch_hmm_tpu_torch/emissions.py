@@ -23,6 +23,12 @@ to bound memory. Float32 products must run in full float32: the
 emission scores feed posterior-grade chains, so TF32
 (``torch.backends.cuda.matmul.allow_tf32``, off by default) stays off.
 
+:func:`gmm_log_probs` on the card, with diag or tied covariance, float32
+and no gradient recorded, runs the mixture's logsumexp inside the same
+kernel's output stage (``ops.emit.diag_gmm_log_probs``), so only the
+``(B, T, S)`` state scores are written; the composite (component scores,
+then :func:`core.semiring.logsumexp`) runs everywhere else.
+
 Every scoring function takes ``compute_dtype``, as in the JAX package.
 ``None`` or ``torch.float32`` is the path above: true float32, the diag
 quadratic through the kernel on the card. ``torch.bfloat16`` rounds the
@@ -39,7 +45,7 @@ import math
 import torch
 
 from .core.semiring import logsumexp
-from .ops.emit import diag_quadratic
+from .ops.emit import diag_gmm_log_probs, diag_quadratic, mixture_plan
 from .precision import compute_dtype as _resolve_dtype
 from .precision import mxu_einsum
 from .trace import span
@@ -67,6 +73,16 @@ def _bf16(compute_dtype) -> bool:
     return _resolve_dtype(compute_dtype) == torch.bfloat16
 
 
+def _diag_tables(means: torch.Tensor, log_vars: torch.Tensor):
+    """``inv_var (K, D)``, ``mm (K,)`` = Σ μ²/σ² and ``log_norm (K,)`` of
+    diagonal Gaussians."""
+    D = means.shape[-1]
+    inv_var = torch.exp(-log_vars)                        # (K, D)
+    mm = torch.sum(means * means * inv_var, dim=-1)       # (K,)
+    log_norm = -0.5 * (D * _LOG_2PI + torch.sum(log_vars, dim=-1))
+    return inv_var, mm, log_norm
+
+
 def diag_gaussian_log_probs(
     obs: torch.Tensor, means: torch.Tensor, log_vars: torch.Tensor, compute_dtype=None
 ) -> torch.Tensor:
@@ -78,10 +94,7 @@ def diag_gaussian_log_probs(
     Returns:
         ``(B, T, K)`` log N(obs; mean_k, diag(exp(log_vars_k))).
     """
-    D = obs.shape[-1]
-    inv_var = torch.exp(-log_vars)                        # (K, D)
-    mm = torch.sum(means * means * inv_var, dim=-1)       # (K,)
-    log_norm = -0.5 * (D * _LOG_2PI + torch.sum(log_vars, dim=-1))
+    inv_var, mm, log_norm = _diag_tables(means, log_vars)
     if _bf16(compute_dtype):
         # The JAX package's form off the TPU: [x², x, 1] @ [1/σ²; -2μ/σ²;
         # Σμ²/σ²], x squared in float32 before the bf16 rounding.
@@ -311,9 +324,54 @@ def gmm_log_probs(
     compute_dtype=None,
 ) -> torch.Tensor:
     """Mixture-marginalized state scores ``(B, T, S)``:
-    ``logsumexp_c(log w_{s,c} + log N_c(x))``."""
+    ``logsumexp_c(log w_{s,c} + log N_c(x))``. Where :func:`_mixture_route`
+    holds, one launch of row 1's mixture mode computes it (counted in
+    ``ops.diag_quadratic.mixture_launches``); elsewhere the component
+    scores and the logsumexp over them, in plain torch."""
     with span("ops.gmm_log_probs"):
+        if _mixture_route(obs, means, cov_params, mixture_logits, covariance_type, compute_dtype):
+            tables = _diag_mixture_tables(means, cov_params, mixture_logits, covariance_type)
+            return diag_gmm_log_probs(obs.contiguous(), *tables, means.shape[1])
         comp = gmm_component_log_probs(obs, means, cov_params, covariance_type, time_chunk,
                                        compute_dtype)
         log_w = torch.log_softmax(mixture_logits, dim=-1)     # (S, C)
         return logsumexp(comp + log_w, dim=-1)
+
+
+def _diag_mixture_tables(means, cov_params, mixture_logits, covariance_type):
+    """Row 1's mixture-mode operands ``(wq, wl, bias, log_norm, log_w)``
+    for diag or tied covariance: the tables :func:`diag_gaussian_log_probs`
+    builds over the ``S·C`` component columns, and the log mixture
+    weights flat."""
+    S, C, D = means.shape
+    m2 = means.reshape(S * C, D)
+    lv2 = cov_params.reshape(S * C, D) if covariance_type == "diag" else cov_params.expand(S * C, D)
+    inv_var, mm, log_norm = _diag_tables(m2, lv2)
+    log_w = torch.log_softmax(mixture_logits, dim=-1).reshape(S * C)
+    return (inv_var.T.contiguous(), (-2.0 * m2 * inv_var).T.contiguous(), mm.contiguous(),
+            log_norm.contiguous(), log_w.contiguous())
+
+
+def _mixture_kernel_takes(obs, means, cov_params, mixture_logits, covariance_type,
+                          compute_dtype) -> bool:
+    """True where row 1's mixture mode computes :func:`gmm_log_probs` on
+    the card: diag or tied covariance, float32 contractions and tensors,
+    no gradient recorded, and a column tiling that holds whole states
+    (``ops.emit.mixture_plan``)."""
+    tensors = (obs, means, cov_params, mixture_logits)
+    if covariance_type not in ("diag", "tied") or _resolve_dtype(compute_dtype) != torch.float32:
+        return False
+    if any(t.dtype != torch.float32 for t in tensors):
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return False
+    S, C, D = means.shape
+    return mixture_plan(D, S * C, C) is not None
+
+
+def _mixture_route(obs, means, cov_params, mixture_logits, covariance_type, compute_dtype) -> bool:
+    """:func:`gmm_log_probs` takes the fused kernel: CUDA tensors that
+    :func:`_mixture_kernel_takes`; the composite elsewhere (the CPU, so
+    the JAX parity tests see the composite)."""
+    return obs.device.type == "cuda" and _mixture_kernel_takes(
+        obs, means, cov_params, mixture_logits, covariance_type, compute_dtype)

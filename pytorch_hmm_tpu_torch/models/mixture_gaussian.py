@@ -8,8 +8,9 @@ batched Viterbi decode (``forward``), the frozen serving decoder
 ``compute_loss`` for gradient training, and a closed-form Baum-Welch
 ``em_step``.
 
-On CUDA tensors decoding goes through ``ops.emit.diag_quadratic`` and
-``ops.smallk.smallk_viterbi``; the likelihood through
+On CUDA tensors decoding goes through ``ops.emit.diag_quadratic`` in its
+mixture mode (``ops.emit.diag_gmm_log_probs``: the state scores, the
+logsumexp over components in the kernel) and ``ops.smallk.smallk_viterbi``; the likelihood through
 ``diag_quadratic`` (an autograd Function) and the forward and backward
 sum kernels (``ops.hsmm_smallk``, or ``ops.fbsum`` when ragged); EM
 through ``diag_quadratic`` and ``ops.fbsum.fbsum_smallk``. With more

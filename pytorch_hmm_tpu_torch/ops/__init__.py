@@ -4,7 +4,8 @@ Port of ``pytorch_hmm_tpu/ops/__init__.py``. The device decides the
 path, as the backend does in the JAX package:
 
 * CUDA tensors with K ≤ 32 run the small-K kernels: ``emit.diag_quadratic``
-  for diag/tied emissions, ``emit_mlp.fused_gaussian_emission`` for the
+  for diag/tied emissions (``emit.diag_gmm_log_probs``, its mixture mode,
+  for a GMM decode's state scores), ``emit_mlp.fused_gaussian_emission`` for the
   neural gaussian head, ``smallk.smallk_viterbi`` for decode,
   ``hsmm_smallk`` (forward and backward sum recursions at D = 1) for the
   likelihood and its gradient, ``fbsum.fbsum_smallk`` for posteriors and
@@ -618,8 +619,9 @@ def auto_gmm_viterbi(
 ):
     """GMM-HMM decode ``(states, score)`` — the decode path, in the JAX
     package's order: off the CPU, S ≤ 32 scores the emissions
-    (``emissions.gmm_log_probs``: the ``diag_quadratic`` kernel for diag
-    and tied covariances) into ``smallk_viterbi``; diag covariance inside
+    (``emissions.gmm_log_probs``: for diag and tied covariances the
+    ``diag_quadratic`` kernel in its mixture mode, the logsumexp over
+    components in its output stage) into ``smallk_viterbi``; diag covariance inside
     :func:`fused_gmm_supported` runs ``fused_gmm_viterbi`` (emission and
     trellis in one launch); everything else scores the emissions into
     :func:`auto_viterbi`. ``log_vars`` is the JAX package's older name of

@@ -202,3 +202,121 @@ def test_forward_without_gradient_matches_the_autograd_function():
     torch.testing.assert_close(plain, tracked.detach(), rtol=0, atol=0)
     with torch.no_grad():
         torch.testing.assert_close(emit.diag_quadratic(x, wq, wl, bias), plain, rtol=0, atol=0)
+
+
+# -- the mixture mode (the GMM decode's emission) ---------------------------------
+
+def _gmm_problem(S, C, D, cov="diag", B=2, T=17, seed=6):
+    g = torch.Generator().manual_seed(seed)
+    obs = torch.randn(B, T, D, generator=g)
+    means = torch.randn(S, C, D, generator=g)
+    cov_p = 0.3 * torch.randn((S, C, D) if cov == "diag" else (D,), generator=g)
+    logits = torch.randn(S, C, generator=g)
+    return obs, means, cov_p, logits
+
+
+@pytest.mark.parametrize("cov", ["diag", "tied"])
+@pytest.mark.parametrize("S,C,D", [(12, 4, 80), (5, 3, 13), (40, 2, 80), (33, 8, 39)])
+def test_mixture_reference_matches_the_composite(S, C, D, cov):
+    """``diag_gmm_log_probs_reference`` on the tables ``gmm_log_probs``
+    builds gives the composite's state scores (component scores, then the
+    logsumexp over C) bit for bit: the same operations in the same order,
+    ``log w`` added to each component score last."""
+    from pytorch_hmm_tpu_torch import emissions
+    from pytorch_hmm_tpu_torch.ops import emit
+
+    obs, means, cov_p, logits = _gmm_problem(S, C, D, cov)
+    want = emissions.gmm_log_probs(obs, means, cov_p, logits, cov)
+    got = emit.diag_gmm_log_probs_reference(
+        obs, *emissions._diag_mixture_tables(means, cov_p, logits, cov), C)
+    assert got.shape == want.shape == (2, 17, S)
+    assert torch.equal(got, want)
+    assert emit.diag_gmm_log_probs(
+        obs, *emissions._diag_mixture_tables(means, cov_p, logits, cov), C).equal(got)
+
+
+@pytest.mark.parametrize("D", [1, 80, 256])
+def test_mixture_plan_tiles_hold_whole_states(D):
+    """The mixture plan's column tiles cover N = S·C and each holds whole
+    states: up to 64 columns the one tile of ``dq_plan``; past that tiles
+    of 8·tn columns, 8·tn a multiple of C, tn the largest ≤ 8 that is;
+    where no tn is, the plan is None (C=9, C=11, C > 64)."""
+    from pytorch_hmm_tpu_torch.ops import emit
+
+    for C in range(1, 80):
+        for S in range(1, 70):
+            N = S * C
+            plan = emit.mixture_plan(D, N, C)
+            fits = [t for t in range(1, 9) if 8 * t % C == 0]
+            if N > 64 and not fits:
+                assert plan is None, (D, S, C)
+                continue
+            width = 8 * plan.tn
+            assert plan.col_tiles * width >= N > (plan.col_tiles - 1) * width
+            assert 0 < plan.smem <= emit.SMEM_LIMIT
+            if N <= 64:
+                assert plan == emit.dq_plan(D, N) and plan.col_tiles == 1
+            else:
+                assert plan.tn == max(fits) and width % C == 0
+    assert emit.mixture_plan(80, 48, 4) == emit.dq_plan(80, 48)
+    assert emit.mixture_plan(80, 256, 4)[:2] == (8, 4)
+    assert emit.mixture_plan(80, 96, 3)[:2] == (6, 2)
+    assert emit.mixture_plan(80, 90, 9) is None and emit.mixture_plan(80, 48, 5) is None
+
+
+_ROUTE_CASES = {
+    "diag": (dict(), True),
+    "tied": (dict(cov="tied"), True),
+    "a parameter records a gradient": (dict(grad="means"), False),
+    "obs records a gradient": (dict(grad="obs"), False),
+    "bf16 contractions": (dict(dtype=torch.bfloat16), False),
+    "spherical": (dict(cov="spherical"), False),
+    "full": (dict(cov="full"), False),
+    "float64 tensors": (dict(f64=True), False),
+    "no tiling holds whole states": (dict(S=10, C=9), False),
+}
+
+
+@pytest.mark.parametrize("case", list(_ROUTE_CASES))
+def test_mixture_route_predicate(case):
+    """Which ``gmm_log_probs`` calls row 1's mixture mode takes: diag or
+    tied covariance, float32 contractions and tensors, no gradient
+    recorded, a mixture plan; never a call off the card."""
+    from pytorch_hmm_tpu_torch import emissions
+
+    kw, want = _ROUTE_CASES[case]
+    S, C, D, cov = kw.get("S", 12), kw.get("C", 4), 80, kw.get("cov", "diag")
+    obs, means, cov_p, logits = _gmm_problem(S, C, D, "diag" if cov != "tied" else "tied")
+    if cov == "spherical":
+        cov_p = torch.zeros(S, C)
+    elif cov == "full":
+        cov_p = torch.zeros(S, C, D * (D + 1) // 2)
+    if kw.get("f64"):
+        obs, means, cov_p, logits = (t.double() for t in (obs, means, cov_p, logits))
+    args = {"obs": obs, "means": means, "cov": cov_p, "logits": logits}
+    if "grad" in kw:
+        args[kw["grad"]].requires_grad_(True)
+    call = (args["obs"], args["means"], args["cov"], args["logits"], cov, kw.get("dtype"))
+    assert emissions._mixture_kernel_takes(*call) is want
+    with torch.no_grad():
+        assert emissions._mixture_kernel_takes(*call) is (want or "grad" in kw)
+    assert emissions._mixture_route(*call) is False     # CPU tensors: the composite
+
+
+def test_mixture_wrapper_on_cpu_runs_plain_version_without_launching():
+    from pytorch_hmm_tpu_torch import emissions
+    from pytorch_hmm_tpu_torch.ops import emit
+
+    obs, means, cov_p, logits = _gmm_problem(3, 2, 6)
+    tables = emissions._diag_mixture_tables(means, cov_p, logits, "diag")
+    before = diag_quadratic.launches, diag_quadratic.mixture_launches
+    got = emit.diag_gmm_log_probs(obs, *tables, 2)
+    assert got.equal(emit.diag_gmm_log_probs_reference(obs, *tables, 2))
+    assert (diag_quadratic.launches, diag_quadratic.mixture_launches) == before
+    with pytest.raises(ValueError, match="log_norm"):
+        emit.diag_gmm_log_probs(obs, *tables[:4], tables[4][:-1], 2)
+    with pytest.raises(ValueError, match="log_norm"):
+        emit.diag_gmm_log_probs(obs, *tables, 4)
+    meta = [torch.empty(t.shape, device="meta") for t in (obs, *tables)]
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        emit.diag_gmm_log_probs(*meta, 2)

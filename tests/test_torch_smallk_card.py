@@ -64,11 +64,16 @@ def test_card_long_gmm_scale_chain_holds_float64(ragged):
 @pytest.mark.card
 def test_card_gmm_decode_ops_lie_under_program_spans():
     """``MixtureGaussianHMMLayer(12, 80, num_components=4)`` decodes through
-    ``forward`` -> ``auto_gmm_viterbi`` -> row 1 -> the mixture's
-    logsumexp -> row 2, one launch of each kernel a call, every device op
-    under a span of the port."""
+    ``forward`` -> ``auto_gmm_viterbi`` -> row 1 in its mixture mode (the
+    logsumexp over components in its output stage) -> row 2, one launch of
+    each kernel a call, every device op under a span of the port. Under
+    ``ops.gmm_log_probs`` run only the weight tables' small ops, the same
+    ones as the tables built alone, and row 1: no op of the plain
+    logsumexp over the component scores is left."""
+    from collections import Counter
+
     from bench_torch.spans import from_profile
-    from pytorch_hmm_tpu_torch import MixtureGaussianHMMLayer, ops
+    from pytorch_hmm_tpu_torch import MixtureGaussianHMMLayer, emissions, ops
 
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -78,12 +83,21 @@ def test_card_gmm_decode_ops_lie_under_program_spans():
     lengths = torch.linspace(1000, 250, 32, device=dev).round().to(torch.int32)
     layer(obs, lengths=lengths, return_log_probs=True)
     torch.cuda.synchronize(dev)
-    counts = (ops.smallk_viterbi.launches, ops.diag_quadratic.launches)
+    counts = (ops.smallk_viterbi.launches, ops.diag_quadratic.launches,
+              ops.diag_quadratic.mixture_launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         layer(obs, lengths=lengths, return_log_probs=True)
         torch.cuda.synchronize(dev)
     assert (ops.smallk_viterbi.launches, ops.diag_quadratic.launches) == (counts[0] + 1,
                                                                           counts[1] + 1)
+    assert ops.diag_quadratic.mixture_launches == counts[2] + 1
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.no_grad(), profile(activities=acts) as alone:
+        log_w = torch.log_softmax(layer.mixture_weights_logits, dim=-1)
+        torch.cuda.synchronize(dev)
+        with torch.profiler.record_function("ops.tables"):
+            emissions._diag_mixture_tables(layer.means, layer.cov_params, log_w, "diag")
+        torch.cuda.synchronize(dev)
     d = from_profile(prof)
     assert d["ops"] and None not in d["op_span"]
     under = {d["spans"][i][0] for i in d["op_span"]}
@@ -94,3 +108,12 @@ def test_card_gmm_decode_ops_lie_under_program_spans():
     row2 = [d["ops"][k][0] for k, i in enumerate(d["op_span"])
             if d["spans"][i][0] == "kernels.smallk_viterbi"]
     assert sum("smallk_viterbi_kernel" in name for name in row2) == 1
+
+    def under_span(trace, name):
+        return Counter(trace["ops"][k][0] for k, i in enumerate(trace["op_span"])
+                       if i is not None and trace["spans"][i][0] == name)
+
+    row1 = under_span(d, "kernels.diag_quadratic")
+    assert sum(row1.values()) == 1 and all("diag_quadratic_kernel" in n for n in row1)
+    tables = under_span(from_profile(alone), "ops.tables")
+    assert tables and under_span(d, "ops.gmm_log_probs") == tables
