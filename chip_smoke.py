@@ -2899,8 +2899,8 @@ def phase_prob_probe(dev, gen):
     from pytorch_hmm_tpu_torch.ops import _build
 
     _P, _I = ctypes.c_void_p, ctypes.c_int
-    lib = _build.load("scan_prob", {"scan_prob_probe_f32": [_P] * 8 + [_I] * 6 + [_P]}, PROBE_DEFINES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.Library("scan_prob", {"scan_prob_probe_f32": [_P] * 8 + [_I] * 6 + [_P]},
+                         PROBE_DEFINES)
     out = {}
     for k in PROBE_KS:
         lo = torch.randn(LB, PROB_T, k, device=dev, generator=gen)
@@ -2914,10 +2914,8 @@ def phase_prob_probe(dev, gen):
             probe = torch.zeros(blocks, nch, len(PROBE_PHASES), dtype=torch.int64, device=dev)
 
             def run():
-                _build.check(lib.scan_prob_probe_f32(
-                    lo.data_ptr(), pa.data_ptr(), lp.data_ptr(), *(t.data_ptr() for t in tables),
-                    *(t.data_ptr() for t in shifts), probe.data_ptr(), LB, PROB_T, k, 8, chains,
-                    dev.index, stream), "probe")
+                lib.launch("scan_prob_probe_f32", "probe", lo, pa, lp, *tables, *shifts, probe,
+                           LB, PROB_T, k, 8, chains)
 
             ms = cuda_median_ms(run, runs=5, warmup=1)
             cycles = probe.double()
@@ -3738,8 +3736,7 @@ def phase_bigk_cluster(dev):
     from pytorch_hmm_tpu_torch.ops import _build
     from pytorch_hmm_tpu_torch.ops import bigk as tbigk
 
-    lib = _build.load("bigk_scoring", {"bigk_cluster_probe": [ctypes.c_int] * 4 + [ctypes.c_void_p]})
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.Library("bigk_scoring", {"bigk_cluster_probe": [ctypes.c_int] * 4 + [ctypes.c_void_p]})
     out = {"plans": {}, "barrier_us": {}}
     for name, (b, _, k) in {**BIGK_SHAPES, **BIGK_CLUSTER_CASES}.items():
         plan = tbigk.cluster_plan(k, b)
@@ -3751,7 +3748,7 @@ def phase_bigk_cluster(dev):
     for cs in sorted({p.cs for p, _ in out["plans"].values()}):
         for push in (0, 1):
             def run(iters, cs=cs, push=push):
-                _build.check(lib.bigk_cluster_probe(cs, iters, push, dev.index, stream), "cluster probe")
+                lib.launch("bigk_cluster_probe", "cluster probe", cs, iters, push)
             lo_ms, hi_ms = (cuda_median_ms(lambda n=n: run(n), runs=5) for n in PROBE_ITERS)
             out["barrier_us"][(cs, push)] = (hi_ms - lo_ms) * 1e3 / (PROBE_ITERS[1] - PROBE_ITERS[0])
     return out

@@ -10,7 +10,12 @@ separate library beside the plain one. Nothing
 is built or loaded when the package is imported, so it imports on
 machines with no GPU and no CUDA toolkit.
 
-A failed build raises with the compiler's output; there is no fallback.
+Every kernel is called through one seam: a module declares each library
+it calls once, as a :class:`Library` of its entry points' ``argtypes``,
+and launches with :meth:`Library.launch`, which marshals the arguments,
+appends the device and stream every entry point takes last, and raises
+on the code it returns. A failed build raises with the compiler's output;
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -21,11 +26,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+from itertools import takewhile
 from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "build", "check", "check_tensors", "library_path", "load"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "MAX_SMALLK", "LaunchError", "Library", "build", "check",
+           "check_problem", "check_tensors", "library_path", "load"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -115,10 +122,59 @@ def load(name: str, signatures: dict, defines: tuple = ()) -> ctypes.CDLL:
     return lib
 
 
+class LaunchError(RuntimeError):
+    """A kernel's C entry point returned CUDA error ``rc``."""
+
+    def __init__(self, rc: int, what: str):
+        super().__init__(f"{what} kernel launch failed: CUDA error {rc}")
+        self.rc = rc
+
+
 def check(rc: int, what: str) -> None:
-    """Raise if a kernel's C entry point returned a CUDA error."""
+    """Raise :class:`LaunchError` if a kernel's C entry point returned a
+    CUDA error."""
     if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+        raise LaunchError(rc, what)
+
+
+class Library:
+    """``csrc/<name>.cu`` built with ``defines``, and the entry points a
+    module calls in it (``signatures``: ``{entry: [ctypes types]}``). Every
+    entry point takes its buffers first (``c_void_p``), then numbers, then
+    the device index and the stream handle. Declaring one builds and loads
+    nothing; the first launch does, and declares every entry's
+    ``argtypes`` once."""
+
+    def __init__(self, name: str, signatures: dict, defines: tuple = ()):
+        self.name, self.signatures, self.defines = name, signatures, tuple(defines)
+        self._entries: dict = {}
+
+    def fn(self, entry: str):
+        """The loaded C function ``entry``."""
+        return (self._entries.get(entry) or self._load(entry))[0]
+
+    def _load(self, entry: str) -> tuple:
+        """Load the library; ``(function, number of buffers)`` of ``entry``."""
+        lib = load(self.name, self.signatures, self.defines)
+        for e, types in self.signatures.items():
+            buffers = len(list(takewhile(lambda t: t is ctypes.c_void_p, types)))
+            self._entries[e] = (getattr(lib, e), buffers)
+        return self._entries[entry]
+
+    def launch(self, entry: str, what: str, *args) -> None:
+        """Call ``entry`` with ``args``: each buffer a tensor, passed as its
+        ``data_ptr()``, or ``None``, a null pointer; the numbers as they
+        are; then the index of the first buffer's device (the current
+        device where the entry takes no buffer) and the handle of that
+        device's current stream. Raises :class:`LaunchError` (``what``
+        names the kernel) on a nonzero return."""
+        fn, n = self._entries.get(entry) or self._load(entry)
+        dev = args[0].device if n else None
+        rc = fn(*[None if a is None else a.data_ptr() for a in args[:n]], *args[n:],
+                torch.cuda.current_device() if dev is None else dev.index,
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise LaunchError(rc, what)
 
 
 def check_tensors(what: str, device: torch.device, **tensors) -> None:
@@ -142,3 +198,41 @@ def check_tensors(what: str, device: torch.device, **tensors) -> None:
                 "differentiate through its autograd Function (ops.emit.diag_quadratic, "
                 "ops.auto_log_likelihood) or call it under torch.no_grad()"
             )
+
+
+# One warp lane per state: the chain kernels' state bound.
+MAX_SMALLK = 32
+
+
+def check_problem(what: str, log_obs, log_a, log_pi=None, lengths=None,
+                  time_varying: bool = False, max_states: int = MAX_SMALLK):
+    """Validate the shapes of an HMM problem for a CUDA kernel
+    (``log_pi`` may be omitted; ``log_a`` is ``(K, K)``, or ``(B, T, K,
+    K)`` where the kernel has a ``time_varying`` mode; ``1 <= K <=
+    max_states``); returns ``(B, T, K, lengths)`` with ``lengths`` None or
+    contiguous int32 ``(B,)`` on ``log_obs``'s device."""
+    if log_obs.ndim != 3:
+        raise ValueError(f"{what}: log_obs must be (B, T, K), got {tuple(log_obs.shape)}")
+    B, T, K = log_obs.shape
+    shapes = [(K, K)] + ([(B, T, K, K)] if time_varying else [])
+    if tuple(log_a.shape) not in shapes or (log_pi is not None and tuple(log_pi.shape) != (K,)):
+        raise ValueError(
+            f"{what}: log_obs {tuple(log_obs.shape)} needs log_a "
+            + " or ".join(str(s) for s in shapes) + f" and log_pi ({K},), got "
+            + str(tuple(log_a.shape))
+            + ("" if log_pi is None else f" and {tuple(log_pi.shape)}")
+        )
+    if not 1 <= K <= max_states:
+        raise ValueError(f"{what} takes 1 <= K <= {max_states}, got K={K}")
+    if B == 0 or T == 0:
+        raise ValueError(f"{what}: empty input {tuple(log_obs.shape)}")
+    dev = log_obs.device
+    if lengths is not None and (
+        lengths.device != dev or lengths.dtype != torch.int32
+        or tuple(lengths.shape) != (B,) or not lengths.is_contiguous()
+    ):
+        raise ValueError(
+            f"{what}: lengths must be contiguous int32 ({B},) on {dev}, got "
+            f"{lengths.dtype} {tuple(lengths.shape)} on {lengths.device}"
+        )
+    return B, T, K, lengths

@@ -74,10 +74,10 @@ CARD_SMS = 132   # the H100 SXM's
 _CLUSTER_REFUSED = 912
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
+_LIB = _build.Library("bigk_scoring", {
     "bigk_scoring_f32": [_P] * 4 + [_I] * 6 + [_I, _P],
     "bigk_active_clusters": [_I] * 4 + [_P],
-}
+})
 
 
 def bigk_supported(num_states: int, batch: int) -> bool:
@@ -209,10 +209,9 @@ def _slice_index(kp: int, cs: int, device: torch.device) -> torch.Tensor:
 def active_clusters(num_states: int, plan: ClusterPlan, device: torch.device) -> int:
     """Clusters of ``plan`` at ``num_states`` states that the card
     ``device`` holds at once (builds the kernel)."""
-    lib = _build.load("bigk_scoring", _SIGNATURES)
     n = ctypes.c_int(0)
-    _build.check(lib.bigk_active_clusters(num_states, plan.cs, plan.smem, device.index or 0,
-                                          ctypes.byref(n)), "bigk_log_likelihood occupancy")
+    _build.check(_LIB.fn("bigk_active_clusters")(num_states, plan.cs, plan.smem, device.index or 0,
+                                                 ctypes.byref(n)), "bigk_log_likelihood occupancy")
     return n.value
 
 
@@ -253,14 +252,14 @@ def _launch(log_obs, log_a, log_pi, t_chunk: int, plan: ClusterPlan) -> torch.Te
     pa[:K, :K] = torch.exp(log_a)
     frags = pa.reshape(-1)[_slice_index(plan.kp, plan.cs, dev)]
     out = torch.empty((B, K), dtype=torch.float32, device=dev)
-    lib = _build.load("bigk_scoring", _SIGNATURES)
-    rc = lib.bigk_scoring_f32(log_obs.data_ptr(), frags.data_ptr(), log_pi.data_ptr(),
-                              out.data_ptr(), B, T, K, plan.cs, plan.smem, t_chunk, dev.index,
-                              torch.cuda.current_stream(dev).cuda_stream)
-    if rc == _CLUSTER_REFUSED:
+    try:
+        _LIB.launch("bigk_scoring_f32", "bigk_log_likelihood", log_obs, frags, log_pi, out,
+                    B, T, K, plan.cs, plan.smem, t_chunk)
+    except _build.LaunchError as e:
+        if e.rc != _CLUSTER_REFUSED:
+            raise
         raise RuntimeError(f"bigk_log_likelihood: the card cannot hold a cluster of {plan.cs} CTAs "
-                           f"with {plan.smem} bytes of shared memory each (K={K})")
-    _build.check(rc, "bigk_log_likelihood")
+                           f"with {plan.smem} bytes of shared memory each (K={K})") from None
     bigk_log_likelihood.launches += 1
     return torch.logsumexp(out, dim=-1)
 

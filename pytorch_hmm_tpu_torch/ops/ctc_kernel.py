@@ -56,12 +56,12 @@ MAX_B = 256
 RESIDENT_CHOICE_BYTES = 200 * 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
+_LIB = _build.Library("ctc_lattice", {
     "ctc_lattice_forward_f32": [_P] * 6 + [_I] * 4 + [_P],
     "ctc_lattice_backward_f32": [_P] * 6 + [_I] * 4 + [_P],
     "ctc_lattice_viterbi_f32": [_P] * 9 + [_I] * 4 + [_P],
     "ctc_lattice_viterbi_wide_f32": [_P] * 10 + [_I] * 4 + [_P],
-}
+})
 
 
 def ctc_lattice_supported(lattice_size: int, batch: int) -> bool:
@@ -167,11 +167,7 @@ def _launch(what, entry, lp, rows, input_lengths, extra_ints, outs, scratch=()):
     ints = [x.to(device=dev, dtype=torch.int32).contiguous() for x in (input_lengths, *extra_ints)]
     if any(x.shape != (B,) for x in ints):
         raise ValueError(f"{what}: lengths and end positions must have shape {(B,)}")
-    lib = _build.load("ctc_lattice", _SIGNATURES)
-    ptrs = [lp.data_ptr(), *(r.data_ptr() for r in rows), *(x.data_ptr() for x in ints),
-            *(x.data_ptr() for x in scratch), *(x.data_ptr() for x in outs)]
-    rc = getattr(lib, entry)(*ptrs, B, T, S, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, what)
+    _LIB.launch(entry, what, lp, *rows, *ints, *scratch, *outs, B, T, S)
 
 
 def ctc_lattice_forward(lp: torch.Tensor, skip_add: torch.Tensor, vmask: torch.Tensor,

@@ -51,7 +51,7 @@ MAX_DTW_M = 65536
 _PATTERNS = ("symmetric", "asymmetric", "rabiner_juang")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"dtw_f32": [_P] * 6 + [_I] * 4 + [_P]}
+_LIB = _build.Library("dtw", {"dtw_f32": [_P] * 6 + [_I] * 4 + [_P]})
 
 
 def pallas_dtw_supported(n: int, m: int) -> bool:
@@ -163,12 +163,8 @@ def pallas_dtw(dist: torch.Tensor, step_pattern: str = "symmetric"
     # in shared memory when it fits there and uses this buffer otherwise
     # (csrc/dtw.cu).
     table = torch.empty(((W2 + 15) // 16) * N, dtype=torch.int32, device=dev)
-    lib = _build.load("dtw", _SIGNATURES)
-    rc = lib.dtw_f32(dist.data_ptr(), table.data_ptr(), path_i.data_ptr(), path_j.data_ptr(),
-                     length.data_ptr(), cost.data_ptr(), N, M,
-                     int(step_pattern == "rabiner_juang"), dev.index,
-                     torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "pallas_dtw")
+    _LIB.launch("dtw_f32", "pallas_dtw", dist, table, path_i, path_j, length, cost, N, M,
+                int(step_pattern == "rabiner_juang"))
     pallas_dtw.launches += 1
     return path_i, path_j, length, cost
 

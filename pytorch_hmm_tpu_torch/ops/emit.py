@@ -34,7 +34,7 @@ from . import _build
 __all__ = ["DQPlan", "diag_gmm_log_probs", "diag_gmm_log_probs_reference", "diag_quadratic",
            "diag_quadratic_reference", "dq_plan", "mixture_plan"]
 
-_SIGNATURES = {
+_LIB = _build.Library("diag_quadratic", {
     "diag_quadratic_f32": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -46,7 +46,7 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ],
-}
+})
 
 # The kernel's fixed tiling (csrc/diag_quadratic.cu): 128-row tiles, D in
 # 16-feature units through a 4-stage ring, an output staging tile; weights
@@ -146,16 +146,10 @@ def _launch(obs, wq, wl, bias, plan: DQPlan | None = None) -> torch.Tensor:
     _build.check_tensors("diag_quadratic", obs.device, obs=obs, wq=wq, wl=wl, bias=bias)
     B, T, D = obs.shape
     N = wq.shape[1]
-    lib = _build.load("diag_quadratic", _SIGNATURES)
     plan = dq_plan(D, N) if plan is None else plan
     out = torch.empty((B, T, N), dtype=torch.float32, device=obs.device)
-    rc = lib.diag_quadratic_f32(
-        obs.data_ptr(), wq.data_ptr(), wl.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), B * T, D, N, plan.tn, plan.col_tiles, int(plan.resident), plan.smem,
-        obs.device.index,
-        torch.cuda.current_stream(obs.device).cuda_stream,
-    )
-    _build.check(rc, "diag_quadratic")
+    _LIB.launch("diag_quadratic_f32", "diag_quadratic", obs, wq, wl, bias, out, B * T, D, N,
+                plan.tn, plan.col_tiles, int(plan.resident), plan.smem)
     diag_quadratic.launches += 1
     return out
 
@@ -255,15 +249,9 @@ def diag_gmm_log_probs(
         if plan is None:
             raise ValueError(f"diag_gmm_log_probs: no column tiling holds whole states of "
                              f"C={C} at N={N}")
-        lib = _build.load("diag_quadratic", _SIGNATURES)
         out = torch.empty((B, T, N // C), dtype=torch.float32, device=obs.device)
-        rc = lib.diag_gmm_f32(
-            obs.data_ptr(), wq.data_ptr(), wl.data_ptr(), bias.data_ptr(), log_norm.data_ptr(),
-            log_w.data_ptr(), out.data_ptr(), B * T, D, N, C, plan.tn, plan.col_tiles,
-            int(plan.resident), plan.smem, obs.device.index,
-            torch.cuda.current_stream(obs.device).cuda_stream,
-        )
-        _build.check(rc, "diag_quadratic")
+        _LIB.launch("diag_gmm_f32", "diag_quadratic", obs, wq, wl, bias, log_norm, log_w, out,
+                    B * T, D, N, C, plan.tn, plan.col_tiles, int(plan.resident), plan.smem)
         diag_quadratic.launches += 1
         diag_quadratic.mixture_launches += 1
         return out

@@ -39,7 +39,7 @@ __all__ = [
 ]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {"emit_mlp_f32": [_P] * 15 + [_L, _I, _I, _I, _I, _P]}
+_LIB = _build.Library("emit_mlp", {"emit_mlp_f32": [_P] * 15 + [_L, _I, _I, _I, _I, _P]})
 
 # The kernel's tiling (csrc/emit_mlp.cu): 64-row tiles, features padded
 # to 16, activations feature-major at a row stride of 68 floats, three
@@ -121,16 +121,9 @@ def _launch(obs, w1, b1, w2, b2, wm, bm, wlv, blv, ws_t, mw_t, mmw_t, state_cons
                          f"{_smem_bytes(D, H)} bytes of shared memory, over {_SMEM_LIMIT}")
     _build.check_tensors("fused_gaussian_emission", obs.device, obs=obs,
                          **{name: t for name, (t, _) in shapes.items()})
-    lib = _build.load("emit_mlp", _SIGNATURES)
     out = torch.empty((B, T, S), dtype=torch.float32, device=obs.device)
-    rc = lib.emit_mlp_f32(
-        obs.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        wm.data_ptr(), bm.data_ptr(), wlv.data_ptr(), blv.data_ptr(), ws_t.data_ptr(),
-        mw_t.data_ptr(), mmw_t.data_ptr(), state_const.data_ptr(), center.data_ptr(),
-        out.data_ptr(), B * T, D, H, S, obs.device.index,
-        torch.cuda.current_stream(obs.device).cuda_stream,
-    )
-    _build.check(rc, "fused_gaussian_emission")
+    _LIB.launch("emit_mlp_f32", "fused_gaussian_emission", obs, w1, b1, w2, b2, wm, bm, wlv, blv,
+                ws_t, mw_t, mmw_t, state_const, center, out, B * T, D, H, S)
     fused_gaussian_emission.launches += 1
     return out
 

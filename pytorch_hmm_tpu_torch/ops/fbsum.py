@@ -23,13 +23,13 @@ import torch
 
 from .. import core
 from . import _build
-from .smallk import MAX_SMALLK, check_problem
+from ._build import MAX_SMALLK, check_problem
 
 __all__ = ["fbsum_smallk", "fbsum_smallk_reference", "fbsum_supported"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"fbsum_smallk_f32": [_P] * 7 + [_I] * 4 + [_P],
-               "fbsum_smallk_tv_f32": [_P] * 7 + [_I] * 4 + [_P]}
+_LIB = _build.Library("smallk_sum", {"fbsum_smallk_f32": [_P] * 7 + [_I] * 4 + [_P],
+                                     "fbsum_smallk_tv_f32": [_P] * 7 + [_I] * 4 + [_P]})
 
 
 def fbsum_supported(num_states: int, batch: int) -> bool:
@@ -75,19 +75,12 @@ def fbsum_smallk(
     _build.check_tensors("fbsum_smallk", log_obs.device, log_obs=log_obs,
                          log_a=log_a, log_pi=log_pi)
     dev = log_obs.device
-    ln_ptr = None if lengths is None else lengths.data_ptr()
-    lib = _build.load("smallk_sum", _SIGNATURES)
     tv = log_a.ndim == 4
     alpha = torch.empty((B, T, K), dtype=torch.float32, device=dev)
     beta = torch.empty((B, T, K), dtype=torch.float32, device=dev)
     log_z = torch.empty((B,), dtype=torch.float32, device=dev)
-    launch = lib.fbsum_smallk_tv_f32 if tv else lib.fbsum_smallk_f32
-    rc = launch(
-        log_obs.data_ptr(), log_a.data_ptr(), log_pi.data_ptr(), ln_ptr,
-        alpha.data_ptr(), beta.data_ptr(), log_z.data_ptr(), B, T, K, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(rc, "fbsum_smallk")
+    _LIB.launch("fbsum_smallk_tv_f32" if tv else "fbsum_smallk_f32", "fbsum_smallk",
+                log_obs, log_a, log_pi, lengths, alpha, beta, log_z, B, T, K)
     fbsum_smallk.launches += 1
     fbsum_smallk.time_varying_launches += tv
     return alpha, beta, log_z

@@ -42,11 +42,12 @@ _LOG_2PI = math.log(2.0 * math.pi)
 _LANES, _SUBLANES = 128, 8
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"fused_gmm_viterbi_f32": [_P] * 10 + [_F] + [_I] * 11 + [_P]}
+_LIB = _build.Library("fused_gmm", {"fused_gmm_viterbi_f32": [_P] * 10 + [_F] + [_I] * 11 + [_P]})
 # The phase probe: a separate build of csrc/fused_gmm.cu, never on an
 # entry point's path (chip_smoke.py and kernel_ab.py read it).
 PROBE_DEFINES = ("FUSED_GMM_PROBE",)
-_PROBE_SIGNATURES = {"fused_gmm_probe_f32": [_P] * 11 + [_F] + [_I] * 11 + [_P]}
+_PROBE_LIB = _build.Library(
+    "fused_gmm", {"fused_gmm_probe_f32": [_P] * 11 + [_F] + [_I] * 11 + [_P]}, PROBE_DEFINES)
 
 # The kernel's shared-memory plan (csrc/fused_gmm.cu, fused_bytes): frames
 # a chunk, ring slots, the transposed rows' stride, the mbarriers' bytes,
@@ -215,17 +216,13 @@ def _launch(obs, means, log_vars, log_w, log_a, log_pi, lengths, probe=None):
     psi = torch.empty((B, T, S), dtype=torch.uint8, device=dev)
     states = torch.empty((B, T), dtype=torch.int32, device=dev)
     score = torch.empty((B,), dtype=torch.float32, device=dev)
-    args = [obs.data_ptr(), means.data_ptr(), log_vars.data_ptr(), log_w.data_ptr(),
-            log_a.data_ptr(), log_pi.data_ptr(), None if lengths is None else lengths.data_ptr(),
-            psi.data_ptr(), states.data_ptr(), score.data_ptr()]
-    tail = [D * _LOG_2PI, B, T, D, S, C, plan.cp, plan.kd, int(plan.resident), int(plan.raw),
-            plan.smem, dev.index, torch.cuda.current_stream(dev).cuda_stream]
+    args = (obs, means, log_vars, log_w, log_a, log_pi, lengths, psi, states, score)
+    tail = (D * _LOG_2PI, B, T, D, S, C, plan.cp, plan.kd, int(plan.resident), int(plan.raw),
+            plan.smem)
     if probe is None:
-        rc = _build.load("fused_gmm", _SIGNATURES).fused_gmm_viterbi_f32(*args, *tail)
+        _LIB.launch("fused_gmm_viterbi_f32", "fused_gmm_viterbi", *args, *tail)
     else:
-        lib = _build.load("fused_gmm", _PROBE_SIGNATURES, PROBE_DEFINES)
-        rc = lib.fused_gmm_probe_f32(*args, probe.data_ptr(), *tail)
-    _build.check(rc, "fused_gmm_viterbi")
+        _PROBE_LIB.launch("fused_gmm_probe_f32", "fused_gmm_viterbi", *args, probe, *tail)
     return states, score
 
 

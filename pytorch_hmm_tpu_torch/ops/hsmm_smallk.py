@@ -34,7 +34,7 @@ import torch
 from .. import core
 from ..trace import span
 from . import _build
-from .smallk import MAX_SMALLK, check_problem
+from ._build import MAX_SMALLK, check_problem
 
 __all__ = [
     "MAX_DURATION",
@@ -61,20 +61,21 @@ __all__ = [
 MAX_DURATION = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_UNIT_SIGNATURES = {
+_UNIT_LIB = _build.Library("smallk_sum", {
     "hmm_forward_sum_f32": [_P] * 7 + [_I] * 4 + [_P],
     "hmm_backward_sum_f32": [_P] * 6 + [_I] * 4 + [_P],
-}
-_SIGNATURES = {
+})
+_LIB = _build.Library("hsmm_smallk", {
     "hsmm_forward_f32": [_P] * 7 + [_I] * 5 + [_P],
     "hsmm_backward_f32": [_P] * 6 + [_I] * 5 + [_P],
     "hsmm_fb_f32": [_P] * 9 + [_I] * 7 + [_P],
     "hsmm_viterbi_f32": [_P] * 9 + [_I] * 5 + [_P],
-}
+})
 # The phase probe of hsmm_fb: a separate build of csrc/hsmm_smallk.cu,
 # never on an entry point's path (chip_smoke.py and kernel_ab.py read it).
 PROBE_DEFINES = ("HSMM_SMALLK_PROBE",)
-_PROBE_SIGNATURES = {"hsmm_fb_probe_f32": [_P] * 10 + [_I] * 7 + [_P]}
+_PROBE_LIB = _build.Library("hsmm_smallk", {"hsmm_fb_probe_f32": [_P] * 10 + [_I] * 7 + [_P]},
+                            PROBE_DEFINES)
 
 # hsmm_fb's lane split: a helper lane takes at most FB_TERMS of a frame's
 # older window terms (2 FB_TERMS once G reaches FB_MAX_LANES lanes a state).
@@ -130,16 +131,6 @@ def _check_segment_problem(what, log_obs, log_a, log_pi, log_dur, lengths):
         tensors["log_pi"] = log_pi
     _build.check_tensors(what, log_obs.device, **tensors)
     return B, T, K, log_dur.shape[1], lengths
-
-
-def _launch(fn_name: str, what: str, *args, probe=False) -> None:
-    dev = args[0].device
-    lib = (_build.load("hsmm_smallk", _PROBE_SIGNATURES, PROBE_DEFINES) if probe
-           else _build.load("hsmm_smallk", _SIGNATURES))
-    ptrs = [None if a is None else a.data_ptr() if isinstance(a, torch.Tensor) else a
-            for a in args]
-    rc = getattr(lib, fn_name)(*ptrs, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, what)
 
 
 # -- plain versions -------------------------------------------------------------
@@ -211,8 +202,8 @@ def hsmm_smallk_forward_general(
         B, T, K, D, lengths = _check_segment_problem(what, log_obs, log_a, log_pi, log_dur, lengths)
         alpha = torch.empty((B, T, K), dtype=torch.float32, device=log_obs.device)
         log_z = torch.empty((B,), dtype=torch.float32, device=log_obs.device)
-        _launch("hsmm_forward_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
-                alpha, log_z, B, T, K, D)
+        _LIB.launch("hsmm_forward_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
+                    alpha, log_z, B, T, K, D)
     hsmm_smallk_forward_general.launches += 1
     return alpha, log_z
 
@@ -237,8 +228,8 @@ def hsmm_smallk_backward_general(
         B, T, K, D, lengths = _check_segment_problem(what, log_obs, log_a, None, log_dur, lengths)
         beta_star = torch.empty((B, T, K), dtype=torch.float32, device=log_obs.device)
         beta_start = torch.empty_like(beta_star)
-        _launch("hsmm_backward_f32", what, log_obs, log_a, log_dur, lengths,
-                beta_star, beta_start, B, T, K, D)
+        _LIB.launch("hsmm_backward_f32", what, log_obs, log_a, log_dur, lengths,
+                    beta_star, beta_start, B, T, K, D)
     hsmm_smallk_backward_general.launches += 1
     return beta_star, beta_start
 
@@ -279,11 +270,11 @@ def _fb_launch(log_obs, log_a, log_pi, log_dur, lengths, probe=None):
     plan = fb_plan(K, D)
     tail = (B, T, K, D, plan.lanes, plan.smem)
     if probe is None:
-        _launch("hsmm_fb_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
-                alpha, log_z, beta_star, beta_start, *tail)
+        _LIB.launch("hsmm_fb_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
+                    alpha, log_z, beta_star, beta_start, *tail)
     else:
-        _launch("hsmm_fb_probe_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
-                alpha, log_z, beta_star, beta_start, probe, *tail, probe=True)
+        _PROBE_LIB.launch("hsmm_fb_probe_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
+                          alpha, log_z, beta_star, beta_start, probe, *tail)
     return alpha, log_z, beta_star, beta_start
 
 
@@ -311,15 +302,15 @@ def hsmm_smallk_viterbi(
         phi = torch.empty((B, T, K), dtype=torch.uint8, device=dev)
         states = torch.empty((B, T), dtype=torch.int32, device=dev)
         score = torch.empty((B,), dtype=torch.float32, device=dev)
-        _launch("hsmm_viterbi_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
-                dstar, phi, states, score, B, T, K, D)
+        _LIB.launch("hsmm_viterbi_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
+                    dstar, phi, states, score, B, T, K, D)
     hsmm_smallk_viterbi.launches += 1
     return states, score
 
 
 # -- the likelihood's cotangents: csrc/hsmm_grads.cu -------------------------------
 
-_GRADS_SIGNATURES = {"hsmm_table_grads_f32": [_P] * 16 + [_I] * 8 + [_P]}
+_GRADS_LIB = _build.Library("hsmm_grads", {"hsmm_table_grads_f32": [_P] * 16 + [_I] * 8 + [_P]})
 # Frames a tile of hsmm_table_grads; a block's shared memory and threads
 # the card holds at once on one SM.
 GRADS_TILE = 64
@@ -389,13 +380,10 @@ def hsmm_table_grads(log_obs, log_a, log_pi, log_dur, log_alpha, log_bstar, log_
         d_log_dur = torch.empty((K, D), dtype=torch.float32, device=dev)
         part = torch.empty((B * plan.parts, K * K + K + K * D), dtype=torch.float32, device=dev)
         tot = torch.empty((B * plan.parts, K), dtype=torch.float32, device=dev)
-        args = (log_obs, log_a, log_pi, log_dur, log_alpha, log_bstar, log_bstart, log_z, lengths,
-                g, d_log_obs, d_log_a, d_log_pi, d_log_dur, part, tot)
-        lib = _build.load("hsmm_grads", _GRADS_SIGNATURES)
-        rc = lib.hsmm_table_grads_f32(*(None if a is None else a.data_ptr() for a in args),
-                                      B, T, K, D, plan.parts, plan.span, plan.smem, dev.index,
-                                      torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(rc, what)
+        _GRADS_LIB.launch("hsmm_table_grads_f32", what, log_obs, log_a, log_pi, log_dur,
+                          log_alpha, log_bstar, log_bstart, log_z, lengths, g, d_log_obs, d_log_a,
+                          d_log_pi, d_log_dur, part, tot, B, T, K, D, plan.parts, plan.span,
+                          plan.smem)
     hsmm_table_grads.launches += 1
     return d_log_obs, d_log_a, d_log_pi, d_log_dur
 
@@ -427,16 +415,10 @@ def hsmm_smallk_forward(
     _build.check_tensors("hsmm_smallk_forward", log_obs.device, log_obs=log_obs,
                          log_a=log_a, log_pi=log_pi, log_dur=ld0)
     dev = log_obs.device
-    ln_ptr = None if lengths is None else lengths.data_ptr()
-    lib = _build.load("smallk_sum", _UNIT_SIGNATURES)
     alpha = torch.empty((B, T, K), dtype=torch.float32, device=dev)
     log_z = torch.empty((B,), dtype=torch.float32, device=dev)
-    rc = lib.hmm_forward_sum_f32(
-        log_obs.data_ptr(), log_a.data_ptr(), log_pi.data_ptr(), ld0.data_ptr(),
-        ln_ptr, alpha.data_ptr(), log_z.data_ptr(), B, T, K, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(rc, "hsmm_smallk_forward")
+    _UNIT_LIB.launch("hmm_forward_sum_f32", "hsmm_smallk_forward", log_obs, log_a, log_pi, ld0,
+                     lengths, alpha, log_z, B, T, K)
     hsmm_smallk_forward.launches += 1
     return alpha, log_z
 
@@ -464,16 +446,10 @@ def hsmm_smallk_backward(
     _build.check_tensors("hsmm_smallk_backward", log_obs.device, log_obs=log_obs,
                          log_a=log_a, log_dur=ld0)
     dev = log_obs.device
-    ln_ptr = None if lengths is None else lengths.data_ptr()
-    lib = _build.load("smallk_sum", _UNIT_SIGNATURES)
     beta_star = torch.empty((B, T, K), dtype=torch.float32, device=dev)
     beta_start = torch.empty((B, T, K), dtype=torch.float32, device=dev)
-    rc = lib.hmm_backward_sum_f32(
-        log_obs.data_ptr(), log_a.data_ptr(), ld0.data_ptr(), ln_ptr,
-        beta_star.data_ptr(), beta_start.data_ptr(), B, T, K, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(rc, "hsmm_smallk_backward")
+    _UNIT_LIB.launch("hmm_backward_sum_f32", "hsmm_smallk_backward", log_obs, log_a, ld0, lengths,
+                     beta_star, beta_start, B, T, K)
     hsmm_smallk_backward.launches += 1
     return beta_star, beta_start
 

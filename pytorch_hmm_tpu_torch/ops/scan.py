@@ -40,7 +40,7 @@ import torch
 
 from .. import core
 from . import _build
-from .smallk import MAX_SMALLK, check_problem
+from ._build import MAX_SMALLK, check_problem
 
 __all__ = [
     "MAX_K",
@@ -72,16 +72,16 @@ PROB_MAX_K = 128
 _FLOOR = 1e-37
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
+_LIB = _build.Library("scan_bigk", {
     "scan_bigk_forward_f32": [_P] * 5 + [_I] * 4 + [_P],
     "scan_bigk_backward_f32": [_P] * 4 + [_I] * 4 + [_P],
     "scan_bigk_viterbi_f32": [_P] * 7 + [_I] * 4 + [_P],
-}
-_PROB_SIGNATURES = {
+})
+_PROB_LIB = _build.Library("scan_prob", {
     "scan_prob_forward_f32": [_P] * 5 + [_I] * 5 + [_P],
     "scan_prob_backward_f32": [_P] * 4 + [_I] * 5 + [_P],
     "scan_prob_fb_f32": [_P] * 7 + [_I] * 5 + [_P],
-}
+})
 
 
 def scan_supported(num_states: int) -> bool:
@@ -95,15 +95,14 @@ def prob_supported(num_states: int) -> bool:
     return 1 <= num_states <= PROB_MAX_K
 
 
-def _launch_args(what, log_obs, log_a, log_pi, lengths, max_states=MAX_K):
+def _check(what, log_obs, log_a, log_pi, lengths, max_states=MAX_K):
+    """Validate a CUDA launch; returns ``(B, T, K, lengths)``."""
     B, T, K, lengths = check_problem(what, log_obs, log_a, log_pi, lengths, max_states=max_states)
     tensors = {"log_obs": log_obs, "log_a": log_a}
     if log_pi is not None:
         tensors["log_pi"] = log_pi
     _build.check_tensors(what, log_obs.device, **tensors)
-    dev = log_obs.device
-    ln_ptr = None if lengths is None else lengths.data_ptr()
-    return B, T, K, dev, ln_ptr, torch.cuda.current_stream(dev).cuda_stream
+    return B, T, K, lengths
 
 
 def pallas_forward_reference(
@@ -143,13 +142,11 @@ def pallas_forward(
     """
     if log_obs.device.type == "cpu":
         return pallas_forward_reference(log_obs, log_a, log_pi, lengths)
-    B, T, K, dev, ln_ptr, stream = _launch_args("pallas_forward", log_obs, log_a, log_pi, lengths)
-    lib = _build.load("scan_bigk", _SIGNATURES)
+    B, T, K, lengths = _check("pallas_forward", log_obs, log_a, log_pi, lengths)
     pa = torch.exp(log_a).contiguous()
-    alpha = torch.empty((B, T, K), dtype=torch.float32, device=dev)
-    rc = lib.scan_bigk_forward_f32(log_obs.data_ptr(), pa.data_ptr(), log_pi.data_ptr(), ln_ptr,
-                                   alpha.data_ptr(), B, T, K, dev.index, stream)
-    _build.check(rc, "pallas_forward")
+    alpha = torch.empty((B, T, K), dtype=torch.float32, device=log_obs.device)
+    _LIB.launch("scan_bigk_forward_f32", "pallas_forward", log_obs, pa, log_pi, lengths, alpha,
+                B, T, K)
     pallas_forward.launches += 1
     return alpha, torch.logsumexp(alpha[:, -1], dim=-1)
 
@@ -188,13 +185,10 @@ def pallas_backward(
     (counted in ``pallas_backward.launches``)."""
     if log_obs.device.type == "cpu":
         return pallas_backward_reference(log_obs, log_a, lengths)
-    B, T, K, dev, ln_ptr, stream = _launch_args("pallas_backward", log_obs, log_a, None, lengths)
-    lib = _build.load("scan_bigk", _SIGNATURES)
+    B, T, K, lengths = _check("pallas_backward", log_obs, log_a, None, lengths)
     pa_t = torch.exp(log_a).T.contiguous()
-    beta = torch.empty((B, T, K), dtype=torch.float32, device=dev)
-    rc = lib.scan_bigk_backward_f32(log_obs.data_ptr(), pa_t.data_ptr(), ln_ptr, beta.data_ptr(),
-                                    B, T, K, dev.index, stream)
-    _build.check(rc, "pallas_backward")
+    beta = torch.empty((B, T, K), dtype=torch.float32, device=log_obs.device)
+    _LIB.launch("scan_bigk_backward_f32", "pallas_backward", log_obs, pa_t, lengths, beta, B, T, K)
     pallas_backward.launches += 1
     return beta
 
@@ -224,15 +218,13 @@ def pallas_viterbi(
     ``pallas_viterbi.launches``)."""
     if log_obs.device.type == "cpu":
         return pallas_viterbi_reference(log_obs, log_a, log_pi, lengths)
-    B, T, K, dev, ln_ptr, stream = _launch_args("pallas_viterbi", log_obs, log_a, log_pi, lengths)
-    lib = _build.load("scan_bigk", _SIGNATURES)
+    B, T, K, lengths = _check("pallas_viterbi", log_obs, log_a, log_pi, lengths)
+    dev = log_obs.device
     psi = torch.empty((B, T, K), dtype=torch.int16, device=dev)
     states = torch.empty((B, T), dtype=torch.int32, device=dev)
     score = torch.empty((B,), dtype=torch.float32, device=dev)
-    rc = lib.scan_bigk_viterbi_f32(log_obs.data_ptr(), log_a.data_ptr(), log_pi.data_ptr(), ln_ptr,
-                                   psi.data_ptr(), states.data_ptr(), score.data_ptr(),
-                                   B, T, K, dev.index, stream)
-    _build.check(rc, "pallas_viterbi")
+    _LIB.launch("scan_bigk_viterbi_f32", "pallas_viterbi", log_obs, log_a, log_pi, lengths, psi,
+                states, score, B, T, K)
     pallas_viterbi.launches += 1
     return states, score
 
@@ -342,15 +334,13 @@ def _prob_launch(what, entry, log_obs, log_a, log_pi, rs, chains):
     """Launch ``what``'s kernel through the C function ``entry``:
     ``chains`` relative tables (B, T, K) and as many per-frame shifts (B,
     T) out, in the C function's order."""
-    B, T, K, dev, _, stream = _launch_args(what, log_obs, log_a, log_pi, None, PROB_MAX_K)
-    lib = _build.load("scan_prob", _PROB_SIGNATURES)
+    B, T, K, _ = _check(what, log_obs, log_a, log_pi, None, PROB_MAX_K)
+    dev = log_obs.device
     pa = torch.exp(log_a).contiguous()
     tables = [torch.empty((B, T, K), dtype=torch.float32, device=dev) for _ in range(chains)]
     shifts = [torch.empty((B, T), dtype=torch.float32, device=dev) for _ in range(chains)]
-    ins = [log_obs.data_ptr(), pa.data_ptr()] + ([] if log_pi is None else [log_pi.data_ptr()])
-    rc = getattr(lib, entry)(*ins, *(t.data_ptr() for t in tables),
-                             *(t.data_ptr() for t in shifts), B, T, K, rs, dev.index, stream)
-    _build.check(rc, what)
+    ins = (log_obs, pa) if log_pi is None else (log_obs, pa, log_pi)
+    _PROB_LIB.launch(entry, what, *ins, *tables, *shifts, B, T, K, rs)
     return tables, shifts
 
 

@@ -25,12 +25,10 @@ import torch
 from .. import core
 from ..trace import span
 from . import _build
+from ._build import MAX_SMALLK, check_problem
 
 __all__ = ["smallk_viterbi", "smallk_viterbi_reference", "smallk_supported",
            "check_problem", "MAX_SMALLK"]
-
-# One warp lane per state.
-MAX_SMALLK = 32
 
 _ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -38,7 +36,8 @@ _ARGS = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
-_SIGNATURES = {"smallk_viterbi_f32": _ARGS, "smallk_viterbi_tv_f32": _ARGS}
+_LIB = _build.Library("smallk_viterbi",
+                      {"smallk_viterbi_f32": _ARGS, "smallk_viterbi_tv_f32": _ARGS})
 
 
 def smallk_supported(num_states: int, batch: Optional[int] = None) -> bool:
@@ -47,40 +46,6 @@ def smallk_supported(num_states: int, batch: Optional[int] = None) -> bool:
     on lanes); the CUDA kernel runs a block per sequence at any batch, so
     it is accepted and unused."""
     return 1 <= num_states <= MAX_SMALLK
-
-
-def check_problem(what: str, log_obs, log_a, log_pi=None, lengths=None,
-                  time_varying: bool = False, max_states: int = MAX_SMALLK):
-    """Validate the shapes of an HMM problem for a CUDA kernel
-    (``log_pi`` may be omitted; ``log_a`` is ``(K, K)``, or ``(B, T, K,
-    K)`` where the kernel has a ``time_varying`` mode; ``1 <= K <=
-    max_states``); returns ``(B, T, K, lengths)`` with ``lengths`` None or
-    contiguous int32 ``(B,)`` on ``log_obs``'s device."""
-    if log_obs.ndim != 3:
-        raise ValueError(f"{what}: log_obs must be (B, T, K), got {tuple(log_obs.shape)}")
-    B, T, K = log_obs.shape
-    shapes = [(K, K)] + ([(B, T, K, K)] if time_varying else [])
-    if tuple(log_a.shape) not in shapes or (log_pi is not None and tuple(log_pi.shape) != (K,)):
-        raise ValueError(
-            f"{what}: log_obs {tuple(log_obs.shape)} needs log_a "
-            + " or ".join(str(s) for s in shapes) + f" and log_pi ({K},), got "
-            + str(tuple(log_a.shape))
-            + ("" if log_pi is None else f" and {tuple(log_pi.shape)}")
-        )
-    if not 1 <= K <= max_states:
-        raise ValueError(f"{what} takes 1 <= K <= {max_states}, got K={K}")
-    if B == 0 or T == 0:
-        raise ValueError(f"{what}: empty input {tuple(log_obs.shape)}")
-    dev = log_obs.device
-    if lengths is not None and (
-        lengths.device != dev or lengths.dtype != torch.int32
-        or tuple(lengths.shape) != (B,) or not lengths.is_contiguous()
-    ):
-        raise ValueError(
-            f"{what}: lengths must be contiguous int32 ({B},) on {dev}, got "
-            f"{lengths.dtype} {tuple(lengths.shape)} on {lengths.device}"
-        )
-    return B, T, K, lengths
 
 
 def smallk_viterbi_reference(
@@ -123,19 +88,12 @@ def smallk_viterbi(
         if lengths is None:
             lengths = torch.full((B,), T, dtype=torch.int32, device=dev)
 
-        lib = _build.load("smallk_viterbi", _SIGNATURES)
         tv = log_a.ndim == 4
         psi = torch.empty((B, T, K), dtype=torch.uint8, device=dev)
         states = torch.empty((B, T), dtype=torch.int32, device=dev)
         score = torch.empty((B,), dtype=torch.float32, device=dev)
-        launch = lib.smallk_viterbi_tv_f32 if tv else lib.smallk_viterbi_f32
-        rc = launch(
-            log_obs.data_ptr(), log_a.data_ptr(), log_pi.data_ptr(),
-            lengths.data_ptr(), psi.data_ptr(), states.data_ptr(),
-            score.data_ptr(), B, T, K, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-        _build.check(rc, "smallk_viterbi")
+        _LIB.launch("smallk_viterbi_tv_f32" if tv else "smallk_viterbi_f32", "smallk_viterbi",
+                    log_obs, log_a, log_pi, lengths, psi, states, score, B, T, K)
     smallk_viterbi.launches += 1
     smallk_viterbi.time_varying_launches += tv
     return states, score

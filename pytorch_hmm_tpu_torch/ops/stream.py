@@ -42,7 +42,7 @@ MAX_W = 8
 MAX_H = 1024
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"greedy_chunk_f32": [_P] * 9 + [_I, _I, _F, _I, _P]}
+_LIB = _build.Library("stream_greedy", {"greedy_chunk_f32": [_P] * 9 + [_I, _I, _F, _I, _P]})
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -163,18 +163,12 @@ def greedy_chunk(
     prev, has = _carry_tensors(carry, dev)
     nv = index_vector(n_valid, 1, dev)
 
-    lib = _build.load("stream_greedy", _SIGNATURES)
     states = torch.empty((T,), dtype=torch.int32, device=dev)
     scores = torch.empty((T,), dtype=torch.float32, device=dev)
     new_prev = torch.empty((), dtype=torch.int32, device=dev)
     new_has = torch.empty((), dtype=torch.bool, device=dev)
-    rc = lib.greedy_chunk_f32(
-        log_a.data_ptr(), log_obs.data_ptr(), nv.data_ptr(), prev.data_ptr(),
-        has.data_ptr(), states.data_ptr(), scores.data_ptr(), new_prev.data_ptr(),
-        new_has.data_ptr(), T, S, log_num_states(S), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(rc, "greedy_chunk")
+    _LIB.launch("greedy_chunk_f32", "greedy_chunk", log_a, log_obs, nv, prev, has, states, scores,
+                new_prev, new_has, T, S, log_num_states(S))
     greedy_chunk.launches += 1
     return (new_prev, new_has), states, scores
 

@@ -30,7 +30,7 @@ from .stream import check_index_tensor, index_vector, stream_chunk_supported
 __all__ = ["beam_chunk_multi", "beam_chunk_multi_reference", "multi_stream_supported"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"beam_chunk_f32": [_P] * 11 + [_I] * 6 + [_P]}
+_LIB = _build.Library("stream_beam", {"beam_chunk_f32": [_P] * 11 + [_I] * 6 + [_P]})
 
 
 def multi_stream_supported(
@@ -129,18 +129,12 @@ def beam_chunk_multi(
     check_index_tensor("beam_chunk_multi", "path_len", path_len, (N,), dev)
     nv = index_vector(n_valid, N, dev)
 
-    lib = _build.load("stream_beam", _SIGNATURES)
     new_scores = torch.empty((N, W), dtype=torch.float32, device=dev)
     new_states = torch.empty((N, W), dtype=torch.int32, device=dev)
     new_paths = torch.empty((N, W, H), dtype=torch.int32, device=dev)
     new_len = torch.empty((N,), dtype=torch.int32, device=dev)
-    rc = lib.beam_chunk_f32(
-        log_a.data_ptr(), log_obs.data_ptr(), nv.data_ptr(), scores.data_ptr(),
-        states.data_ptr(), paths.data_ptr(), path_len.data_ptr(), new_scores.data_ptr(),
-        new_states.data_ptr(), new_paths.data_ptr(), new_len.data_ptr(),
-        N, T, S, W, H, dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(rc, "beam_chunk_multi")
+    _LIB.launch("beam_chunk_f32", "beam_chunk_multi", log_a, log_obs, nv, scores, states, paths,
+                path_len, new_scores, new_states, new_paths, new_len, N, T, S, W, H)
     beam_chunk_multi.launches += 1
     return new_scores, new_states, new_paths, new_len
 

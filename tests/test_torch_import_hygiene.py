@@ -187,6 +187,26 @@ def test_port_never_names_jax_in_its_sources():
     assert {os.path.join("ops", w) for w in wrappers.values()} <= seen
 
 
+def test_only_the_build_seam_marshals_the_kernel_abi():
+    """Every kernel launch goes through ``ops/_build.py``: no other source
+    of the port takes a tensor's address or the current stream."""
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = os.path.join(repo_root, "pytorch_hmm_tpu_torch")
+    seam = os.path.join(pkg, "ops", "_build.py")
+    offenders, seen = [], 0
+    for dirpath, _dirs, files in os.walk(pkg):
+        for fn in files:
+            path = os.path.join(dirpath, fn)
+            if not fn.endswith(".py") or path == seam:
+                continue
+            seen += 1
+            with open(path) as f:
+                offenders += [f"{path}:{lineno}: {line.strip()}" for lineno, line in enumerate(f, 1)
+                              if ".data_ptr()" in line or "current_stream(" in line]
+    assert seen > 12
+    assert not offenders, "\n".join(offenders)
+
+
 @pytest.mark.parametrize("name", ["hsmm", "gmm_hmm", "tf32"])
 def test_benchmark_references_import_neither_jax_nor_either_package(name):
     """The benchmark's plain references (``bench_torch/reference/``) are

@@ -1,5 +1,5 @@
 """``diag_quadratic`` port: its plain version vs the JAX Pallas kernel,
-and the kernel loader's failure modes.
+the kernel loader's failure modes and the launch seam's marshalling.
 
 The JAX kernel runs in interpret mode at ``Precision.HIGHEST`` (true f32)
 on the CPU; torch runs with TF32 off. The CUDA kernel itself is checked
@@ -9,6 +9,7 @@ against the same plain version on the card by ``chip_smoke.py``.
 import ctypes
 import os
 import stat
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -105,6 +106,34 @@ def test_build_with_defines_is_its_own_library(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
     with pytest.raises(RuntimeError, match="-DSCAN_PROB_PROBE"):
         _build.build("scan_prob", ("SCAN_PROB_PROBE",))
+
+
+def test_library_launch_marshals_the_abi_and_raises_on_error(monkeypatch):
+    """A declared library loads at its first launch, once; each buffer
+    goes as its tensor's address or a null pointer, numbers as they are,
+    then the first buffer's device index (the current device where there
+    is none) and the current stream's handle; a nonzero return raises
+    with the code."""
+    calls, loads = [], []
+    rcs = iter([0, 0, 912])
+    record = lambda *args: calls.append(args) or next(rcs)  # noqa: E731
+    fake = SimpleNamespace(k_f32=record, probe=record)
+    monkeypatch.setattr(_build, "load", lambda *a: loads.append(a) or fake)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=77))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    _P, _I = ctypes.c_void_p, ctypes.c_int
+    sigs = {"k_f32": [_P] * 3 + [_I, ctypes.c_float, _I, _P], "probe": [_I] * 3 + [_P]}
+    lib = _build.Library("k", sigs, ("K_PROBE",))
+    assert loads == []
+    x, y = torch.zeros(3), torch.ones(2)
+    lib.launch("k_f32", "k", x, None, y, 5, 0.5)
+    lib.launch("probe", "probe", 4, 6)
+    assert calls == [(x.data_ptr(), None, y.data_ptr(), 5, 0.5, x.device.index, 77), (4, 6, 3, 77)]
+    with pytest.raises(_build.LaunchError, match="k kernel launch failed: CUDA error 912") as err:
+        lib.launch("k_f32", "k", x, None, y, 6, 1.5)
+    assert err.value.rc == 912 and isinstance(err.value, RuntimeError)
+    assert loads == [("k", sigs, ("K_PROBE",))]
 
 
 def _grad_problem(rng, B, T, D, N, dtype=np.float32):
