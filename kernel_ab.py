@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Rows 1, 15, 10, 12, 14, 7 and 2 of the PyTorch port against another
+"""Rows 1, 15, 10, 12, 14, 7, 2 and 6 of the PyTorch port against another
 checkout's kernels, on one CUDA GPU.
 
-    python3 kernel_ab.py --base DIR [--rows dq bigk prob fused hsmm smallk] [--probe]
+    python3 kernel_ab.py --base DIR [--rows dq bigk prob fused hsmm smallk vit] [--probe]
 
 Run from the root of a checkout. ``DIR`` is the root of another checkout
 (for example an earlier commit unpacked with ``git archive`` into a
@@ -43,7 +43,15 @@ on the same inputs, then timed in the order base, this, this, base:
   B=32 and B=4096 at T=1000, the decode cells' shapes, and B=8 at
   T=4096), the wrapper's call (CUDA events, median of 20); each side's
   scores against the plain trellis in float64 as a share of chip_smoke's
-  tolerance and its worst path gap in nats, this checkout's held to them.
+  tolerance and its worst path gap in nats, this checkout's held to them;
+* row 6 (``hsmm_smallk_viterbi``, ``--rows vit``) at the
+  ``hsmm.decode.b4096`` cell's shape (B=4096, T=1000, S=10, D=20, one row
+  of 1000 frames and the rest on an even grid over 250-1000, shuffled),
+  at B=32 unragged (the bench shape) and on that grid, and at S=32,
+  D=256; the wrapper's call (CUDA events, median of 10), each side's
+  paths and scores held bit for bit to the plain ``core.hsmm.hsmm_viterbi``,
+  µs a frame of the longest row, and this checkout's layout
+  (``viterbi_plan``, chains an SM holds, registers, spills).
 
 ``--rows`` picks which to run (all by default), ``--prob-shapes`` which
 shapes of rows 10 and 12. ``--probe`` also prints this checkout's phase
@@ -112,7 +120,14 @@ SMALLK_SHAPES = {"32x1000 K=12": (32, 1000, 12, "normal", False),
                  "8x4096 K=12 GMM scale": (8, 4096, 12, "gmm", False),
                  "4096x1000 K=12 GMM scale": (4096, 1000, 12, "gmm", False)}
 
-ROWS = ("dq", "bigk", "prob", "fused", "hsmm", "smallk")
+# Row 6: (B, T, S, D, lengths) with lengths "grid" (the decode cells'),
+# or None.
+VIT_SHAPES = {"4096x1000 S=10 D=20 cell": (4096, 1000, 10, 20, "grid"),
+              "32x1000 S=10 D=20": (32, 1000, 10, 20, None),
+              "32x1000 S=10 D=20 grid": (32, 1000, 10, 20, "grid"),
+              "512x1000 S=32 D=256": (512, 1000, 32, 256, None)}
+
+ROWS = ("dq", "bigk", "prob", "fused", "hsmm", "smallk", "vit")
 
 
 def load_base(root: Path):
@@ -366,6 +381,48 @@ def run_smallk(dev, base, out):
         del args, lo, la, best
 
 
+def _grid_lengths(dev, g, b, t):
+    """The decode cells' lengths at one batch of ``b`` rows: row 0 of
+    ``t`` frames, the rest an even grid over t/4..t, shuffled."""
+    from bench_torch.families import walks
+
+    traffic = {"pool": 1, "batch": b, "min_frames": t // 4, "max_frames": t}
+    return walks.lengths(traffic, g, dev)[0].contiguous()
+
+
+def run_vit(dev, base, out):
+    import torch
+    from pytorch_hmm_tpu_torch import core, ops
+    from pytorch_hmm_tpu_torch.ops import hsmm_smallk
+
+    for tag, (b, t, k, d, grid) in VIT_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(cs.SEED + b + k + d)
+        lo, la, lp, ld, _ = cs._hsmm_problem(dev, g, b, t, k, d)
+        ln = _grid_lengths(dev, g, b, t) if grid else None
+        args = (lo, la, lp, ld, ln)
+        want_states, want_score = core.hsmm.hsmm_viterbi(*args)
+        fns = {"base": lambda: base.ops.hsmm_smallk.hsmm_smallk_viterbi(*args),
+               "this": lambda: ops.hsmm_smallk_viterbi(*args)}
+        res = {}
+        for name, fn in fns.items():
+            states, score = fn()
+            same = torch.equal(states, want_states) and torch.equal(score, want_score)
+            cs.check(same, f"hsmm_smallk_viterbi {tag} {name}: paths or scores differ from the plain trellis")
+            res[name] = {"bit_equal": same, "ms": []}
+        for name in _ab_order(fns):
+            res[name]["ms"].append(cs.cuda_median_ms(fns[name], runs=10, warmup=2))
+        plan = hsmm_smallk.viterbi_plan(k, d)
+        chains, regs, spilled = hsmm_smallk.viterbi_occupancy(k, d, dev)
+        res["this"]["plan"] = {**plan._asdict(), "chains_per_sm": chains, "registers": regs,
+                               "spilled_bytes": spilled}
+        out["hsmm_smallk_viterbi"][tag] = res
+        for name, r in res.items():
+            print(f"hsmm_smallk_viterbi {tag} {name}: ms {r['ms']}, us a frame {min(r['ms']) * 1e3 / t:.4f}, "
+                  f"bit-equal to the plain trellis {r['bit_equal']}", flush=True)
+        print(f"hsmm_smallk_viterbi {tag} this: plan {res['this']['plan']}", flush=True)
+        del args, lo, want_states
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--base", type=Path, required=True, help="root of the checkout to compare with")
@@ -389,7 +446,7 @@ def main() -> int:
 
     sources = {"dq": ["diag_quadratic"], "bigk": ["bigk_scoring"], "prob": ["scan_prob"],
                "fused": ["fused_gmm", "diag_quadratic", "scan_bigk"], "hsmm": ["hsmm_smallk"],
-               "smallk": ["smallk_viterbi"]}
+               "smallk": ["smallk_viterbi"], "vit": ["hsmm_smallk"]}
     probes = {"fused": ("fused_gmm", fused.PROBE_DEFINES), "hsmm": ("hsmm_smallk", hsmm_smallk.PROBE_DEFINES)}
     jobs = {(build, src, ()) for row in args.rows for src in sources[row]
             for build in (_build.build, base.ops._build.build)}
@@ -399,10 +456,11 @@ def main() -> int:
         list(pool.map(lambda job: job[0](job[1], job[2]), jobs))
     card = cs.card_line()
     out = {"card": card, "diag_quadratic": {}, "bigk_log_likelihood": {}, "fused_gmm_viterbi": {},
-           "hsmm_smallk_fb": {}, "smallk_viterbi": {}, **{row: {} for row in PROB_CHAINS},
+           "hsmm_smallk_fb": {}, "smallk_viterbi": {}, "hsmm_smallk_viterbi": {},
+           **{row: {} for row in PROB_CHAINS},
            "probe": {}}
     runs = {"dq": run_dq, "bigk": run_bigk, "prob": lambda *a: run_prob(*a, args.prob_shapes),
-            "fused": run_fused, "hsmm": run_hsmm, "smallk": run_smallk}
+            "fused": run_fused, "hsmm": run_hsmm, "smallk": run_smallk, "vit": run_vit}
     probe_phases = {"fused": cs.phase_fused_probe, "hsmm": cs.phase_hsmm_probe}
     with torch.no_grad():
         for row in args.rows:

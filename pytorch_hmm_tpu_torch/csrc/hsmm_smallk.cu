@@ -38,23 +38,26 @@
 // memory, and the backtrace reads them back in the same launch.
 //
 // What bounds it on an H100: the serial chain of T frames per sequence.
-// Each frame is a D-step scan of the duration ring (a max pass and an
-// exp-sum pass, or one compare pass for Viterbi) and a KP-wide
-// predecessor reduction over shuffles (KP = S rounded up to 8, 16 or
-// 32), all dependent on the previous frame. At B = 32 a warp per chain
-// fills 32 of the 132 SMs, so the card is mostly idle: the time is chain
-// latency, about D + log2(KP) dependent steps a frame.
+// Each frame of the sum kernels is a D-step scan of the duration ring (a
+// max pass and an exp-sum pass) and a KP-wide predecessor reduction over
+// shuffles (KP = S rounded up to 8, 16 or 32), all dependent on the
+// previous frame. At B = 32 a warp per chain fills 32 of the 132 SMs, so
+// the card is mostly idle: the time is chain latency, about D + log2(KP)
+// dependent steps a frame. At B = 4096 the chains an SM holds at once and
+// the instructions of a frame set the time as well (hsmm_viterbi, below).
 //
-// Design: one warp per chain, lane s owns state s. The (D, S) rings
-// (mu and E, or running sums for Viterbi, and the backward's
-// beta* + E) live in shared memory, laid out [slot][lane] so the lanes'
-// accesses never share a bank, and are indexed by a circular head: a
-// frame writes one slot and reads D, and nothing is copied (the TPU
-// kernels shift the whole ring every frame, a VMEM idiom). log_dur is
-// staged once into shared memory, log_obs 64 frames at a time with
-// cp.async into a double buffer. Column s (forward, Viterbi) or row s
-// (backward) of log_a lives in registers. hsmm_fb has a design of its
-// own, which takes the window's older terms off the chain (below).
+// Design of the sum kernels: one warp per chain, lane s owns state s.
+// The (D, S) rings (mu and E, and the backward's beta* + E) live in
+// shared memory, laid out [slot][lane] so the lanes' accesses never
+// share a bank, and are indexed by a circular head: a frame writes one
+// slot and reads D, and nothing is copied (the TPU kernels shift the
+// whole ring every frame, a VMEM idiom). log_dur is staged once into
+// shared memory, log_obs 64 frames at a time with cp.async into a double
+// buffer. Column s (forward) or row s (backward) of log_a lives in
+// registers. hsmm_fb has a design of its own, which takes the window's
+// older terms off the chain, and so has hsmm_viterbi, which puts every
+// lane of its warp on the frame and sizes its shared memory to the
+// problem, so that an SM holds many chains at large B (both below).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -105,10 +108,10 @@ __device__ __forceinline__ float lse(const float (&v)[KP]) {
     return m + logf(w[0]);
 }
 
-// One level of the argmax tree: entry i absorbs entry i+S only when the
-// latter is strictly greater. Entry i always covers lower indices, so
-// the tree keeps the lowest-index argmax, as a k-ascending scan with a
-// strict '>' would.
+// One level of the argmax tree (KP a power of two, 2..32): entry i
+// absorbs entry i+S only when the latter is strictly greater. Entry i
+// always covers lower indices, so the tree keeps the lowest-index
+// argmax, as a k-ascending scan with a strict '>' would.
 template <int KP, int S>
 __device__ __forceinline__ void arg_level(float (&v)[KP], int (&idx)[KP]) {
 #pragma unroll
@@ -122,8 +125,8 @@ __device__ __forceinline__ void arg_level(float (&v)[KP], int (&idx)[KP]) {
 template <int KP>
 __device__ __forceinline__ void tree_argmax(float (&v)[KP], int (&idx)[KP]) {
     arg_level<KP, 1>(v, idx);
-    arg_level<KP, 2>(v, idx);
-    arg_level<KP, 4>(v, idx);
+    if constexpr (KP >= 4) arg_level<KP, 2>(v, idx);
+    if constexpr (KP >= 8) arg_level<KP, 4>(v, idx);
     if constexpr (KP >= 16) arg_level<KP, 8>(v, idx);
     if constexpr (KP >= 32) arg_level<KP, 16>(v, idx);
 }
@@ -747,132 +750,311 @@ hsmm_fb_kernel(const float* __restrict__ log_obs, const float* __restrict__ log_
                                 beta_star + row, beta_start + row, nullptr);
 }
 
-// Segment Viterbi of one sequence per block (one warp): the trellis
-// over frames t < len, writing the duration and predecessor argmax
-// tables, then the backtrace by lane 0 over tables staged back newest
-// first. mu_r and c_r are the (D, KMAX) rings of mu(u-1) and the
-// running sum C(u-1), slot u mod D for segment start u.
-template <int KP>
-__global__ void __launch_bounds__(KMAX)
+// ---- hsmm_viterbi: the segment Viterbi, every lane of the warp on the frame ----
+//
+// One chain a block of one warp, as the sum kernels; the block holds
+// little, so an SM holds many chains. At B = 4096 the card's time is
+// chains in flight times a chain's frame rate, not one chain's latency.
+//
+// Lanes: G = 32 / K lanes a state. Lane g * K + s works for state s on
+// the duration terms j = g + G i and on the predecessors k = g + G m;
+// lanes past G * K idle. A lane scans its terms in ascending order with a
+// strict '>', and the G partial (value, index) pairs combine over
+// shuffles by value, then by the lower index: the lowest duration index
+// wins ties, then the lowest predecessor, as in core.hsmm_viterbi. Lanes
+// 0..K-1 (g = 0) hold each state's result.
+//
+// The chain: of frame t's terms only j = 0 reads mu(t - 1); the lead lane
+// takes it from registers. The terms j >= 1 read mu and C of earlier
+// frames, so frame t + 1's are scanned while frame t's dependent step
+// (its j = 0, the lane combines and the predecessor max) waits on its
+// shuffles.
+//
+// Shared memory, sized to the problem (viterbi_plan):
+//   ring  (R, K) float2 (mu(u - 1), C(u - 1)) of segment start u, at rows
+//         q = (-u) mod D and q + D. Frame t's term j is row j + D - t mod
+//         D, so a frame's window is one run of rows, rising with j, and
+//         the warp's reads of a term are G * K consecutive float2. Rows
+//         of starts u < 0 hold mu = -inf, so the terms j > t never win;
+//         the plain version scores them NEG, and the lead lanes add that
+//         as one more term at index t + 1, which wins only above every
+//         real one.
+//   ld    (P, 32) floats, lane-major: lane (g, s)'s term i, log_dur[s, g +
+//         G i] clamped at NEG, or -inf past D (and at i = 0 of the lead
+//         lanes, whose j = 0 comes from registers).
+//   lo    a ring of 2 CHK frames of log-obs (K floats each), staged a
+//         chunk of CHK frames at a time with cp.async.
+// P is ceil(D / G) rounded up to VT, the terms a pass unrolls; R = max(2D,
+// D + G P) rows cover the passes' reads. After the trellis the backtrace
+// stages its tables in the same bytes.
+
+constexpr int VT = 8;   // window terms a lane takes in one unrolled pass
+
+// Lanes a state: as many as fit in the warp.
+__host__ __device__ constexpr int viterbi_lanes(int K) { return KMAX / K; }
+
+// Terms a lane holds, padded to whole passes.
+__host__ __device__ inline int viterbi_terms(int K, int D) {
+    const int G = viterbi_lanes(K);
+    return ((D + G - 1) / G + VT - 1) / VT * VT;
+}
+
+// Rows of the (mu, C) ring.
+__host__ __device__ inline int viterbi_rows(int K, int D) {
+    const int rows = D + viterbi_lanes(K) * viterbi_terms(K, D);
+    return rows > 2 * D ? rows : 2 * D;
+}
+
+// Bytes of dynamic shared memory at (K, D, CHK).
+__host__ __device__ inline size_t viterbi_bytes(int K, int D, int chk) {
+    return sizeof(float) * (2 * static_cast<size_t>(viterbi_rows(K, D)) * K +
+                            static_cast<size_t>(viterbi_terms(K, D)) * KMAX + 2 * chk * K);
+}
+
+// One term of a lane's window scan: (ld + (c - C)) + mu, as the plain
+// version groups it, taken when strictly greater.
+__device__ __forceinline__ void window_term(float2 r, float ld, float c, int i, float& best,
+                                            int& bi) {
+    const float v = (ld + (c - r.y)) + r.x;
+    const bool take = v > best;
+    best = take ? v : best;
+    bi = take ? i : bi;
+}
+
+// The lane's window terms at ring row rp (one row a step of G rows, GK
+// float2 apart) and duration terms ldp (KMAX floats apart), running sum c:
+// the best value and its term index i, the lowest on ties.
+__device__ __forceinline__ void window(const float2* rp, const float* ldp, int GK, int P, float c,
+                                       float& best, int& bi) {
+    best = -INFINITY;
+    bi = 0;
+#pragma unroll
+    for (int u = 0; u < VT; ++u) window_term(rp[u * GK], ldp[u * KMAX], c, u, best, bi);
+    for (int i0 = VT; i0 < P; i0 += VT) {
+#pragma unroll
+        for (int u = 0; u < VT; ++u)
+            window_term(rp[(i0 + u) * GK], ldp[(i0 + u) * KMAX], c, i0 + u, best, bi);
+    }
+}
+
+// (v, i) takes (vo, io) when it is lexicographically better: a greater
+// value, or the same value at a lower index.
+__device__ __forceinline__ void pick(float& v, int& i, float vo, int io) {
+    const bool take = (vo > v) | ((vo == v) & (io < i));
+    v = take ? vo : v;
+    i = take ? io : i;
+}
+
+// The lexicographic best of lane g's (v, i) and lanes g + 1 .. g + 2^LV -
+// 1's of its state (lane + o K): lane g = 0 ends with its state's best.
+// LV = 2 gathers the three in one round of shuffles; wider trees halve,
+// while o K < 32 (a shuffle takes its offset mod 32). Lanes past G hold a
+// value of -inf at an index above 0, and index 0 is always some lead
+// lane's own: they change no result.
+template <int LV>
+__device__ __forceinline__ void lane_best(float& v, int& i, int K) {
+    if constexpr (LV == 2) {
+        const float v1 = __shfl_down_sync(FULL, v, K), v2 = __shfl_down_sync(FULL, v, 2 * K),
+                    v3 = __shfl_down_sync(FULL, v, 3 * K);
+        const int i1 = __shfl_down_sync(FULL, i, K), i2 = __shfl_down_sync(FULL, i, 2 * K),
+                  i3 = __shfl_down_sync(FULL, i, 3 * K);
+        float w = v2;
+        int k = i2;
+        pick(v, i, v1, i1);
+        pick(w, k, v3, i3);
+        pick(v, i, w, k);
+    } else {
+#pragma unroll
+        for (int o = 1; o < (1 << LV); o <<= 1)
+            if (o * K < KMAX)
+                pick(v, i, __shfl_down_sync(FULL, v, o * K), __shfl_down_sync(FULL, i, o * K));
+    }
+}
+
+// The trellis over frames t < len writes the duration and predecessor
+// argmax tables to device memory; the backtrace (lane 0) reads them back
+// newest first. KQ: the predecessors a lane takes, ceil(K / G) rounded up
+// to a power of two; LV: lane_best's levels for G lanes a state. Up to K =
+// 16 (LV > 0) a thread keeps to 64 registers, so that 32 chains fit an
+// SM's registers.
+template <int KQ, int LV>
+__global__ void __launch_bounds__(KMAX, LV > 0 ? 32 : 1)
 hsmm_viterbi_kernel(const float* __restrict__ log_obs, const float* __restrict__ log_a,
                     const float* __restrict__ log_pi, const float* __restrict__ log_dur,
                     const int* __restrict__ lengths, uint8_t* __restrict__ dstar_g,
                     uint8_t* __restrict__ phi_g, int* __restrict__ states,
-                    float* __restrict__ score, int T, int K, int D) {
-    __shared__ Stage lo_s;
-    __shared__ uint8_t ds_s[CH * KMAX];
-    __shared__ uint8_t ph_s[CH * KMAX];
-    __shared__ int st_s[CH];
-    extern __shared__ float dyn[];
-    float* ld_s = dyn;
-    float* mu_r = ld_s + D * KMAX;
-    float* c_r = mu_r + D * KMAX;
+                    float* __restrict__ score, int T, int K, int D, int CHK, int bytes) {
+    const int G = viterbi_lanes(K);
+    const int GK = G * K;
+    const int P = viterbi_terms(K, D);
+    const int R = viterbi_rows(K, D);
+    extern __shared__ __align__(16) float dyn_vit[];
+    float2* ring = reinterpret_cast<float2*>(dyn_vit);   // (R, K)
+    float* ld_l = dyn_vit + 2 * R * K;                    // (P, 32)
+    float* lo_s = ld_l + P * KMAX;                        // (2 CHK, K)
 
     const int b = blockIdx.x;
     const int lane = threadIdx.x;
-    const bool live = lane < K;
+    const int g = lane / K, s = lane % K;    // g >= G: an idle lane
+    const bool lead = g == 0;                // holds state s's result
     const long long row = static_cast<long long>(b) * T * K;
     const float* lo = log_obs + row;
-    uint8_t* dstar = dstar_g + row;
-    uint8_t* phi = phi_g + row;
     int* st = states + static_cast<long long>(b) * T;
     const int len = row_length(lengths, b, T);
-    load_durations(ld_s, log_dur, K, D, lane, KMAX);
+
+    // The ring: mu = -inf (no segment starts before frame 0), but rows 0
+    // and D, start u = 0: mu(-1) = log_pi unclamped and C(-1) = 0, as
+    // core.hsmm_viterbi seeds its ring.
+    for (int i = lane; i < R * K; i += KMAX) {
+        const int q = i / K;
+        ring[i] = make_float2(q == 0 || q == D ? log_pi[i % K] : -INFINITY, 0.f);
+    }
+    for (int i = 0; i < P; ++i) {
+        const int j = g + G * i;
+        ld_l[i * KMAX + lane] = (g < G && j < D && !(lead && i == 0))
+                                    ? fmaxf(log_dur[s * D + j], NEG) : -INFINITY;
+    }
+    // a_q[m] = log_a[g + G m, s] clamped at NEG; predecessors past K get
+    // -inf, which never wins against a real state.
+    float a_q[KQ];
+#pragma unroll
+    for (int m = 0; m < KQ; ++m) {
+        const int k = g + G * m;
+        a_q[m] = (g < G && k < K) ? fmaxf(log_a[k * K + s], NEG) : -INFINITY;
+    }
+    const float ld0 = fmaxf(log_dur[s * D], NEG);
+    const float* ldp = ld_l + lane;
+    // Frame t's window starts at ring row D - t mod D; the lane's column.
+    const int col = g < G ? lane : s;
+    int rbase = D * K + col;
+
+    // Chunk c of the log-obs goes to ring frames (c mod 2) CHK on; frame
+    // t + 1's is read at frame t, so chunk c lands before frame c CHK - 1.
+    auto stage_chunk = [&](int c) {
+        if (c * CHK < len)
+            stage(lo_s + (c & 1) * CHK * K, lo + static_cast<long long>(c) * CHK * K,
+                  min(CHK, len - c * CHK) * K, lane);
+    };
+    stage_chunk(0);
+    wait_staged();
+    stage_chunk(1);
     __syncwarp();
 
-    // a_col[k] = log_a[k, lane] clamped at NEG; predecessors past K get
-    // -inf, which never wins a strict '>' against a real state.
-    float a_col[KP];
-#pragma unroll
-    for (int k = 0; k < KP; ++k)
-        a_col[k] = (live && k < K) ? fmaxf(log_a[k * K + lane], NEG) : -INFINITY;
+    // Frame f's older terms at ring row rb, running sum c: the lane's best
+    // (value, duration index); the lead lanes add the NEG of the durations
+    // j > f at index f + 1, which wins only above every real term.
+    auto older = [&](int f, int rb, float c, float& ob, int& oj) {
+        int bi;
+        window(ring + rb, ldp, GK, P, c, ob, bi);
+        oj = g + G * bi;
+        const bool neg = lead & (f < D - 1) & (NEG > ob);
+        ob = neg ? NEG : ob;
+        oj = neg ? f + 1 : oj;
+    };
 
-    // mu(-1) = log_pi unclamped, as core.hsmm_viterbi seeds its ring.
-    float mu_prev = live ? log_pi[lane] : NEG;
-    float c_run = 0.f;                 // C(t-1)
-    float dfin = NEG;
-    int dsfin = 0;
-    int head = 0;
-    int buf = 0;
-    stage(lo_s[0], lo, min(CH, len) * K, lane);
-    for (int t0 = 0; t0 < len; t0 += CH, buf ^= 1) {
-        const int n = min(CH, len - t0);
-        wait_staged();
-        if (t0 + CH < len)
-            stage(lo_s[buf ^ 1], lo + static_cast<long long>(t0 + CH) * K,
-                  min(CH, len - t0 - CH) * K, lane);
-        for (int tf = 0; tf < n; ++tf) {
-            const int t = t0 + tf;
-            const float o = live ? lo_s[buf][tf * K + lane] : 0.f;
-            const float c_t = c_run + o;
-            mu_r[head * KMAX + lane] = mu_prev;
-            c_r[head * KMAX + lane] = c_run;
-            // Durations j <= t in ascending order with a strict '>':
-            // the lowest index wins ties. Durations j > t score NEG in
-            // the plain version; the first of them can still win.
-            const int nj = min(D - 1, t);
-            float best = 0.f;
-            int bj = 0;
-            int slot = head;
-            for (int j = 0; j <= nj; ++j) {
-                const int at = slot * KMAX + lane;
-                const float s = (ld_s[j * KMAX + lane] + (c_t - c_r[at])) + mu_r[at];
-                if (j == 0 || s > best) {
-                    best = s;
-                    bj = j;
-                }
-                slot = slot == 0 ? D - 1 : slot - 1;
-            }
-            if (nj < D - 1 && NEG > best) {
-                best = NEG;
-                bj = nj + 1;
-            }
-            const float val = live ? best : -INFINITY;
-            float v[KP];
-            int idx[KP];
-#pragma unroll
-            for (int k = 0; k < KP; ++k) {
-                v[k] = __shfl_sync(FULL, val, k) + a_col[k];
-                idx[k] = k;
-            }
-            tree_argmax<KP>(v, idx);
-            mu_prev = v[0];
-            if (live) {
-                const long long at = static_cast<long long>(t) * K + lane;
-                dstar[at] = static_cast<uint8_t>(bj);
-                phi[at] = static_cast<uint8_t>(idx[0]);
-            }
-            if (t == len - 1) {
-                dfin = val;
-                dsfin = bj;
-            }
-            c_run = c_t;
-            head = head + 1 == D ? 0 : head + 1;
+    // Frame 0's window and running sum; mu(-1) and C(-1).
+    float mu_prev = log_pi[s];
+    float c_run = 0.f;
+    float c_t = lo_s[s];
+    float obest;
+    int oj;
+    older(0, rbase, c_t, obest, oj);
+    float pre0 = ld0 + (c_t - c_run);      // frame t's j = 0 term less mu(t - 1)
+    float val = NEG;                       // the frame's delta, at the lead lanes
+    int bj = 0;                            // its duration index
+    uint8_t* dsp = dstar_g + row + s;
+    uint8_t* php = phi_g + row + s;
+    const float* lop = lo_s + K + s;       // frame t + 1's log-obs
+    const float* lo_end = lo_s + 2 * CHK * K;
+    int next_chunk = CHK - 1;              // the frame before chunk 1's first
+    int h1 = D == 1 ? 0 : 1;               // (t + 1) mod D
+    for (int t = 0; t < len; ++t) {
+        if (t == next_chunk) {
+            // Frame t + 1 opens chunk c: it landed a chunk ago; chunk c +
+            // 1 takes the ring frames of chunk c - 1, read by now.
+            const int c = (t + 1) / CHK;
+            wait_staged();
+            stage_chunk(c + 1);
+            next_chunk += CHK;
         }
+        // Frame t's dependent step: j = 0 after mu(t - 1), the lane
+        // combine, the predecessor max.
+        const float v0 = pre0 + mu_prev;
+        const bool take0 = lead & (v0 >= obest);
+        float best = take0 ? v0 : obest;
+        bj = take0 ? 0 : oj;
+        lane_best<LV>(best, bj, K);
+        val = lead ? best : -INFINITY;
+        float v[KQ];
+        int idx[KQ];
+#pragma unroll
+        for (int m = 0; m < KQ; ++m) {
+            v[m] = __shfl_sync(FULL, val, g + G * m) + a_q[m];
+            idx[m] = m;
+        }
+        tree_argmax<KQ>(v, idx);
+        float mu = v[0];
+        int ph = g + G * idx[0];
+        lane_best<LV>(mu, ph, K);
+
+        // Frame t + 1's window, off the chain: its terms j >= 1 read
+        // starts up to t, in the ring since frame t - 1.
+        const float c_next = c_t + *lop;
+        rbase = (D - h1) * K + col;
+        older(t + 1, rbase, c_next, obest, oj);
+        const float pre_next = ld0 + (c_next - c_t);
+
+        if (lead) {
+            *dsp = static_cast<uint8_t>(bj);
+            *php = static_cast<uint8_t>(ph);
+            // Start t + 1 at rows q = (-(t + 1)) mod D and q + D: frame t +
+            // 1's j = 0 row and its twin.
+            ring[rbase - col + s] = make_float2(mu, c_t);
+            ring[rbase - col + s + (h1 == 0 ? -D * K : D * K)] = make_float2(mu, c_t);
+        }
+        dsp += K;
+        php += K;
+        lop = lop + K == lo_end + s ? lo_s + s : lop + K;
+        h1 = h1 + 1 == D ? 0 : h1 + 1;
+        mu_prev = mu;
+        c_run = c_t;
+        c_t = c_next;
+        pre0 = pre_next;
+        __syncwarp();
     }
     __syncthreads();   // the tables in device memory, for the backtrace
 
     // Score and the lowest-index argmax of the final frame's delta.
-    float best = __shfl_sync(FULL, dfin, 0);
-    int s = 0;
+    float best = __shfl_sync(FULL, val, 0);
+    int s_fin = 0;
     for (int k = 1; k < K; ++k) {
-        const float v = __shfl_sync(FULL, dfin, k);
+        const float v = __shfl_sync(FULL, val, k);
         if (v > best) {
             best = v;
-            s = k;
+            s_fin = k;
         }
     }
-    int left = __shfl_sync(FULL, dsfin, s) + 1;   // frames of the segment left
+    int left = __shfl_sync(FULL, bj, s_fin) + 1;   // frames of the segment left
+    int cur = s_fin;                                 // lane 0's walk
     if (lane == 0) score[b] = best;
 
-    // Backtrace, newest chunk first. Staged row tf of a chunk at t0
-    // holds frame t0 + tf - 1: the tables that frame t0 + tf reads.
-    const int last0 = ((T - 1) / CH) * CH;
-    for (int t0 = last0; t0 >= 0; t0 -= CH) {
-        const int n = min(CH, T - t0);
+    // Backtrace, newest chunk of BT frames first, in the trellis's bytes:
+    // the states (BT int) and both tables (BT x K bytes each). Staged row
+    // tf of a chunk at t0 holds frame t0 + tf - 1: the tables that frame
+    // t0 + tf reads.
+    const int BT = bytes / (4 + 2 * K);
+    int* st_s = reinterpret_cast<int*>(dyn_vit);
+    uint8_t* ds_s = reinterpret_cast<uint8_t*>(st_s + BT);
+    uint8_t* ph_s = ds_s + BT * K;
+    const uint8_t* dstar = dstar_g + row;
+    const uint8_t* phi = phi_g + row;
+    const int last0 = ((T - 1) / BT) * BT;
+    for (int t0 = last0; t0 >= 0; t0 -= BT) {
+        const int n = min(BT, T - t0);
         if (t0 < len) {
             const long long base = static_cast<long long>(t0 - 1) * K;
-            for (int i = (t0 == 0 ? K : 0) + lane; i < n * K; i += KMAX) {
+            const int m = min(n, len - t0) * K;   // the rows the walk reads
+            for (int i = (t0 == 0 ? K : 0) + lane; i < m; i += KMAX) {
                 ds_s[i] = dstar[base + i];
                 ph_s[i] = phi[base + i];
             }
@@ -881,11 +1063,11 @@ hsmm_viterbi_kernel(const float* __restrict__ log_obs, const float* __restrict__
         if (lane == 0) {
             for (int tf = n - 1; tf >= 0; --tf) {
                 const int t = t0 + tf;
-                st_s[tf] = s;
+                st_s[tf] = cur;
                 if (t >= len || t == 0) continue;   // padding repeats the final state
                 if (--left == 0) {
-                    s = ph_s[tf * K + s];
-                    left = ds_s[tf * K + s] + 1;
+                    cur = ph_s[tf * K + cur];
+                    left = ds_s[tf * K + cur] + 1;
                 }
             }
         }
@@ -1028,16 +1210,65 @@ extern "C" int hsmm_fb_probe_f32(const float* log_obs, const float* log_a, const
 }
 #endif
 
+using ViterbiKernel = void (*)(const float*, const float*, const float*, const float*,
+                               const int*, uint8_t*, uint8_t*, int*, float*, int, int, int, int,
+                               int);
+
+// The Viterbi kernel at K states: KQ = ceil(K / G) predecessors a lane,
+// rounded up to a power of two (32 from K = 17 on, 8 at K = 11..16, 4 at
+// K = 9, 10, 2 below), and LV for G lanes a state.
+static ViterbiKernel viterbi_kernel(int K) {
+    const int G = viterbi_lanes(K);
+    if (G == 1) return hsmm_viterbi_kernel<32, 0>;
+    if (G == 2) return hsmm_viterbi_kernel<8, 1>;
+    if (G == 3) return hsmm_viterbi_kernel<4, 2>;
+    return G == 4 ? hsmm_viterbi_kernel<2, 2> : hsmm_viterbi_kernel<2, 5>;
+}
+
+// viterbi_plan's layout, or cudaErrorInvalidValue: G lanes a state as
+// viterbi_lanes gives them, CHK of 16, 32 or 64 frames, and `bytes` that
+// hold viterbi_bytes within a block's shared memory.
+static cudaError_t check_viterbi_plan(int K, int D, int G, int chk, int bytes) {
+    if (K < 1 || K > KMAX || D < 1 || D > 256 || G != viterbi_lanes(K) ||
+        (chk != 16 && chk != 32 && chk != 64) ||
+        bytes < static_cast<long long>(viterbi_bytes(K, D, chk)) || bytes > 232448)
+        return cudaErrorInvalidValue;
+    return cudaSuccess;
+}
+
 // dstar, phi (B, T, K) uint8 scratch; states (B, T) int32 and score
-// (B,) float32 out.
+// (B,) float32 out; G lanes a state, CHK frames staged at a time and
+// `bytes` of shared memory, viterbi_plan's (any other is refused).
 extern "C" int hsmm_viterbi_f32(const float* log_obs, const float* log_a, const float* log_pi,
                                 const float* log_dur, const int* lengths, uint8_t* dstar,
-                                uint8_t* phi, int* states, float* score,
-                                int B, int T, int K, int D, int device, void* stream) {
+                                uint8_t* phi, int* states, float* score, int B, int T, int K,
+                                int D, int G, int chk, int bytes, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    LAUNCH_KP(hsmm_viterbi_kernel, 3, B, KMAX, st, log_obs, log_a, log_pi, log_dur, lengths,
-              dstar, phi, states, score, T, K, D);
+    if (B < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if ((err = check_viterbi_plan(K, D, G, chk, bytes)) != cudaSuccess) return static_cast<int>(err);
+    const ViterbiKernel kernel = viterbi_kernel(K);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<B, KMAX, bytes, static_cast<cudaStream_t>(stream)>>>(
+        log_obs, log_a, log_pi, log_dur, lengths, dstar, phi, states, score, T, K, D, chk, bytes);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The Viterbi kernel at viterbi_plan's layout: out[0] the chains an SM
+// holds at once, out[1] its registers a thread, out[2] the bytes a thread
+// it spills to local memory.
+extern "C" int hsmm_viterbi_occupancy(int K, int D, int G, int chk, int bytes, int device,
+                                      int* out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if ((err = check_viterbi_plan(K, D, G, chk, bytes)) != cudaSuccess) return static_cast<int>(err);
+    const ViterbiKernel kernel = viterbi_kernel(K);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaFuncAttributes attr;
+    if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess) return static_cast<int>(err);
+    out[1] = attr.numRegs;
+    out[2] = static_cast<int>(attr.localSizeBytes);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, KMAX, bytes));
 }

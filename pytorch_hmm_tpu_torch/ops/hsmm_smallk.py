@@ -53,11 +53,13 @@ __all__ = [
     "hsmm_smallk_viterbi_reference",
     "hsmm_table_grads",
     "table_grads_plan",
+    "viterbi_occupancy",
+    "viterbi_plan",
 ]
 
-# The duration rings, the duration table and the staging buffers of the
-# Viterbi kernel fill 116 KB of shared memory at D = 256, and its tables
-# hold a duration index in a byte.
+# The Viterbi kernel's tables hold a duration index in a byte; its ring,
+# duration terms and staging fill 176 KB of shared memory at S = 32, D =
+# 256 (viterbi_plan).
 MAX_DURATION = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -69,7 +71,8 @@ _LIB = _build.Library("hsmm_smallk", {
     "hsmm_forward_f32": [_P] * 7 + [_I] * 5 + [_P],
     "hsmm_backward_f32": [_P] * 6 + [_I] * 5 + [_P],
     "hsmm_fb_f32": [_P] * 9 + [_I] * 7 + [_P],
-    "hsmm_viterbi_f32": [_P] * 9 + [_I] * 5 + [_P],
+    "hsmm_viterbi_f32": [_P] * 9 + [_I] * 8 + [_P],
+    "hsmm_viterbi_occupancy": [_I] * 6 + [_P],
 })
 # The phase probe of hsmm_fb: a separate build of csrc/hsmm_smallk.cu,
 # never on an entry point's path (chip_smoke.py and kernel_ab.py read it).
@@ -110,6 +113,71 @@ def fb_plan(num_states: int, max_duration: int) -> FbPlan:
     stride = -(-max_duration // 32) * 32 + g % 32
     smem = 4 * (2 * num_states * stride + 2 * _CH * num_states + 6 * _KMAX)
     return FbPlan(g, terms, threads, stride, smem)
+
+
+# An H100 SM: its shared memory and the bytes it reserves a block there;
+# a block's shared memory, and the threads and blocks the SM holds at once.
+_SM_SHARED, _BLOCK_RESERVE = 233472, 1024
+_SM_SMEM, _SM_THREADS, _SM_BLOCKS = 232448, 2048, 32
+# Frames of log-obs the Viterbi kernel may stage at a time, and the window
+# terms a lane takes in one unrolled pass.
+_VIT_CHUNKS, _VIT_PASS = (64, 32, 16), 8
+
+
+class ViterbiPlan(NamedTuple):
+    """How ``hsmm_smallk_viterbi`` lays a chain out on its block of one
+    warp: ``lanes`` (G) lanes a state, lane g·S + s taking state s's
+    duration terms j = g + G·i, ``terms`` of them (padded to whole passes
+    of 8), and its predecessors k = g + G·m; ``threads`` a block;
+    ``stride`` floats a row of the (mu, C) ring (S float pairs: a frame's
+    reads of a term by the G·S lanes are consecutive pairs); ``chunk``
+    frames of log-obs staged at a time; ``smem`` bytes of shared memory."""
+
+    lanes: int
+    terms: int
+    threads: int
+    stride: int
+    chunk: int
+    smem: int
+
+
+def _vit_smem(num_states: int, max_duration: int, lanes: int, terms: int, chunk: int) -> int:
+    """The (R, S) ring of float pairs, R = max(2D, D + G·P) rows; the (P,
+    32) lane-major duration terms; two chunks of log-obs."""
+    rows = max(2 * max_duration, max_duration + lanes * terms)
+    return 4 * (2 * rows * num_states + 32 * terms + 2 * chunk * num_states)
+
+
+def _vit_chains(smem: int) -> int:
+    """Blocks of ``smem`` shared bytes an SM holds, by shared memory."""
+    return min(_SM_BLOCKS, _SM_SHARED // (smem + _BLOCK_RESERVE))
+
+
+def viterbi_plan(num_states: int, max_duration: int) -> ViterbiPlan:
+    """The layout of ``hsmm_smallk_viterbi`` at (S, D): as many lanes a
+    state as fit in the warp (G = 32 // S), ceil(D / G) window terms a
+    lane in passes of 8, and the longest staging chunk of 64, 32 or 16
+    frames at which an SM holds as many chains as at 16;
+    ``csrc/hsmm_smallk.cu`` (``check_viterbi_plan``) refuses any other
+    lanes, chunk, or shared bytes short of the layout's."""
+    S, D = num_states, max_duration
+    g = 32 // S
+    terms = -(-(-(-D // g)) // _VIT_PASS) * _VIT_PASS   # ceil(ceil(D / G) / 8) * 8
+    fewest = _vit_chains(_vit_smem(S, D, g, terms, _VIT_CHUNKS[-1]))
+    chunk = next(c for c in _VIT_CHUNKS if _vit_chains(_vit_smem(S, D, g, terms, c)) >= fewest)
+    return ViterbiPlan(g, terms, 32, 2 * S, chunk, _vit_smem(S, D, g, terms, chunk))
+
+
+def viterbi_occupancy(num_states: int, max_duration: int, device: torch.device) -> Tuple[int, int, int]:
+    """``(chains an SM holds, registers a thread, bytes a thread spilled)``
+    of the Viterbi kernel at :func:`viterbi_plan`'s layout on ``device``
+    (builds the kernel)."""
+    plan = viterbi_plan(num_states, max_duration)
+    out = (ctypes.c_int * 3)()
+    _build.check(_LIB.fn("hsmm_viterbi_occupancy")(num_states, max_duration, plan.lanes, plan.chunk,
+                                                   plan.smem, device.index or 0, out),
+                 "hsmm_smallk_viterbi occupancy")
+    return out[0], out[1], out[2]
 
 
 def hsmm_smallk_supported(num_states: int, max_duration: int, batch: int) -> bool:
@@ -289,8 +357,11 @@ def hsmm_smallk_viterbi(
     score (B,))``, trellis and backtrace in one launch. Paths and scores
     are identical to ``core.hsmm.hsmm_viterbi``: ties go to the lowest
     duration, then the lowest predecessor, and padded frames repeat each
-    row's final state. CUDA tensors run the kernel (counted in
-    ``hsmm_smallk_viterbi.launches``), CPU tensors the plain version.
+    row's final state. CUDA tensors run the kernel at
+    :func:`viterbi_plan`'s layout (counted in
+    ``hsmm_smallk_viterbi.launches``; those whose plan splits a state over
+    several lanes, S ≤ 16, also in ``.split_launches``), CPU tensors the
+    plain version.
     """
     if log_obs.device.type == "cpu":
         return hsmm_smallk_viterbi_reference(log_obs, log_a, log_pi, log_dur, lengths)
@@ -302,19 +373,19 @@ def hsmm_smallk_viterbi(
         phi = torch.empty((B, T, K), dtype=torch.uint8, device=dev)
         states = torch.empty((B, T), dtype=torch.int32, device=dev)
         score = torch.empty((B,), dtype=torch.float32, device=dev)
+        plan = viterbi_plan(K, D)
         _LIB.launch("hsmm_viterbi_f32", what, log_obs, log_a, log_pi, log_dur, lengths,
-                    dstar, phi, states, score, B, T, K, D)
+                    dstar, phi, states, score, B, T, K, D, plan.lanes, plan.chunk, plan.smem)
     hsmm_smallk_viterbi.launches += 1
+    hsmm_smallk_viterbi.split_launches += plan.lanes > 1
     return states, score
 
 
 # -- the likelihood's cotangents: csrc/hsmm_grads.cu -------------------------------
 
 _GRADS_LIB = _build.Library("hsmm_grads", {"hsmm_table_grads_f32": [_P] * 16 + [_I] * 8 + [_P]})
-# Frames a tile of hsmm_table_grads; a block's shared memory and threads
-# the card holds at once on one SM.
+# Frames a tile of hsmm_table_grads.
 GRADS_TILE = 64
-_SM_SMEM, _SM_THREADS, _SM_BLOCKS = 232448, 2048, 32
 
 
 class GradsPlan(NamedTuple):
@@ -460,4 +531,5 @@ hsmm_smallk_forward_general.launches = 0
 hsmm_smallk_backward_general.launches = 0
 hsmm_smallk_fb.launches = 0
 hsmm_smallk_viterbi.launches = 0
+hsmm_smallk_viterbi.split_launches = 0
 hsmm_table_grads.launches = 0

@@ -349,6 +349,81 @@ def test_fb_plan_values(S, D, lanes, terms, threads):
     assert (plan.lanes, plan.terms, plan.threads) == (lanes, terms, threads)
 
 
+# -- hsmm_smallk_viterbi's layout ------------------------------------------------
+
+
+@pytest.mark.parametrize("S", [1, 3, 8, 9, 10, 16, 17, 31, 32])
+def test_viterbi_plan_puts_every_lane_it_can_on_a_state(S):
+    """G = 32 // S lanes a state, the most the warp holds; each lane's
+    window terms in passes of 8 cover D; one warp a block; every D fits a
+    block's shared memory; the staging chunk is the longest that keeps as
+    many chains on an SM as the shortest."""
+    from pytorch_hmm_tpu_torch.ops import hsmm_smallk
+
+    for D in range(1, hsmm_smallk.MAX_DURATION + 1):
+        plan = hsmm_smallk.viterbi_plan(S, D)
+        g = plan.lanes
+        assert g * S <= 32 < (g + 1) * S
+        assert plan.terms % 8 == 0 and g * plan.terms >= D > g * (plan.terms - 8)
+        assert plan.threads == 32 and plan.stride == 2 * S
+        rows = max(2 * D, D + g * plan.terms)
+        assert plan.smem == 4 * (2 * rows * S + 32 * plan.terms + 2 * plan.chunk * S) <= 232448
+        chains = {c: hsmm_smallk._vit_chains(hsmm_smallk._vit_smem(S, D, g, plan.terms, c))
+                  for c in (16, 32, 64)}
+        assert chains[plan.chunk] == chains[16] >= 1
+        assert all(chains[c] < chains[16] for c in (16, 32, 64) if c > plan.chunk)
+
+
+@pytest.mark.parametrize("S,D,lanes,terms,chunk,smem", [
+    (10, 20, 3, 8, 16, 5824),      # the bench's HSMMLayer: 32 chains an SM
+    (32, 256, 1, 256, 64, 180224),  # the widest
+    (16, 20, 2, 16, 16, 10752),
+    (17, 33, 1, 40, 16, 17224),
+    (1, 1, 32, 8, 64, 3592),
+])
+def test_viterbi_plan_values(S, D, lanes, terms, chunk, smem):
+    from pytorch_hmm_tpu_torch.ops import hsmm_smallk
+
+    plan = hsmm_smallk.viterbi_plan(S, D)
+    assert (plan.lanes, plan.terms, plan.chunk, plan.smem) == (lanes, terms, chunk, smem)
+
+
+def test_viterbi_plan_holds_a_wave_of_bench_chains():
+    """At S=10, D=20 a chain takes under 7.5 KB, so the shared memory of an
+    SM holds 32 chains (the most an SM runs): 4,224 on 132 SMs, B=4096 in
+    one wave."""
+    from pytorch_hmm_tpu_torch.ops import hsmm_smallk
+
+    plan = hsmm_smallk.viterbi_plan(10, 20)
+    assert plan.smem <= 7.5 * 1024
+    assert hsmm_smallk._vit_chains(plan.smem) == 32
+    assert hsmm_smallk.viterbi_plan(32, 256).smem <= 227 * 1024
+
+
+def test_viterbi_plan_mirrors_the_entry_point():
+    """The pass width and the staging chunks the entry point accepts
+    (``check_viterbi_plan`` in ``csrc/hsmm_smallk.cu``) are the plan's."""
+    import re
+
+    from pytorch_hmm_tpu_torch.ops import _build, hsmm_smallk
+
+    src = (_build.CSRC_DIR / "hsmm_smallk.cu").read_text()
+    assert int(re.search(r"constexpr int VT = (\d+);", src).group(1)) == hsmm_smallk._VIT_PASS
+    check = src[src.index("static cudaError_t check_viterbi_plan"):]
+    check = check[:check.index("\n}\n")]
+    assert sorted(int(c) for c in re.findall(r"chk != (\d+)", check)) == sorted(hsmm_smallk._VIT_CHUNKS)
+    assert "G != viterbi_lanes(K)" in check and "viterbi_bytes(K, D, chk)" in check
+    assert re.search(r"viterbi_lanes\(int K\) \{ return KMAX / K; \}", src)
+
+
+def test_viterbi_counters_stay_on_cpu():
+    lo, la, lp, ld = (torch.from_numpy(x) for x in _segment_problem(3, 20, 10, 20, seed=3))
+    before = (hsmm_smallk_viterbi.launches, hsmm_smallk_viterbi.split_launches)
+    states, score = hsmm_smallk_viterbi(lo, la, lp, ld, torch.tensor([20, 1, 9], dtype=torch.int32))
+    assert states.shape == (3, 20) and score.shape == (3,)
+    assert (hsmm_smallk_viterbi.launches, hsmm_smallk_viterbi.split_launches) == before
+
+
 def test_fb_probe_build_is_its_own_library():
     from pytorch_hmm_tpu_torch.ops import _build, hsmm_smallk
 
