@@ -42,6 +42,7 @@ from ..ops.emit_mlp import (
     gaussian_head,
     gaussian_tables,
 )
+from ..trace import span
 
 __all__ = [
     "NeuralTransitionModel",
@@ -479,11 +480,13 @@ class NeuralHMM(nn.Module):
         """Static ``(S, S)`` or time-varying ``(B, T, S, S)`` log
         transitions in the ``core`` convention (entry ``[:, t]`` governs
         the step into frame ``t``)."""
-        if self.transition_model is not None and context is not None:
-            log_a = torch.log_softmax(self.transition_model.transition_logits(context), dim=-1)
-            # The matrix computed at frame t-1 governs the step t-1 -> t.
-            return torch.cat([log_a[:, :1], log_a[:, :-1]], dim=1)
-        return torch.log_softmax(self.transition_matrix, dim=-1)
+        with span("models.neural.transitions"):
+            if self.transition_model is not None and context is not None:
+                log_a = torch.log_softmax(self.transition_model.transition_logits(context),
+                                          dim=-1)
+                # The matrix computed at frame t-1 governs the step t-1 -> t.
+                return torch.cat([log_a[:, :1], log_a[:, :-1]], dim=1)
+            return torch.log_softmax(self.transition_matrix, dim=-1)
 
     def _log_pi(self) -> torch.Tensor:
         return torch.log_softmax(self.initial_logits, dim=-1)
@@ -491,36 +494,54 @@ class NeuralHMM(nn.Module):
     def _dp_args(self, observations, context, mesh):
         if mesh is not None:
             raise NotImplementedError(_MESH_TODO)
-        return (self.observation_model.log_probs(observations), self._log_transitions(context),
-                self._log_pi())
+        with span("models.neural.emissions"):
+            log_obs = self.observation_model.log_probs(observations)
+        return log_obs, self._log_transitions(context), self._log_pi()
 
     # -- inference ------------------------------------------------------------
+    # ``lengths (B,)`` (int, valid frames a row) cuts each row's padding
+    # out: padding frames are neither scored nor counted, and what a row
+    # gives does not depend on them. The networks still run over all T
+    # frames (they are dense), and the matrix at a row's last valid frame
+    # governs no step.
     @torch.no_grad()
     def forward(self, observations: torch.Tensor, context: Optional[torch.Tensor] = None,
-                mesh=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                mesh=None, lengths: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Forward-backward: ``(posteriors, forward, backward)`` in
         probability space. No gradient: train through
-        :meth:`compute_loss`."""
-        log_gamma, log_alpha, log_beta, _ = auto_forward_backward(
-            *self._dp_args(observations, context, mesh))
-        return torch.exp(log_gamma), torch.exp(log_alpha), torch.exp(log_beta)
+        :meth:`compute_loss`. With ``lengths``, a row's frames past its end
+        hold no posterior of their own (``core`` repeats the last valid
+        frame's; the card's kernel leaves them unspecified)."""
+        with span("models.neural.posteriors"):
+            log_gamma, log_alpha, log_beta, _ = auto_forward_backward(
+                *self._dp_args(observations, context, mesh), lengths)
+            return torch.exp(log_gamma), torch.exp(log_alpha), torch.exp(log_beta)
 
     @torch.no_grad()
     def viterbi_decode(self, observations: torch.Tensor, context: Optional[torch.Tensor] = None,
-                       mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                       mesh=None, lengths: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Best path ``(B, T)`` int32 and its score ``(B,)`` under the
-        static or time-varying transitions."""
-        return auto_viterbi(*self._dp_args(observations, context, mesh))
+        static or time-varying transitions, over each row's ``lengths``
+        frames when given."""
+        with span("models.neural.decode"):
+            return auto_viterbi(*self._dp_args(observations, context, mesh), lengths)
 
     def compute_likelihood(self, observations: torch.Tensor,
-                           context: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
+                           context: Optional[torch.Tensor] = None, mesh=None,
+                           lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Sequence log-likelihood ``(B,)``, differentiable, in log space
-        end to end."""
-        return auto_log_likelihood(*self._dp_args(observations, context, mesh))
+        end to end, over each row's ``lengths`` frames when given."""
+        with span("models.neural.log_likelihood"):
+            return auto_log_likelihood(*self._dp_args(observations, context, mesh), lengths)
 
     def compute_loss(self, observations: torch.Tensor, context: Optional[torch.Tensor] = None,
-                     mesh=None) -> torch.Tensor:
-        return -torch.mean(self.compute_likelihood(observations, context, mesh))
+                     mesh=None, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``-mean(log Z)`` over the rows (each row's ``lengths`` frames
+        when given)."""
+        with span("models.neural.loss"):
+            return -torch.mean(self.compute_likelihood(observations, context, mesh, lengths))
 
 
 class ContextualNeuralHMM(NeuralHMM):
@@ -555,9 +576,12 @@ class ContextualNeuralHMM(NeuralHMM):
                        prosody_features: torch.Tensor) -> torch.Tensor:
         """``(B, T)`` phonemes and ``(B, T, P)`` prosody → ``(B, T, C)``
         context."""
-        return torch.cat([self.phoneme_embedding(phoneme_sequence),
-                          self.prosody_encoder(prosody_features)], dim=-1)
+        with span("models.neural.context"):
+            return torch.cat([self.phoneme_embedding(phoneme_sequence),
+                              self.prosody_encoder(prosody_features)], dim=-1)
 
     def forward_with_context(self, observations: torch.Tensor, phoneme_sequence: torch.Tensor,
-                             prosody_features: torch.Tensor):
-        return self(observations, self.encode_context(phoneme_sequence, prosody_features))
+                             prosody_features: torch.Tensor,
+                             lengths: Optional[torch.Tensor] = None):
+        return self(observations, self.encode_context(phoneme_sequence, prosody_features),
+                    lengths=lengths)

@@ -415,34 +415,35 @@ class _FBLogLikelihood(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        lo_hat, log_a, lengths, alpha_hat, lz_hat, *beta = ctx.saved_tensors
-        beta_hat = beta[0] if beta else pallas_backward(lo_hat, log_a, lengths)
-        T = lo_hat.shape[1]
-        tv = log_a.ndim == 4
-        log_gamma = _frame_posteriors(alpha_hat, beta_hat)
-        gamma = torch.exp(log_gamma)
-        if lengths is not None:
-            gamma = torch.where(_valid_frames(lengths, T)[..., None], gamma, 0.0)
-        d_log_obs = g[:, None, None] * gamma
-        d_log_pi = torch.sum(g[:, None] * torch.exp(log_gamma[:, 0]), dim=0)
-        if not ctx.small:
-            d_log_a = core.fb.xi_sum(alpha_hat, beta_hat, lo_hat, log_a, weights=g,
-                                     lengths=lengths)
+        with span("ops.fb_log_likelihood.backward"):
+            lo_hat, log_a, lengths, alpha_hat, lz_hat, *beta = ctx.saved_tensors
+            beta_hat = beta[0] if beta else pallas_backward(lo_hat, log_a, lengths)
+            T = lo_hat.shape[1]
+            tv = log_a.ndim == 4
+            log_gamma = _frame_posteriors(alpha_hat, beta_hat)
+            gamma = torch.exp(log_gamma)
+            if lengths is not None:
+                gamma = torch.where(_valid_frames(lengths, T)[..., None], gamma, 0.0)
+            d_log_obs = g[:, None, None] * gamma
+            d_log_pi = torch.sum(g[:, None] * torch.exp(log_gamma[:, 0]), dim=0)
+            if not ctx.small:
+                d_log_a = core.fb.xi_sum(alpha_hat, beta_hat, lo_hat, log_a, weights=g,
+                                         lengths=lengths)
+                return d_log_obs, d_log_a, d_log_pi, None, None
+            lxi = (
+                alpha_hat[:, :-1, :, None]
+                + (log_a[:, 1:] if tv else log_a)
+                + (lo_hat + beta_hat)[:, 1:, None, :]
+                - lz_hat[:, None, None, None]
+            )
+            xi = torch.exp(lxi)
+            if lengths is not None:
+                xi = torch.where(_valid_frames(lengths, T, 1)[..., None, None], xi, 0.0)
+            if tv:
+                d_log_a = torch.cat([torch.zeros_like(xi[:, :1]), g[:, None, None, None] * xi], 1)
+            else:
+                d_log_a = torch.sum(g[:, None, None] * torch.sum(xi, dim=1), dim=0)
             return d_log_obs, d_log_a, d_log_pi, None, None
-        lxi = (
-            alpha_hat[:, :-1, :, None]
-            + (log_a[:, 1:] if tv else log_a)
-            + (lo_hat + beta_hat)[:, 1:, None, :]
-            - lz_hat[:, None, None, None]
-        )
-        xi = torch.exp(lxi)
-        if lengths is not None:
-            xi = torch.where(_valid_frames(lengths, T, 1)[..., None, None], xi, 0.0)
-        if tv:
-            d_log_a = torch.cat([torch.zeros_like(xi[:, :1]), g[:, None, None, None] * xi], 1)
-        else:
-            d_log_a = torch.sum(g[:, None, None] * torch.sum(xi, dim=1), dim=0)
-        return d_log_obs, d_log_a, d_log_pi, None, None
 
 
 def pallas_log_likelihood(log_obs, log_a, log_pi):

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import core
+from ..trace import span
 from . import _build
 from ._build import MAX_SMALLK, check_problem
 
@@ -70,20 +71,21 @@ def fbsum_smallk(
     """
     if log_obs.device.type == "cpu":
         return fbsum_smallk_reference(log_obs, log_a, log_pi, lengths)
-    B, T, K, lengths = check_problem("fbsum_smallk", log_obs, log_a, log_pi, lengths,
-                                     time_varying=True)
-    _build.check_tensors("fbsum_smallk", log_obs.device, log_obs=log_obs,
-                         log_a=log_a, log_pi=log_pi)
-    dev = log_obs.device
-    tv = log_a.ndim == 4
-    alpha = torch.empty((B, T, K), dtype=torch.float32, device=dev)
-    beta = torch.empty((B, T, K), dtype=torch.float32, device=dev)
-    log_z = torch.empty((B,), dtype=torch.float32, device=dev)
-    _LIB.launch("fbsum_smallk_tv_f32" if tv else "fbsum_smallk_f32", "fbsum_smallk",
-                log_obs, log_a, log_pi, lengths, alpha, beta, log_z, B, T, K)
-    fbsum_smallk.launches += 1
-    fbsum_smallk.time_varying_launches += tv
-    return alpha, beta, log_z
+    with span("kernels.fbsum_smallk"):
+        B, T, K, lengths = check_problem("fbsum_smallk", log_obs, log_a, log_pi, lengths,
+                                         time_varying=True)
+        _build.check_tensors("fbsum_smallk", log_obs.device, log_obs=log_obs,
+                             log_a=log_a, log_pi=log_pi)
+        dev = log_obs.device
+        tv = log_a.ndim == 4
+        alpha = torch.empty((B, T, K), dtype=torch.float32, device=dev)
+        beta = torch.empty((B, T, K), dtype=torch.float32, device=dev)
+        log_z = torch.empty((B,), dtype=torch.float32, device=dev)
+        _LIB.launch("fbsum_smallk_tv_f32" if tv else "fbsum_smallk_f32", "fbsum_smallk",
+                    log_obs, log_a, log_pi, lengths, alpha, beta, log_z, B, T, K)
+        fbsum_smallk.launches += 1
+        fbsum_smallk.time_varying_launches += tv
+        return alpha, beta, log_z
 
 
 fbsum_smallk.launches = 0

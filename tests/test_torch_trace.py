@@ -174,6 +174,92 @@ def test_smallk_kernel_span_opens_in_the_cuda_branch_only_under_a_profiler(monke
     assert entered == (["kernels.smallk_viterbi"] if profiled else [])
 
 
+# A contextual neural HMM on the CPU: its loss step (the likelihood's
+# backward span and the kernel's open on the card only), decode and
+# posteriors.
+NEURAL_LOSS = {"models.neural.context", "models.neural.loss", "models.neural.log_likelihood",
+               "models.neural.emissions", "models.neural.transitions"}
+NEURAL_PARENT = {"models.neural.loss": "test.step", "models.neural.log_likelihood":
+                 "models.neural.loss", "models.neural.decode": "test.decode",
+                 "models.neural.posteriors": "test.posteriors", "models.neural.context": None}
+
+
+def _neural(device, B=3, T=30):
+    from pytorch_hmm_tpu_torch import ContextualNeuralHMM
+
+    gen = torch.Generator().manual_seed(9)
+    hmm = ContextualNeuralHMM(4, 6, 10, linguistic_context_dim=5, prosody_dim=3, hidden_dim=8,
+                              dropout=0.0, device=device,
+                              generator=torch.Generator().manual_seed(3))
+    obs = torch.randn((B, T, 6), generator=gen).to(device)
+    ph = torch.randint(0, 10, (B, T), generator=gen).to(device)
+    pros = torch.randn((B, T, 3), generator=gen).to(device)
+    lengths = torch.tensor([T] + [T - 11 * (b + 1) for b in range(B - 1)], dtype=torch.int32,
+                           device=device)
+    return hmm, obs, ph, pros, lengths
+
+
+def test_neural_spans_nest_by_layer_under_a_cpu_profile():
+    hmm, obs, ph, pros, lengths = _neural("cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("test.step"):
+            hmm.compute_loss(obs, hmm.encode_context(ph, pros), lengths=lengths).backward()
+        with torch.profiler.record_function("test.decode"):
+            hmm.viterbi_decode(obs, hmm.encode_context(ph, pros), lengths=lengths)
+        with torch.profiler.record_function("test.posteriors"):
+            hmm.forward_with_context(obs, ph, pros, lengths=lengths)
+    events = [e for e in prof.events() if e.name.startswith(PREFIXES)]
+    under = {}
+    for e in events:
+        top = next(a for a in _ancestors(e) if a.startswith("test."))
+        under.setdefault(top, set()).add(e.name)
+    inner = {"models.neural.context", "models.neural.emissions", "models.neural.transitions"}
+    assert under["test.step"] == NEURAL_LOSS
+    assert under["test.decode"] == inner | {"models.neural.decode"}
+    assert under["test.posteriors"] == inner | {"models.neural.posteriors"}
+    for e in events:
+        parent = next(_ancestors(e))
+        if e.name in ("models.neural.emissions", "models.neural.transitions"):
+            assert parent in ("models.neural.log_likelihood", "models.neural.decode",
+                              "models.neural.posteriors"), parent
+        else:
+            assert parent == NEURAL_PARENT[e.name] or (
+                e.name == "models.neural.context" and parent.startswith("test.")), e.name
+    names = [e.name for e in events]
+    assert all(names.count(n) == 1 for n in NEURAL_PARENT if n != "models.neural.context")
+    assert all(names.count(n) == 3 for n in inner)
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_fbsum_kernel_span_opens_in_the_cuda_branch_only_under_a_profiler(monkeypatch, profiled):
+    """``kernels.fbsum_smallk`` opens where the wrapper leaves the CPU
+    path, before its checks (here on meta tensors, which they refuse);
+    ``ops.fb_log_likelihood.backward`` around the likelihood's backward,
+    which only the card's route takes; neither without a profiler."""
+    real = torch.profiler.record_function
+    entered = []
+
+    def counting(name, *args, **kwargs):
+        entered.append(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    meta = [torch.empty(s, device="meta") for s in ((2, 10, 4), (2, 10, 4, 4), (4,))]
+    with profile(activities=[ProfilerActivity.CPU]) if profiled else contextlib.nullcontext():
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            ops.fbsum_smallk(*meta)
+        ops.fbsum_smallk(*(torch.zeros(t.shape) for t in meta))
+        lo = torch.randn((2, 10, 4), requires_grad=True)
+        la = torch.log_softmax(torch.randn((2, 10, 4, 4)), -1)
+        lp = torch.log_softmax(torch.zeros(4), -1)
+        ll = ops._FBLogLikelihood.apply(lo, la, lp, torch.tensor([10, 6], dtype=torch.int32),
+                                        "smallk")
+        ll.sum().backward()
+    assert entered == (["kernels.fbsum_smallk", "ops.fb_log_likelihood.backward"] if profiled
+                       else [])
+    assert torch.all(lo.grad[1, 6:] == 0) and torch.allclose(lo.grad.sum(-1)[0], torch.ones(10))
+
+
 @pytest.mark.card
 def test_card_spans_cover_every_device_op():
     if not torch.cuda.is_available():
