@@ -2091,7 +2091,8 @@ def phase_neural(dev):
     """NeuralHMM (static) and ContextualNeuralHMM (time-varying) at the
     slice's width: the inference entry points against the CPU, the
     trellis on the CPU's inputs, ``compute_loss`` gradients against the
-    CPU in float64, five Adam steps; then the transformer and rnn
+    CPU in float64, five Adam steps; a ragged likelihood and decode on the
+    packed route against the CPU in float64; then the transformer and rnn
     transition models at T=64 and a neural-emission SemiMarkovHMM decode
     against the CPU."""
     import torch
@@ -2189,6 +2190,35 @@ def phase_neural(dev):
         check(losses[-1] < losses[0], f"{name} Adam: the loss did not fall: {losses}")
         out["losses"][name] = losses
         out[name] = m
+
+    # The packed route: a ragged likelihood and decode of the contextual
+    # model (eval mode, row 16 on the packed frames) against its CPU twin in
+    # float64 on the same lengths; each call packs its valid frames once.
+    from pytorch_hmm_tpu_torch.models import neural
+
+    kw = NEURAL_KW["ContextualNeuralHMM"]
+    m = out["ContextualNeuralHMM"]
+    cpu64 = _cpu_copy(m, ContextualNeuralHMM, torch.float64, **kw).eval()
+    ln = torch.linspace(NT, NT // 4, NB).round().to(torch.int32)
+    packs = (neural.pack_calls, neural.pack_rows_skipped)
+    with torch.no_grad():
+        c = m.encode_context(ph, pros)
+        ll = m.compute_likelihood(obs, c, lengths=ln.to(dev))
+        st, sc = m.viterbi_decode(obs, c, lengths=ln.to(dev))
+        torch.cuda.synchronize(dev)
+        out["pack"] = (neural.pack_calls - packs[0], neural.pack_rows_skipped - packs[1])
+        check(out["pack"] == (2, 2 * (NB * NT - int(ln.sum()))),
+              f"packed route: pack_calls, pack_rows_skipped moved by {out['pack']}")
+        c64 = cpu64.encode_context(ph_cpu, pros_cpu.double())
+        ll64 = cpu64.compute_likelihood(obs_cpu.double(), c64, lengths=ln)
+        bound("packed log-likelihood", ((ll.cpu().double() - ll64).abs() / ll64.abs()).max().item(),
+              LOSS_RTOL)
+        st0, sc0 = cpu64.viterbi_decode(obs_cpu.double(), c64, lengths=ln)
+    valid = torch.arange(NT)[None] < ln[:, None]
+    out["agreement"]["packed decode"] = (st.cpu() == st0)[valid].float().mean().item()
+    check(out["agreement"]["packed decode"] >= 0.999,
+          f"packed decode: frame agreement {out['agreement']['packed decode']}")
+    check(torch.allclose(sc.cpu().double(), sc0, rtol=1e-5, atol=0.0), "packed decode: scores")
 
     # Transformer and rnn transition models at T=64 against the CPU.
     for tt in ("transformer", "rnn"):

@@ -14,6 +14,10 @@ its autograd Function; the JAX kernel has none); decode runs
 sum kernels (static transitions) or ``fbsum_smallk`` (time-varying),
 each kernel in its time-varying mode where the transitions are.
 
+A ragged call (``lengths`` with padding) runs the per-frame networks on
+its valid frames alone, packed into ``(1, N, ·)``, and scatters their
+scores back into the padded layout (:meth:`NeuralHMM._pack`).
+
 Layers keep flax's names and semantics, so ``bridge`` carries the JAX
 weights across: ``nnx.Linear`` as ``nn.Linear`` (kernels transposed),
 ``nnx.LayerNorm`` with epsilon 1e-6, ``nnx.MultiHeadAttention`` as
@@ -56,6 +60,12 @@ _MESH_TODO = ("mesh=... is not ported yet: ROADMAP queue 1 item 12 "
 # flax's truncated normal: the std of a unit normal cut at ±2.
 _TRUNC_STD = 0.87962566103423978
 
+# The packed route's counters (read by tests and ``chip_smoke.py``): the
+# calls that ran the networks on the valid frames alone, and the padded
+# frames those calls did not run.
+pack_calls = 0
+pack_rows_skipped = 0
+
 
 def _default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
     return generator if generator is not None else torch.Generator().manual_seed(0)
@@ -78,6 +88,15 @@ def _linear(din: int, dout: int, generator: torch.Generator, bias: bool = True,
         if bias:
             lin.bias.zero_()
     return lin
+
+
+def _unpack(packed: torch.Tensor, index: torch.Tensor, B: int, T: int,
+            fill: float) -> torch.Tensor:
+    """``packed (1, N, ...)`` scattered back to ``(B, T, ...)`` at the flat
+    frames ``index``, ``fill`` in the rest. The DP reads none of those, but
+    a fill that is not finite could turn into NaN in a backward."""
+    out = packed.new_full((B * T, *packed.shape[2:]), fill)
+    return out.index_copy_(0, index, packed[0]).reshape(B, T, *packed.shape[2:])
 
 
 def _embedding(num: int, features: int, generator: torch.Generator) -> nn.Embedding:
@@ -476,14 +495,18 @@ class NeuralHMM(nn.Module):
         self.initial_logits = nn.Parameter(torch.zeros((num_states,), device=device))
 
     # -- parameter views ------------------------------------------------------
-    def _log_transitions(self, context: Optional[torch.Tensor]) -> torch.Tensor:
+    def _log_transitions(self, context: Optional[torch.Tensor], packed=None) -> torch.Tensor:
         """Static ``(S, S)`` or time-varying ``(B, T, S, S)`` log
         transitions in the ``core`` convention (entry ``[:, t]`` governs
-        the step into frame ``t``)."""
+        the step into frame ``t``); from the packed context of
+        :meth:`_pack` where given, ``−log S`` in the padded frames."""
         with span("models.neural.transitions"):
             if self.transition_model is not None and context is not None:
-                log_a = torch.log_softmax(self.transition_model.transition_logits(context),
-                                          dim=-1)
+                log_a = torch.log_softmax(self.transition_model.transition_logits(
+                    context if packed is None else packed[2]), dim=-1)
+                if packed is not None:
+                    log_a = _unpack(log_a, packed[0], *context.shape[:2],
+                                    -math.log(self.num_states))
                 # The matrix computed at frame t-1 governs the step t-1 -> t.
                 return torch.cat([log_a[:, :1], log_a[:, :-1]], dim=1)
             return torch.log_softmax(self.transition_matrix, dim=-1)
@@ -491,19 +514,52 @@ class NeuralHMM(nn.Module):
     def _log_pi(self) -> torch.Tensor:
         return torch.log_softmax(self.initial_logits, dim=-1)
 
-    def _dp_args(self, observations, context, mesh):
+    def _pack(self, observations, context, lengths):
+        """The valid frames of a ragged call packed together: ``(index (N,),
+        observations (1, N, D), context (1, N, C) or None)``, ``index``
+        the flat ``b·T + t`` of each valid frame; None where the call runs
+        padded. It packs only where every network the call runs scores a
+        frame from that frame alone: the gaussian and mixture heads, and
+        the MLP transitions or the static matrix. The LSTM and attention
+        transitions and the autoregressive head mix frames along T, so
+        they run padded, as do calls without ``lengths`` or without
+        padding. N sizes the packed tensors: one sync a call."""
+        global pack_calls, pack_rows_skipped
+        dynamic = self.transition_model is not None and context is not None
+        if (lengths is None or self.observation_model.model_type == "autoregressive"
+                or (dynamic and self.transition_model.model_type != "mlp")):
+            return None
+        B, T = observations.shape[:2]
+        with span("models.neural.pack"):
+            ln = torch.as_tensor(lengths, device=observations.device)
+            valid = torch.arange(T, device=ln.device)[None] < ln[:, None]
+            index = torch.nonzero(valid.reshape(-1)).squeeze(1)
+            if index.numel() == B * T:
+                return None
+            obs = observations.reshape(B * T, -1).index_select(0, index)[None]
+            ctx = context.reshape(B * T, -1).index_select(0, index)[None] if dynamic else None
+        pack_calls += 1
+        pack_rows_skipped += B * T - index.numel()
+        return index, obs, ctx
+
+    def _dp_args(self, observations, context, mesh, lengths=None):
         if mesh is not None:
             raise NotImplementedError(_MESH_TODO)
+        packed = self._pack(observations, context, lengths)
         with span("models.neural.emissions"):
-            log_obs = self.observation_model.log_probs(observations)
-        return log_obs, self._log_transitions(context), self._log_pi()
+            log_obs = self.observation_model.log_probs(
+                observations if packed is None else packed[1])
+            if packed is not None:
+                log_obs = _unpack(log_obs, packed[0], *observations.shape[:2], 0.0)
+        return log_obs, self._log_transitions(context, packed), self._log_pi()
 
     # -- inference ------------------------------------------------------------
     # ``lengths (B,)`` (int, valid frames a row) cuts each row's padding
     # out: padding frames are neither scored nor counted, and what a row
-    # gives does not depend on them. The networks still run over all T
-    # frames (they are dense), and the matrix at a row's last valid frame
-    # governs no step.
+    # gives does not depend on them. The gaussian and mixture heads and the
+    # MLP transitions run on the valid frames only (:meth:`_pack`); the
+    # LSTM and attention transitions and the autoregressive head run over
+    # all T frames. The matrix at a row's last valid frame governs no step.
     @torch.no_grad()
     def forward(self, observations: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mesh=None, lengths: Optional[torch.Tensor] = None
@@ -515,7 +571,7 @@ class NeuralHMM(nn.Module):
         frame's; the card's kernel leaves them unspecified)."""
         with span("models.neural.posteriors"):
             log_gamma, log_alpha, log_beta, _ = auto_forward_backward(
-                *self._dp_args(observations, context, mesh), lengths)
+                *self._dp_args(observations, context, mesh, lengths), lengths)
             return torch.exp(log_gamma), torch.exp(log_alpha), torch.exp(log_beta)
 
     @torch.no_grad()
@@ -526,7 +582,7 @@ class NeuralHMM(nn.Module):
         static or time-varying transitions, over each row's ``lengths``
         frames when given."""
         with span("models.neural.decode"):
-            return auto_viterbi(*self._dp_args(observations, context, mesh), lengths)
+            return auto_viterbi(*self._dp_args(observations, context, mesh, lengths), lengths)
 
     def compute_likelihood(self, observations: torch.Tensor,
                            context: Optional[torch.Tensor] = None, mesh=None,
@@ -534,7 +590,8 @@ class NeuralHMM(nn.Module):
         """Sequence log-likelihood ``(B,)``, differentiable, in log space
         end to end, over each row's ``lengths`` frames when given."""
         with span("models.neural.log_likelihood"):
-            return auto_log_likelihood(*self._dp_args(observations, context, mesh), lengths)
+            return auto_log_likelihood(*self._dp_args(observations, context, mesh, lengths),
+                                       lengths)
 
     def compute_loss(self, observations: torch.Tensor, context: Optional[torch.Tensor] = None,
                      mesh=None, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:

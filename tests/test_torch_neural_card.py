@@ -1,7 +1,9 @@
 """The contextual neural HMM's ragged training step on the card: its loss
 and gradients held to the CPU in float64, every device op of the step
-put down to a span of the port, and row 3 (``fbsum_smallk``, time-varying
-mode) launched once a step.
+put down to a span of the port (the valid frames' gathers under
+``models.neural.pack``), and row 3 (``fbsum_smallk``, time-varying mode)
+launched once a step. An eval-mode ragged decode on the packed route
+against each row decoded alone, row 16 launched once a call.
 
 Two sizes: a small one (S=6, D=8, H=16, B=3, T=40, a row of one frame)
 and the benchmark cell's widths (``ContextualNeuralHMM(12, 80, 64,
@@ -78,14 +80,19 @@ def _step(hmm, obs, ph, pros, lengths, seed=None):
 @pytest.mark.parametrize("size", list(SIZES))
 def test_card_ragged_step_holds_the_cpu_in_float64(size):
     from pytorch_hmm_tpu_torch import ops
+    from pytorch_hmm_tpu_torch.models import neural
 
     dev = _card()
     hmm, batch = _problem(size, dev)
     launches = (ops.fbsum_smallk.launches, ops.fbsum_smallk.time_varying_launches)
+    packs = (neural.pack_calls, neural.pack_rows_skipped)
     loss = _step(hmm, *batch)
     torch.cuda.synchronize(dev)
     assert (ops.fbsum_smallk.launches, ops.fbsum_smallk.time_varying_launches) == (
         launches[0] + 1, launches[1] + 1)
+    lengths = batch[3]
+    assert (neural.pack_calls, neural.pack_rows_skipped) == (
+        packs[0] + 1, packs[1] + lengths.numel() * SIZES[size]["T"] - int(lengths.sum()))
     ref, _ = _problem(size, "cpu")
     ref = ref.double()
     want = _step(ref, *(t.double() if t.is_floating_point() else t for t in
@@ -210,8 +217,42 @@ def test_card_step_ops_lie_under_program_spans(size):
     row3 = [d["ops"][k][0] for k, n in names.items() if n == "kernels.fbsum_smallk"]
     assert len(row3) == 1 and "fbsum_kernel" in row3[0]
     assert sum(n == "ops.fb_log_likelihood.backward" for n in names.values()) >= 5
-    assert {"models.neural.context", "models.neural.emissions",
+    assert {"models.neural.context", "models.neural.pack", "models.neural.emissions",
             "models.neural.transitions"} <= set(names.values())
+    # The valid frames' gathers (features and context) run under the pack
+    # span, and so does the context gather's backward.
+    packed = [k for k, n in names.items() if n == "models.neural.pack"]
+    gathers = [k for k in packed
+               if launchers[k] is not None and "aten::index_select" in _ancestry(launchers[k])]
+    assert len(gathers) >= 2, [(d["ops"][k][0], _ancestry(launchers[k])
+                                if launchers[k] is not None else None) for k in packed]
     # The networks' backward runs outside every span, put down through its
     # forward ops.
     assert any(d["op_span"][k] is None for k in step)
+
+
+@pytest.mark.card
+def test_card_eval_decode_on_the_packed_route_equals_each_row_alone():
+    """``viterbi_decode(lengths=)`` in eval mode at the cell's widths (B=64,
+    T=1000, lengths 1000 down to 250): row 16 scores the packed frames in
+    one launch, and each row's path and score are those of the row cut to
+    its length and decoded alone (no padding, so not packed)."""
+    from pytorch_hmm_tpu_torch import ops
+    from pytorch_hmm_tpu_torch.models import neural
+
+    dev = _card()
+    hmm, (obs, ph, pros, lengths) = _problem("cell", dev)
+    hmm.eval()
+    with torch.no_grad():
+        ctx = hmm.encode_context(ph, pros)
+    launches, packs = ops.fused_gaussian_emission.launches, neural.pack_calls
+    path, score = hmm.viterbi_decode(obs, ctx, lengths=lengths)
+    torch.cuda.synchronize(dev)
+    assert ops.fused_gaussian_emission.launches == launches + 1
+    assert neural.pack_calls == packs + 1
+    for b, L in enumerate(lengths.tolist()):
+        p, s = hmm.viterbi_decode(obs[b:b + 1, :L], ctx[b:b + 1, :L])
+        assert torch.equal(path[b, :L], p[0]), b
+        torch.testing.assert_close(score[b:b + 1], s, rtol=1e-5, atol=0)
+    assert ops.fused_gaussian_emission.launches == launches + 1 + len(lengths)
+    assert neural.pack_calls == packs + 1

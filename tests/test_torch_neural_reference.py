@@ -20,6 +20,7 @@ from bench_torch import harness  # noqa: E402
 from bench_torch.families import neural_hmm as fam  # noqa: E402
 from bench_torch.reference import neural_hmm as ref  # noqa: E402
 from pytorch_hmm_tpu_torch import ContextualNeuralHMM, NeuralHMM  # noqa: E402
+from pytorch_hmm_tpu_torch.models import neural  # noqa: E402
 
 CFG = {"num_states": 6, "feature_dim": 8, "hidden_dim": 16, "phoneme_vocab_size": 10,
        "linguistic_context_dim": 8, "prosody_dim": 4, "transition_type": "mlp",
@@ -103,10 +104,12 @@ def test_reference_recursion_matches_a_plain_loop():
 # -- lengths cut the padding out ---------------------------------------------------
 
 
-def _model(kind):
-    """``(model, call_args(obs, extra))``: a NeuralHMM with static or
-    time-varying transitions, or a ContextualNeuralHMM, in float64."""
-    kw = dict(hidden_dim=16, dropout=0.0, device="cpu", generator=torch.Generator().manual_seed(4))
+def _model(kind, **net):
+    """A NeuralHMM with static or time-varying transitions, or a
+    ContextualNeuralHMM, in float64; ``net`` picks the networks
+    (``transition_type``, ``observation_type``)."""
+    kw = dict(hidden_dim=16, dropout=0.0, device="cpu", generator=torch.Generator().manual_seed(4),
+              **net)
     S, D = CFG["num_states"], CFG["feature_dim"]
     if kind == "contextual":
         return ContextualNeuralHMM(S, D, 10, linguistic_context_dim=8, prosody_dim=4, **kw).double()
@@ -196,6 +199,121 @@ def test_padding_changes_nothing(kind):
     (g,) = torch.autograd.grad(loss, [x[0]])
     valid = torch.arange(T)[None] < lengths[:, None]
     assert torch.all(g[~valid] == 0) and torch.all(g[valid].abs().sum(-1) > 0)
+
+
+# -- the packed route: the networks on the valid frames only ---------------------
+
+
+def _context(model, kind, inputs):
+    """``(features, context or None)`` of :func:`_inputs`."""
+    if kind == "contextual":
+        return inputs[0], model.encode_context(inputs[1], inputs[2])
+    return inputs[0], inputs[1] if kind == "dynamic" else None
+
+
+def _loss_and_grads(model, kind, inputs, lengths):
+    loss = model.compute_loss(*_context(model, kind, inputs), lengths=lengths)
+    params = [p for _, p in model.named_parameters()]
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss, grads
+
+
+@pytest.mark.parametrize("kind, head", [("contextual", "gaussian"), ("contextual", "mixture"),
+                                        ("static", "gaussian"), ("dynamic", "mixture")])
+def test_packed_step_equals_each_row_run_alone(kind, head):
+    """A ragged step on the packed route (rows of 40, 1 and 23 frames): its
+    loss is the mean of each row's loss run alone on the frames it has,
+    and each parameter's gradient the mean of theirs, in float64."""
+    model = _model(kind, observation_type=head)
+    inputs = _inputs(kind, pad=None)
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32)
+    calls, skipped = neural.pack_calls, neural.pack_rows_skipped
+    loss, grads = _loss_and_grads(model, kind, inputs, lengths)
+    assert (neural.pack_calls, neural.pack_rows_skipped) == (calls + 1,
+                                                             skipped + B * T - sum(LENGTHS))
+    rows = [_loss_and_grads(model, kind, [t[b:b + 1, :L] for t in inputs], None)
+            for b, L in enumerate(LENGTHS)]
+    assert neural.pack_calls == calls + 1
+    want = sum(r[0] for r in rows) / B
+    assert abs(loss.item() - want.item()) <= LOSS_RTOL * abs(want.item())
+    names = [k for k, _ in model.named_parameters()]
+    for k, name in enumerate(names):
+        # A row of one frame reads no transition: its networks get none.
+        parts = [r[1][k] for r in rows if r[1][k] is not None]
+        if grads[k] is None:
+            assert not parts, name
+            continue
+        h = sum(parts) / B
+        assert h.norm() > 0, name
+        assert (grads[k] - h).norm() <= GRAD_RTOL * h.norm(), name
+    assert (grads[names.index("transition_matrix")] is None) == (kind != "static")
+
+
+@pytest.mark.parametrize("kind", ["contextual", "static"])
+def test_packed_scores_are_finite_in_the_padding(kind):
+    """The scattered scores hold 0 (emissions) and −log S (transitions,
+    one frame on by the shift) in every padded frame; the valid frames
+    are the padded route's."""
+    model = _model(kind)
+    inputs = _inputs(kind, pad=None)
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32)
+    x, ctx = _context(model, kind, inputs)
+    calls = neural.pack_calls
+    lo, la, lp = model._dp_args(x, ctx, None, lengths)
+    assert neural.pack_calls == calls + 1
+    lo0, la0, lp0 = model._dp_args(x, ctx, None)
+    assert neural.pack_calls == calls + 1
+    valid = torch.arange(T)[None] < lengths[:, None]
+    assert torch.isfinite(lo).all() and torch.isfinite(la).all()
+    assert torch.all(lo[~valid] == 0)
+    torch.testing.assert_close(lo[valid], lo0[valid], **CUT)
+    torch.testing.assert_close(lp, lp0, rtol=0, atol=0)
+    if kind == "static":
+        torch.testing.assert_close(la, la0, rtol=0, atol=0)
+        return
+    # Entry t holds the matrix of frame t - 1: padded from frame L + 1 on.
+    read = torch.arange(T)[None] <= lengths[:, None]
+    assert torch.all(la[~read] == -math.log(CFG["num_states"]))
+    torch.testing.assert_close(la[read], la0[read], **CUT)
+
+
+_UNPACKED = {
+    "no lengths": ("contextual", {}, None),
+    "no padding": ("contextual", {}, [T] * B),
+    "rnn": ("dynamic", {"transition_type": "rnn"}, LENGTHS),
+    "transformer": ("dynamic", {"transition_type": "transformer"}, LENGTHS),
+    "autoregressive": ("contextual", {"observation_type": "autoregressive"}, LENGTHS),
+}
+
+
+@pytest.mark.parametrize("case", list(_UNPACKED))
+@pytest.mark.parametrize("mode", ["train", "eval"])
+def test_unpacked_calls_run_the_padded_route(case, mode):
+    """No ``lengths``, no padding, or a network that mixes frames: every
+    entry point gives, bit for bit, what the padded route's scores give,
+    and nothing packs."""
+    from pytorch_hmm_tpu_torch import ops
+
+    kind, net, lens = _UNPACKED[case]
+    model = _model(kind, **net).train(mode == "train")
+    lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32)
+    x, ctx = _context(model, kind, _inputs(kind, pad=None))
+    calls, skipped = neural.pack_calls, neural.pack_rows_skipped
+    ll = model.compute_likelihood(x, ctx, lengths=lengths)
+    path, score = model.viterbi_decode(x, ctx, lengths=lengths)
+    post = model(x, ctx, lengths=lengths)
+    assert (neural.pack_calls, neural.pack_rows_skipped) == (calls, skipped)
+    args = (model.observation_model.log_probs(x), model._log_transitions(ctx), model._log_pi())
+    assert torch.equal(ll, ops.auto_log_likelihood(*args, lengths))
+    want_path, want_score = ops.auto_viterbi(*(a.detach() for a in args), lengths)
+    assert torch.equal(path, want_path) and torch.equal(score, want_score)
+    want = ops.auto_forward_backward(*(a.detach() for a in args), lengths)
+    assert all(torch.equal(p, torch.exp(w)) for p, w in zip(post, want[:3]))
+    params = [p for p in model.parameters() if p.requires_grad]
+    got = torch.autograd.grad(ll.sum(), params, allow_unused=True, retain_graph=True)
+    ref_grads = torch.autograd.grad(ops.auto_log_likelihood(*args, lengths).sum(), params,
+                                    allow_unused=True)
+    assert all((g is None and h is None) or torch.equal(g, h) for g, h in zip(got, ref_grads))
 
 
 # -- the family: seeds, packing, counts -------------------------------------------

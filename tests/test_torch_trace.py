@@ -176,9 +176,9 @@ def test_smallk_kernel_span_opens_in_the_cuda_branch_only_under_a_profiler(monke
 
 # A contextual neural HMM on the CPU: its loss step (the likelihood's
 # backward span and the kernel's open on the card only), decode and
-# posteriors.
+# posteriors, each on a ragged batch, so each packs its valid frames.
 NEURAL_LOSS = {"models.neural.context", "models.neural.loss", "models.neural.log_likelihood",
-               "models.neural.emissions", "models.neural.transitions"}
+               "models.neural.pack", "models.neural.emissions", "models.neural.transitions"}
 NEURAL_PARENT = {"models.neural.loss": "test.step", "models.neural.log_likelihood":
                  "models.neural.loss", "models.neural.decode": "test.decode",
                  "models.neural.posteriors": "test.posteriors", "models.neural.context": None}
@@ -213,13 +213,15 @@ def test_neural_spans_nest_by_layer_under_a_cpu_profile():
     for e in events:
         top = next(a for a in _ancestors(e) if a.startswith("test."))
         under.setdefault(top, set()).add(e.name)
-    inner = {"models.neural.context", "models.neural.emissions", "models.neural.transitions"}
+    inner = {"models.neural.context", "models.neural.pack", "models.neural.emissions",
+             "models.neural.transitions"}
     assert under["test.step"] == NEURAL_LOSS
     assert under["test.decode"] == inner | {"models.neural.decode"}
     assert under["test.posteriors"] == inner | {"models.neural.posteriors"}
     for e in events:
         parent = next(_ancestors(e))
-        if e.name in ("models.neural.emissions", "models.neural.transitions"):
+        if e.name in ("models.neural.pack", "models.neural.emissions",
+                      "models.neural.transitions"):
             assert parent in ("models.neural.log_likelihood", "models.neural.decode",
                               "models.neural.posteriors"), parent
         else:
