@@ -82,6 +82,11 @@ random weights from a seed, eval mode):
   against the CPU in float64, five Adam steps in training mode with the
   loss falling; ``transformer`` and ``rnn`` transition models at T=64
   and a neural-emission ``SemiMarkovHMM`` decode against the CPU;
+* ``ContextualNeuralHMM(transition_type="transformer")`` training steps
+  at ``ctxtfm.train.b512``'s widths on ragged rows: the attention's
+  memory-efficient launches of one step and its counters, and the
+  largest B (of 512 down to 64, T=1000) at which the old unmasked
+  einsums fit, with one step of each path at that B;
 
 then the general-K path (more than 32 states) at the width of the JAX
 bench's K>32 row, ``GaussianHMMLayer(64, 80)``, diag, at B=32, T=1000
@@ -2274,6 +2279,101 @@ def phase_neural(dev):
     return out
 
 
+# The attention transitions' step at the cell's widths (ctxtfm.train.b512:
+# ContextualNeuralHMM(12, 80, 64, hidden_dim=256), 3 blocks of 8 heads),
+# T=1000, lengths on the cell's grid; the old einsum path's batch sweep.
+ATTN_T, ATTN_B = 1000, 64
+ATTN_SWEEP = (512, 448, 384, 320, 256, 192, 128, 64)
+ATTN_PATTERN = r"fmha_cutlass[FB]"
+
+
+def phase_neural_attention(dev):
+    """``ContextualNeuralHMM(transition_type="transformer")`` training
+    steps at the cell's widths on ragged rows: the attention's device
+    launches of one profiled step (``masked_attention``'s memory-efficient
+    kernels, forward and backward) and its counters; then the batch sweep
+    of the old path, the unmasked einsums that build ``(B, H, T, T)``
+    logits, from B=512 down to the first that fits, and at that B one
+    step of each path, timed with CUDA events, with its peak memory, in
+    this one process."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_hmm_tpu_torch import ContextualNeuralHMM
+    from pytorch_hmm_tpu_torch.models import neural
+    from pytorch_hmm_tpu_torch.ops import attention
+
+    hmm = ContextualNeuralHMM(NS, ND, VOCAB, hidden_dim=NH, transition_type="transformer",
+                              dropout=0.0, generator=torch.Generator().manual_seed(SEED),
+                              device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    largest = ATTN_SWEEP[0]
+    obs = torch.randn((largest, ATTN_T, ND), generator=gen, device=dev)
+    ph = torch.randint(0, VOCAB, (largest, ATTN_T), generator=gen, device=dev)
+    pros = torch.randn((largest, ATTN_T, PROSODY), generator=gen, device=dev)
+    lengths = torch.linspace(ATTN_T, ATTN_T // 4, largest, device=dev).round().to(torch.int32)
+
+    def step(b):
+        hmm.zero_grad(set_to_none=True)
+        loss = hmm.compute_loss(obs[:b], hmm.encode_context(ph[:b], pros[:b]),
+                                lengths=lengths[:b])
+        loss.backward()
+        return loss
+
+    out = {}
+    step(ATTN_B)
+    torch.cuda.synchronize(dev)
+    calls, masked = attention.attention_calls, attention.attention_masked_keys
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(ATTN_B)
+        torch.cuda.synchronize(dev)
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name for e in prof.events() if e.device_type == cuda
+             and not getattr(e, "is_user_annotation", False)]
+    out["launches"] = sum(bool(re.search(ATTN_PATTERN, n)) for n in names)
+    out["kernels"] = sorted({n.split("(")[0] for n in names if re.search(ATTN_PATTERN, n)})
+    layers = len(hmm.transition_model.blocks)
+    check(attention.attention_calls - calls == layers,
+          f"attention_calls moved by {attention.attention_calls - calls}, not {layers}")
+    want = layers * (ATTN_B * ATTN_T - int(lengths[:ATTN_B].sum()))
+    check(attention.attention_masked_keys - masked == want,
+          f"attention_masked_keys moved by {attention.attention_masked_keys - masked}, not {want}")
+    check(out["launches"] == 2 * layers,
+          f"{out['launches']} attention launches a step, not {2 * layers}: {out['kernels']}")
+
+    fused = neural.masked_attention
+
+    def einsum(q, k, v, lengths=None):
+        return attention.masked_attention_reference(q, k, v)
+
+    def timed(b):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ms = cuda_median_ms(lambda: step(b), runs=3, warmup=1)
+        return ms, torch.cuda.max_memory_allocated(dev) - base
+
+    neural.masked_attention = einsum
+    try:
+        for b in ATTN_SWEEP:
+            try:
+                out["einsum"] = timed(b)
+            except torch.cuda.OutOfMemoryError:
+                hmm.zero_grad(set_to_none=True)
+                continue
+            out["largest_b"] = b
+            break
+    finally:
+        neural.masked_attention = fused
+    check("largest_b" in out, f"the einsum path fits no B of {ATTN_SWEEP}")
+    out["fused"] = timed(out["largest_b"])
+    out["fused_b512"] = timed(largest)
+    return out
+
+
 def phase_neural_timing(dev, gen, neural):
     """Row 16 and the time-varying modes against their plain versions;
     a NeuralHMM forward, decode and compute_loss step, static and
@@ -4216,6 +4316,14 @@ def main() -> int:
           f"{neural['launches']['SemiMarkovHMM neural']}, decode frame agreement "
           + ", ".join(f"{k}: {v}" for k, v in neural["agreement"].items()
                       if k not in NEURAL_KERNELS), flush=True)
+    att = phase_neural_attention(dev)
+    print(f"ContextualNeuralHMM transformer transitions (S={NS}, D={ND}, H={NH}, 3 blocks of 8 "
+          f"heads, T={ATTN_T}, ragged): {att['launches']} attention launches a step "
+          f"({', '.join(att['kernels'])}), counters ok; the old einsum path fits B="
+          f"{att['largest_b']} at most (tried {ATTN_SWEEP}); a step at that B: einsum "
+          f"{att['einsum'][0]:.2f} ms, peak +{att['einsum'][1]} B; fused {att['fused'][0]:.2f} ms, "
+          f"peak +{att['fused'][1]} B; fused at B={ATTN_SWEEP[0]} {att['fused_b512'][0]:.2f} ms, "
+          f"peak +{att['fused_b512'][1]} B (median of 3, CUDA events)", flush=True)
     print("neural models vs CPU float64 (posteriors max abs; log-likelihood max rel; gradients "
           "relative to each tensor's max): "
           + ", ".join(f"{k}: {v:.3g}" for k, v in neural["errs"].items())

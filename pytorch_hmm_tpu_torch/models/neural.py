@@ -16,7 +16,10 @@ each kernel in its time-varying mode where the transitions are.
 
 A ragged call (``lengths`` with padding) runs the per-frame networks on
 its valid frames alone, packed into ``(1, N, ·)``, and scatters their
-scores back into the padded layout (:meth:`NeuralHMM._pack`).
+scores back into the padded layout (:meth:`NeuralHMM._pack`). The
+self-attention encoder runs padded, its keys masked by ``lengths``
+(``ops.attention.masked_attention``: fused on the card, never a
+``(B, H, T, T)`` tensor).
 
 Layers keep flax's names and semantics, so ``bridge`` carries the JAX
 weights across: ``nnx.Linear`` as ``nn.Linear`` (kernels transposed),
@@ -40,6 +43,7 @@ from torch import nn
 
 from ..core.semiring import logsumexp
 from ..ops import auto_forward_backward, auto_log_likelihood, auto_viterbi
+from ..ops.attention import masked_attention
 from ..ops.emit_mlp import (
     fused_emission_supported,
     fused_gaussian_emission,
@@ -145,11 +149,13 @@ class _MLP(nn.Module):
 
 
 class _MultiHeadAttention(nn.Module):
-    """Self-attention as ``nnx.MultiHeadAttention`` computes it, with no
-    mask: query, key and value projections of ``num_heads`` heads of
-    ``d_model // num_heads`` features (flax's ``(in, heads, head_dim)``
-    kernels as ``(heads·head_dim, in)`` weights), logits scaled by
-    ``1/√head_dim``, softmax over the keys, and the output projection."""
+    """Self-attention as ``nnx.MultiHeadAttention`` computes it: query, key
+    and value projections of ``num_heads`` heads of ``d_model //
+    num_heads`` features (flax's ``(in, heads, head_dim)`` kernels as
+    ``(heads·head_dim, in)`` weights), logits scaled by ``1/√head_dim``,
+    softmax over the keys (with ``lengths``, a row's valid keys alone:
+    :func:`ops.attention.masked_attention`, fused on the card), and the
+    output projection."""
 
     def __init__(self, d_model: int, num_heads: int, generator: torch.Generator):
         super().__init__()
@@ -163,14 +169,13 @@ class _MultiHeadAttention(nn.Module):
         self.value = _linear(d_model, d_model, generator)
         self.out = _linear(d_model, d_model, generator)
 
-    def forward(self, x):
+    def forward(self, x, lengths=None):
         B, T, _ = x.shape
         H, hd = self.num_heads, self.head_dim
         q = self.query(x).view(B, T, H, hd) / math.sqrt(hd)
         k = self.key(x).view(B, T, H, hd)
         v = self.value(x).view(B, T, H, hd)
-        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
-        return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, T, H * hd))
+        return self.out(masked_attention(q, k, v, lengths).reshape(B, T, H * hd))
 
 
 class _TransformerBlock(nn.Module):
@@ -183,8 +188,8 @@ class _TransformerBlock(nn.Module):
         self.ln2 = nn.LayerNorm(d_model, eps=1e-6)
         self.drop = _Dropout(dropout, _seed(generator))
 
-    def forward(self, x):
-        x = x + self.drop(self.attn(self.ln1(x)))
+    def forward(self, x, lengths=None):
+        x = x + self.drop(self.attn(self.ln1(x), lengths))
         return x + self.drop(self.ff2(torch.relu(self.ff1(self.ln2(x)))))
 
 
@@ -264,10 +269,15 @@ class NeuralTransitionModel(nn.Module):
         self.to(device)
 
     def transition_logits(self, context: torch.Tensor,
-                          current_state: Optional[torch.Tensor] = None) -> torch.Tensor:
+                          current_state: Optional[torch.Tensor] = None,
+                          lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Raw next-state logits ``(B, T, S, S)``, or ``(B, S, S)`` for a
         single-step ``(B, C)`` context. ``current_state`` ``(B, T, S)`` or
-        ``(B, S)`` defaults to uniform."""
+        ``(B, S)`` defaults to uniform. ``lengths (B,)`` masks the
+        attention encoder's keys at or past each row's length, so a valid
+        frame's logits do not depend on the padding (the padded frames'
+        are finite and unread); the MLP and the LSTM do not look ahead, and
+        ignore it."""
         single = context.ndim == 2
         if single:
             context = context[:, None]
@@ -284,9 +294,10 @@ class NeuralTransitionModel(nn.Module):
             if self.model_type == "rnn":
                 h = self.rnn(context)
             else:
-                h = self.in_proj(context)
-                for block in self.blocks:
-                    h = block(h)
+                with span("models.neural.encoder"):
+                    h = self.in_proj(context)
+                    for block in self.blocks:
+                        h = block(h, lengths)
             logits = self.output_layer(torch.cat([h, current_state], -1))
         logits = logits.reshape(B, T, S, S)
         return logits[:, 0] if single else logits
@@ -495,15 +506,17 @@ class NeuralHMM(nn.Module):
         self.initial_logits = nn.Parameter(torch.zeros((num_states,), device=device))
 
     # -- parameter views ------------------------------------------------------
-    def _log_transitions(self, context: Optional[torch.Tensor], packed=None) -> torch.Tensor:
+    def _log_transitions(self, context: Optional[torch.Tensor], packed=None,
+                         lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Static ``(S, S)`` or time-varying ``(B, T, S, S)`` log
         transitions in the ``core`` convention (entry ``[:, t]`` governs
         the step into frame ``t``); from the packed context of
-        :meth:`_pack` where given, ``−log S`` in the padded frames."""
+        :meth:`_pack` where given, ``−log S`` in the padded frames;
+        ``lengths`` masks the attention encoder's padded keys."""
         with span("models.neural.transitions"):
             if self.transition_model is not None and context is not None:
                 log_a = torch.log_softmax(self.transition_model.transition_logits(
-                    context if packed is None else packed[2]), dim=-1)
+                    context if packed is None else packed[2], lengths=lengths), dim=-1)
                 if packed is not None:
                     log_a = _unpack(log_a, packed[0], *context.shape[:2],
                                     -math.log(self.num_states))
@@ -522,8 +535,9 @@ class NeuralHMM(nn.Module):
         frame from that frame alone: the gaussian and mixture heads, and
         the MLP transitions or the static matrix. The LSTM and attention
         transitions and the autoregressive head mix frames along T, so
-        they run padded, as do calls without ``lengths`` or without
-        padding. N sizes the packed tensors: one sync a call."""
+        they run padded (the attention with its padded keys masked by
+        ``lengths``), as do calls without ``lengths`` or without padding.
+        N sizes the packed tensors: one sync a call."""
         global pack_calls, pack_rows_skipped
         dynamic = self.transition_model is not None and context is not None
         if (lengths is None or self.observation_model.model_type == "autoregressive"
@@ -551,7 +565,7 @@ class NeuralHMM(nn.Module):
                 observations if packed is None else packed[1])
             if packed is not None:
                 log_obs = _unpack(log_obs, packed[0], *observations.shape[:2], 0.0)
-        return log_obs, self._log_transitions(context, packed), self._log_pi()
+        return log_obs, self._log_transitions(context, packed, lengths), self._log_pi()
 
     # -- inference ------------------------------------------------------------
     # ``lengths (B,)`` (int, valid frames a row) cuts each row's padding
@@ -559,7 +573,9 @@ class NeuralHMM(nn.Module):
     # gives does not depend on them. The gaussian and mixture heads and the
     # MLP transitions run on the valid frames only (:meth:`_pack`); the
     # LSTM and attention transitions and the autoregressive head run over
-    # all T frames. The matrix at a row's last valid frame governs no step.
+    # all T frames, the LSTM and the head causal, the attention with the
+    # padded keys masked. The matrix at a row's last valid frame governs no
+    # step.
     @torch.no_grad()
     def forward(self, observations: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mesh=None, lengths: Optional[torch.Tensor] = None

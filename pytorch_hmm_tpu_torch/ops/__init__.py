@@ -57,6 +57,11 @@ path, as the backend does in the JAX package:
   rows and M ≤ 65536 columns run ``pallas_dtw``, the wavefront and
   backtrace in one launch; larger matrices run the plain wavefront on the
   card (the reference's XLA scan on every backend).
+* The neural transition encoder's self-attention
+  (``attention.masked_attention``, which the JAX package leaves to XLA):
+  CUDA tensors run ``scaled_dot_product_attention`` pinned to its
+  memory-efficient kernels, the padded keys masked by ``lengths``, or
+  raise; CPU tensors run the masked einsums.
 * Large-state scoring (``bigk.bigk_log_likelihood``, a public op with no
   caller in the package): CUDA tensors with K ≤ 1024, B ≤ 4096 and T a
   multiple of ``t_chunk`` run its bf16 tensor-core chain; other T take
@@ -79,6 +84,7 @@ import torch
 
 from .. import core
 from ..trace import span
+from .attention import masked_attention, masked_attention_reference
 from .bigk import bigk_log_likelihood, bigk_log_likelihood_reference, bigk_supported
 from .ctc_kernel import (
     ctc_lattice_backward,
@@ -147,6 +153,8 @@ from .stream import greedy_chunk, greedy_chunk_reference, stream_chunk_supported
 from .stream_multi import beam_chunk_multi, beam_chunk_multi_reference, multi_stream_supported
 
 __all__ = [
+    "masked_attention",
+    "masked_attention_reference",
     "bigk_log_likelihood",
     "bigk_log_likelihood_reference",
     "bigk_supported",

@@ -207,7 +207,7 @@ def test_only_the_build_seam_marshals_the_kernel_abi():
     assert not offenders, "\n".join(offenders)
 
 
-@pytest.mark.parametrize("name", ["hsmm", "gmm_hmm", "tf32"])
+@pytest.mark.parametrize("name", ["hsmm", "gmm_hmm", "tf32", "neural_hmm_transformer"])
 def test_benchmark_references_import_neither_jax_nor_either_package(name):
     """The benchmark's plain references (``bench_torch/reference/``) are
     plain torch: importing one loads no JAX and no module of the JAX

@@ -281,7 +281,6 @@ _UNPACKED = {
     "no lengths": ("contextual", {}, None),
     "no padding": ("contextual", {}, [T] * B),
     "rnn": ("dynamic", {"transition_type": "rnn"}, LENGTHS),
-    "transformer": ("dynamic", {"transition_type": "transformer"}, LENGTHS),
     "autoregressive": ("contextual", {"observation_type": "autoregressive"}, LENGTHS),
 }
 
@@ -291,7 +290,8 @@ _UNPACKED = {
 def test_unpacked_calls_run_the_padded_route(case, mode):
     """No ``lengths``, no padding, or a network that mixes frames: every
     entry point gives, bit for bit, what the padded route's scores give,
-    and nothing packs."""
+    and nothing packs. (The attention transitions' cases, whose padded
+    route masks the keys, are in tests/test_torch_neural_transformer.py.)"""
     from pytorch_hmm_tpu_torch import ops
 
     kind, net, lens = _UNPACKED[case]
