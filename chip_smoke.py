@@ -2291,7 +2291,8 @@ def phase_neural_attention(dev):
     """``ContextualNeuralHMM(transition_type="transformer")`` training
     steps at the cell's widths on ragged rows: the attention's device
     launches of one profiled step (``masked_attention``'s memory-efficient
-    kernels, forward and backward) and its counters; then the batch sweep
+    kernels over each row's own frames, forward and backward), their
+    device ms, and its counters; then the batch sweep
     of the old path, the unmasked einsums that build ``(B, H, T, T)``
     logits, from B=512 down to the first that fits, and at that B one
     step of each path, timed with CUDA events, with its peak memory, in
@@ -2326,20 +2327,33 @@ def phase_neural_attention(dev):
     step(ATTN_B)
     torch.cuda.synchronize(dev)
     calls, masked = attention.attention_calls, attention.attention_masked_keys
+    varlen, skipped = attention.attention_varlen_calls, attention.attention_pairs_skipped
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(ATTN_B)
         torch.cuda.synchronize(dev)
     cuda = torch.autograd.DeviceType.CUDA
-    names = [e.name for e in prof.events() if e.device_type == cuda
-             and not getattr(e, "is_user_annotation", False)]
-    out["launches"] = sum(bool(re.search(ATTN_PATTERN, n)) for n in names)
-    out["kernels"] = sorted({n.split("(")[0] for n in names if re.search(ATTN_PATTERN, n)})
+    kernels = [e for e in prof.events() if e.device_type == cuda
+               and not getattr(e, "is_user_annotation", False)
+               and re.search(ATTN_PATTERN, e.name)]
+    out["launches"] = len(kernels)
+    out["kernels"] = sorted({e.name.split("(")[0] for e in kernels})
+    for side, tag in (("forward", "fmha_cutlassF"), ("backward", "fmha_cutlassB")):
+        out[f"{side}_ms"] = sum(e.time_range.elapsed_us() for e in kernels
+                                if tag in e.name) / 1e3
     layers = len(hmm.transition_model.blocks)
     check(attention.attention_calls - calls == layers,
           f"attention_calls moved by {attention.attention_calls - calls}, not {layers}")
-    want = layers * (ATTN_B * ATTN_T - int(lengths[:ATTN_B].sum()))
+    n = lengths[:ATTN_B].tolist()
+    want = layers * (ATTN_B * ATTN_T - sum(n))
     check(attention.attention_masked_keys - masked == want,
           f"attention_masked_keys moved by {attention.attention_masked_keys - masked}, not {want}")
+    out["varlen_calls"] = attention.attention_varlen_calls - varlen
+    out["pairs_skipped"] = attention.attention_pairs_skipped - skipped
+    check(out["varlen_calls"] == layers,
+          f"attention_varlen_calls moved by {out['varlen_calls']}, not {layers}")
+    want = layers * (ATTN_B * ATTN_T * ATTN_T - sum(x * x for x in n))
+    check(out["pairs_skipped"] == want,
+          f"attention_pairs_skipped moved by {out['pairs_skipped']}, not {want}")
     check(out["launches"] == 2 * layers,
           f"{out['launches']} attention launches a step, not {2 * layers}: {out['kernels']}")
 
@@ -4319,7 +4333,10 @@ def main() -> int:
     att = phase_neural_attention(dev)
     print(f"ContextualNeuralHMM transformer transitions (S={NS}, D={ND}, H={NH}, 3 blocks of 8 "
           f"heads, T={ATTN_T}, ragged): {att['launches']} attention launches a step "
-          f"({', '.join(att['kernels'])}), counters ok; the old einsum path fits B="
+          f"({', '.join(att['kernels'])}), at B={ATTN_B} forward {att['forward_ms']:.3f} ms, "
+          f"backward {att['backward_ms']:.3f} ms a step (profiled); counters ok "
+          f"(attention_varlen_calls +{att['varlen_calls']}, attention_pairs_skipped +{att['pairs_skipped']}); "
+          f"the old einsum path fits B="
           f"{att['largest_b']} at most (tried {ATTN_SWEEP}); a step at that B: einsum "
           f"{att['einsum'][0]:.2f} ms, peak +{att['einsum'][1]} B; fused {att['fused'][0]:.2f} ms, "
           f"peak +{att['fused'][1]} B; fused at B={ATTN_SWEEP[0]} {att['fused_b512'][0]:.2f} ms, "

@@ -17,9 +17,9 @@ each kernel in its time-varying mode where the transitions are.
 A ragged call (``lengths`` with padding) runs the per-frame networks on
 its valid frames alone, packed into ``(1, N, ·)``, and scatters their
 scores back into the padded layout (:meth:`NeuralHMM._pack`). The
-self-attention encoder runs padded, its keys masked by ``lengths``
-(``ops.attention.masked_attention``: fused on the card, never a
-``(B, H, T, T)`` tensor).
+self-attention encoder runs padded, each row's attention over its valid
+frames alone (``ops.attention.masked_attention``: on the card the fused
+kernels over each row's own frames, never a ``(B, H, T, T)`` tensor).
 
 Layers keep flax's names and semantics, so ``bridge`` carries the JAX
 weights across: ``nnx.Linear`` as ``nn.Linear`` (kernels transposed),
@@ -43,7 +43,7 @@ from torch import nn
 
 from ..core.semiring import logsumexp
 from ..ops import auto_forward_backward, auto_log_likelihood, auto_viterbi
-from ..ops.attention import masked_attention
+from ..ops.attention import masked_attention, ragged_rows
 from ..ops.emit_mlp import (
     fused_emission_supported,
     fused_gaussian_emission,
@@ -153,9 +153,10 @@ class _MultiHeadAttention(nn.Module):
     and value projections of ``num_heads`` heads of ``d_model //
     num_heads`` features (flax's ``(in, heads, head_dim)`` kernels as
     ``(heads·head_dim, in)`` weights), logits scaled by ``1/√head_dim``,
-    softmax over the keys (with ``lengths``, a row's valid keys alone:
-    :func:`ops.attention.masked_attention`, fused on the card), and the
-    output projection."""
+    softmax over the keys (with ``rows``, the :func:`ops.attention.
+    ragged_rows` of a ragged batch, a row's valid keys alone, its padded
+    queries 0: :func:`ops.attention.masked_attention`, fused on the card),
+    and the output projection."""
 
     def __init__(self, d_model: int, num_heads: int, generator: torch.Generator):
         super().__init__()
@@ -169,13 +170,13 @@ class _MultiHeadAttention(nn.Module):
         self.value = _linear(d_model, d_model, generator)
         self.out = _linear(d_model, d_model, generator)
 
-    def forward(self, x, lengths=None):
+    def forward(self, x, rows=None):
         B, T, _ = x.shape
         H, hd = self.num_heads, self.head_dim
         q = self.query(x).view(B, T, H, hd) / math.sqrt(hd)
         k = self.key(x).view(B, T, H, hd)
         v = self.value(x).view(B, T, H, hd)
-        return self.out(masked_attention(q, k, v, lengths).reshape(B, T, H * hd))
+        return self.out(masked_attention(q, k, v, rows).reshape(B, T, H * hd))
 
 
 class _TransformerBlock(nn.Module):
@@ -188,8 +189,8 @@ class _TransformerBlock(nn.Module):
         self.ln2 = nn.LayerNorm(d_model, eps=1e-6)
         self.drop = _Dropout(dropout, _seed(generator))
 
-    def forward(self, x, lengths=None):
-        x = x + self.drop(self.attn(self.ln1(x), lengths))
+    def forward(self, x, rows=None):
+        x = x + self.drop(self.attn(self.ln1(x), rows))
         return x + self.drop(self.ff2(torch.relu(self.ff1(self.ln2(x)))))
 
 
@@ -276,8 +277,9 @@ class NeuralTransitionModel(nn.Module):
         ``(B, S)`` defaults to uniform. ``lengths (B,)`` masks the
         attention encoder's keys at or past each row's length, so a valid
         frame's logits do not depend on the padding (the padded frames'
-        are finite and unread); the MLP and the LSTM do not look ahead, and
-        ignore it."""
+        are finite and unread; their attention outputs are 0); it is read
+        back once for the three blocks (one sync). The MLP and the LSTM do
+        not look ahead, and ignore it."""
         single = context.ndim == 2
         if single:
             context = context[:, None]
@@ -295,9 +297,10 @@ class NeuralTransitionModel(nn.Module):
                 h = self.rnn(context)
             else:
                 with span("models.neural.encoder"):
+                    rows = ragged_rows(lengths, B, T, context.device)
                     h = self.in_proj(context)
                     for block in self.blocks:
-                        h = block(h, lengths)
+                        h = block(h, rows)
             logits = self.output_layer(torch.cat([h, current_state], -1))
         logits = logits.reshape(B, T, S, S)
         return logits[:, 0] if single else logits

@@ -59,9 +59,10 @@ path, as the backend does in the JAX package:
   card (the reference's XLA scan on every backend).
 * The neural transition encoder's self-attention
   (``attention.masked_attention``, which the JAX package leaves to XLA):
-  CUDA tensors run ``scaled_dot_product_attention`` pinned to its
-  memory-efficient kernels, the padded keys masked by ``lengths``, or
-  raise; CPU tensors run the masked einsums.
+  CUDA tensors of a ragged batch run the memory-efficient kernels over
+  each row's valid frames packed back to back (``cu_seqlens``), others
+  ``scaled_dot_product_attention`` pinned to the same kernels, or raise;
+  CPU tensors run the masked einsums.
 * Large-state scoring (``bigk.bigk_log_likelihood``, a public op with no
   caller in the package): CUDA tensors with K ≤ 1024, B ≤ 4096 and T a
   multiple of ``t_chunk`` run its bf16 tensor-core chain; other T take

@@ -1,6 +1,6 @@
 """The contextual neural HMM with self-attention transitions
 (``NeuralTransitionModel(model_type="transformer")``) on ragged batches:
-the attention's keys masked by ``lengths`` (``ops.attention``), held to
+the attention over each row's valid frames (``ops.attention``), held to
 the benchmark's plain reference (``bench_torch/reference/
 neural_hmm_transformer.py``) and family (``bench_torch/families/
 ctxneural_transformer.py``).
@@ -284,22 +284,138 @@ def test_lengths_of_one_and_of_t_are_finite():
 # -- the wrapper ------------------------------------------------------------------
 
 
+def _qkv(seed=11, shape=(3, 9, 2, 4)):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen, dtype=torch.float64) for _ in range(3)]
+
+
+def _rows_alone(q, k, v, lengths):
+    """Each row's valid queries over its valid keys, by the two einsums on
+    the row cut to its length; zero past it."""
+    out = torch.zeros_like(q)
+    for b, n in enumerate(lengths):
+        w = torch.softmax(torch.einsum("qhd,khd->hqk", q[b, :n], k[b, :n]), dim=-1)
+        out[b, :n] = torch.einsum("hqk,khd->qhd", w, v[b, :n])
+    return out
+
+
 def test_masked_attention_reads_each_rows_keys_only():
-    gen = torch.Generator().manual_seed(11)
-    q, k, v = (torch.randn((3, 9, 2, 4), generator=gen, dtype=torch.float64) for _ in range(3))
+    """A valid query reads its row's valid keys alone; a query at or past
+    its row's length holds 0 exactly."""
+    q, k, v = _qkv()
     lengths = torch.tensor([9, 1, 5])
     out = ops.masked_attention(q, k, v, lengths)
     for b, n in enumerate(lengths.tolist()):
-        w = torch.softmax(torch.einsum("qhd,khd->hqk", q[b], k[b, :n]), dim=-1)
-        torch.testing.assert_close(out[b], torch.einsum("hqk,khd->qhd", w, v[b, :n]), **CUT)
+        w = torch.softmax(torch.einsum("qhd,khd->hqk", q[b, :n], k[b, :n]), dim=-1)
+        torch.testing.assert_close(out[b, :n], torch.einsum("hqk,khd->qhd", w, v[b, :n]), **CUT)
+        assert torch.equal(out[b, n:], torch.zeros_like(out[b, n:]))
     assert torch.equal(ops.masked_attention(q, k, v), ops.masked_attention_reference(q, k, v))
 
 
+@pytest.mark.parametrize("lengths", [[9, 1, 5], [9, 9, 9], None])
+def test_masked_attention_gradients_leave_the_padding_out(lengths):
+    """Under a random upstream gradient, the gradients to q, k and v equal
+    those of the rows run alone (the dense einsums over all frames where
+    there is no padding) with that gradient zeroed at the padded queries:
+    a padded frame gets none."""
+    q, k, v = _qkv(seed=12)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(13), dtype=torch.float64)
+    n = lengths or [q.shape[1]] * q.shape[0]
+    valid = torch.arange(q.shape[1])[None] < torch.tensor(n)[:, None]
+
+    def grads(fn, upstream):
+        xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        return torch.autograd.grad(fn(*xs), xs, upstream)
+
+    got = grads(lambda a, b, c: ops.masked_attention(
+        a, b, c, None if lengths is None else torch.tensor(lengths)), g)
+    if lengths is None:
+        want = grads(ops.masked_attention_reference, g)
+    else:
+        want = grads(lambda a, b, c: _rows_alone(a, b, c, n), g * valid[:, :, None, None])
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, **CUT)
+        assert torch.equal(x[~valid], torch.zeros_like(x[~valid]))
+
+
+def _stand_in_forward(q, k, v, bias, cu_q, cu_k, max_q, max_k, dropout_p, mask_type, lse_out,
+                      *, scale):
+    """The memory-efficient kernel's cumulative-length forward as the card
+    runs it, in plain torch: ``q, k, v (1, N, H, d)``, each segment of
+    ``cu_q`` attending within itself; the log-sum-exp ``(segments, H,
+    max_q rounded up to 32)``."""
+    assert q.shape[0] == 1 and bias is None and cu_q is cu_k and max_q == max_k
+    assert cu_q.dtype == torch.int32 and (dropout_p, mask_type, scale) == (0.0, 0, 1.0)
+    cu = cu_q.tolist()
+    assert max_q == max(b - a for a, b in zip(cu, cu[1:])) and cu[-1] == q.shape[1]
+    out = torch.empty_like(q)
+    lse = q.new_zeros((len(cu) - 1, q.shape[2], -(-max_q // 32) * 32 if lse_out else 0))
+    for s, (a, b) in enumerate(zip(cu, cu[1:])):
+        logits = torch.einsum("qhd,khd->hqk", q[0, a:b], k[0, a:b])
+        out[0, a:b] = torch.einsum("hqk,khd->qhd", torch.softmax(logits, -1), v[0, a:b])
+        if lse_out:
+            lse[s, :, :b - a] = torch.logsumexp(logits, -1)
+    empty = torch.empty((), dtype=torch.int64)
+    return out, lse, empty, empty, max_q, max_k
+
+
+def _stand_in_backward(g, q, k, v, bias, out, cu_q, cu_k, max_q, max_k, lse, dropout_p, seed,
+                       offset, mask_type, bias_grad, *, scale):
+    assert lse.shape[-1] >= max_q and not bias_grad
+    xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        o = _stand_in_forward(*xs, None, cu_q, cu_k, max_q, max_k, 0.0, 0, False, scale=scale)[0]
+        torch.testing.assert_close(o, out, **CUT)
+        return (*torch.autograd.grad(o, xs, g), None)
+
+
+@pytest.mark.parametrize("lengths", [[9, 1, 5], [9, 9, 4], [2, 0, 12]])
+def test_ragged_route_gathers_and_scatters_each_rows_frames(monkeypatch, lengths):
+    """The card's ragged route (``_RaggedAttention``) on the CPU, its two
+    kernels stood in for by plain torch over the same cumulative lengths:
+    the gathers, ``cu_seqlens`` and the scatters give what the rows run
+    alone give, 0 at padded queries and no gradient to padded frames; a
+    length of 0 reads one frame, one past T all of them."""
+    monkeypatch.setattr(torch.ops.aten, "_efficient_attention_forward", _stand_in_forward)
+    monkeypatch.setattr(torch.ops.aten, "_efficient_attention_backward", _stand_in_backward)
+    q, k, v = _qkv(seed=14)
+    T = q.shape[1]
+    rows = attention.ragged_rows(torch.tensor(lengths), q.shape[0], T, "cpu")
+    n = [min(max(x, 1), T) for x in lengths]
+    assert rows.cu_seqlens.tolist() == [0, *torch.tensor(n).cumsum(0).tolist()]
+    assert (rows.frames, rows.max_seqlen) == (sum(n), max(n))
+    assert rows.pairs_skipped == q.shape[0] * T * T - sum(x * x for x in n)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(15), dtype=torch.float64)
+    xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = attention._RaggedAttention.apply(*xs, rows)
+    got = torch.autograd.grad(out, xs, g)
+    ys = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want_out = _rows_alone(*ys, n)
+    want = torch.autograd.grad(want_out, ys, g * rows.valid[:, :, None, None])
+    assert torch.equal(out[~rows.valid], torch.zeros_like(out[~rows.valid]))
+    torch.testing.assert_close(out, want_out, **CUT)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, **CUT)
+        assert torch.equal(x[~rows.valid], torch.zeros_like(x[~rows.valid]))
+
+
+def test_ragged_rows_are_none_where_nothing_is_masked():
+    assert attention.ragged_rows(None, 3, 9, "cpu") is None
+    assert attention.ragged_rows(torch.tensor([9, 9, 9]), 3, 9, "cpu") is None
+    assert attention.ragged_rows(torch.tensor([9, 12, 9]), 3, 9, "cpu") is None
+    rows = attention.ragged_rows([9, 3, 9], 3, 9, "cpu")
+    with pytest.raises(ValueError, match="masked_attention"):
+        ops.masked_attention(*_qkv(shape=(3, 8, 2, 4)), rows)
+
+
 def test_counters_count_calls_and_masked_keys():
+    """The CPU route moves the calls and the masked keys; the
+    cumulative-length counters move on the card's route alone."""
     model = _model()
     inputs = _inputs()
     lengths = torch.tensor(LENGTHS, dtype=torch.int32)
     calls, masked = attention.attention_calls, attention.attention_masked_keys
+    varlen = attention.attention_varlen_calls, attention.attention_pairs_skipped
     _loss_and_grads(model, inputs, lengths)
     layers = CFG["num_transformer_layers"]
     assert attention.attention_calls == calls + layers
@@ -307,6 +423,24 @@ def test_counters_count_calls_and_masked_keys():
     _loss_and_grads(model, inputs, None)
     assert attention.attention_calls == calls + 2 * layers
     assert attention.attention_masked_keys == masked + layers * (B * T - sum(LENGTHS))
+    assert (attention.attention_varlen_calls, attention.attention_pairs_skipped) == varlen
+
+
+@pytest.mark.parametrize("lengths", [[9, 1, 5], [9, 9, 9], None])
+def test_card_route_counters_on_meta_tensors(lengths):
+    """Meta tensors take the card's branch: a ragged call takes the
+    cumulative-length route and moves its counters by one call and B·T² −
+    Σ L² pairs; full rows and no ``lengths`` take the dense route and move
+    neither. The output keeps q's shape."""
+    q = torch.empty((3, 9, 2, 4), device="meta")
+    before = attention.attention_varlen_calls, attention.attention_pairs_skipped
+    with torch.no_grad():
+        out = ops.masked_attention(q, q, q, None if lengths is None else torch.tensor(lengths))
+    assert out.shape == q.shape
+    ragged = lengths is not None and min(lengths) < 9
+    skipped = 3 * 81 - sum(n * n for n in lengths) if ragged else 0
+    assert (attention.attention_varlen_calls - before[0],
+            attention.attention_pairs_skipped - before[1]) == (int(ragged), skipped)
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "stride"])

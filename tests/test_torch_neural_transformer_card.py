@@ -1,9 +1,10 @@
 """The contextual neural HMM with attention transitions on the card: its
 ragged training step held to the CPU in float64, every device op of the
 step put down to a span of the port (the attention's forward and
-backward kernels under ``kernels.attention``), the attention in float32
-rather than TF32, and the wrapper raising where its fused kernel cannot
-run, never building the ``(B, H, T, T)`` logits.
+backward kernels under ``kernels.attention``), the attention over each
+row's own frames in float32 rather than TF32, its counters at the
+cell's shape, and the wrapper raising where its fused kernel cannot run,
+never building the ``(B, H, T, T)`` logits.
 
 Two sizes: a small one (S=6, D=8, hidden 32 in 8 heads of 4, B=3, T=40, a
 row of one frame) and the benchmark cell's widths
@@ -112,8 +113,9 @@ def test_card_attention_ops_lie_under_their_spans(size):
     to a program span (``tests/test_torch_neural_card.py``
     ``attribute_step``); the attention's kernels, two a block (forward and
     backward, ``bench_torch/rooflines/neural_attention.py``'s pattern and
-    launch count), under ``kernels.attention``; the rest of the encoder
-    under ``models.neural.encoder`` or ``ops.attention``."""
+    launch count), under ``kernels.attention`` with the gathers and
+    scatters of each row's frames; the rest of the encoder, the ragged
+    rows included, under ``models.neural.encoder``."""
     from test_torch_neural_card import attribute_step
 
     from bench_torch.rooflines import neural_attention
@@ -141,9 +143,11 @@ def test_card_attention_ops_lie_under_their_spans(size):
     # The forward kernels launch inside the span; the backward's are put
     # down through the forward op that recorded their node.
     assert sum(d["op_span"][k] is not None for k in kernels) == 3
+    # The ragged rows are built once a step under the encoder; each call's
+    # span then holds no device op outside its kernels' span.
     seen = set(names)
-    assert {"models.neural.encoder", "ops.attention", "kernels.attention",
-            "models.neural.transitions"} <= seen
+    assert {"models.neural.encoder", "kernels.attention", "models.neural.transitions"} <= seen
+    assert "ops.attention" in {s[0] for s in d["spans"]} and "ops.attention" not in seen
 
 
 def _ancestry(event):
@@ -156,10 +160,12 @@ def _ancestry(event):
 
 @pytest.mark.card
 def test_card_attention_is_float32_not_tf32():
-    """The fused kernel against the float64 einsums: its error is well
-    under that of the benchmark control's attention (every product's
-    operands rounded to TF32, forward and backward), in the output and in
-    the gradients."""
+    """The ragged route (the memory-efficient kernels over each row's own
+    frames) against the float64 einsums, on every element, the padded
+    queries' zeros and the padded frames' zero gradients included: its
+    error is well under that of the benchmark control's attention (every
+    product's operands rounded to TF32, forward and backward, under the
+    same contract), in the output and in the gradients."""
     from bench_torch.reference.neural_hmm_transformer import batched
     from bench_torch.reference.tf32 import tf32_matmul
     from pytorch_hmm_tpu_torch import ops
@@ -169,7 +175,8 @@ def test_card_attention_is_float32_not_tf32():
     def control(a, b, c, keys):
         a, b, c = (t.transpose(1, 2) for t in (a, b, c))
         logits = bmm(a, b.transpose(-1, -2)).masked_fill(~keys[:, None, None, :], float("-inf"))
-        return bmm(torch.softmax(logits, dim=-1), c).transpose(1, 2)
+        out = bmm(torch.softmax(logits, dim=-1), c).transpose(1, 2)
+        return out.masked_fill(~keys[:, :, None, None], 0.0)
 
     dev = _card()
     gen = torch.Generator(device=dev).manual_seed(25)
@@ -190,9 +197,51 @@ def test_card_attention_is_float32_not_tf32():
     got = grads(lambda a, b, c: ops.masked_attention(a, b, c, lengths), q, k, v)
     tf32 = grads(lambda a, b, c: control(a, b, c, keys), q, k, v)
     for name, w, x, y in zip(("out", "dq", "dk", "dv"), want, got, tf32):
+        assert torch.equal(x[~keys], torch.zeros_like(x[~keys])), name
         err = float((x.double() - w).abs().max())
         err_tf32 = float((y.double() - w).abs().max())
         assert err * 8 < err_tf32, (name, err, err_tf32)
+
+
+@pytest.mark.card
+def test_card_cell_step_moves_the_counters():
+    """At the cell's shape (B=512, T=1000, the traffic's lengths on their
+    grid over 250-1000, the cell's widths), a training step takes the
+    cumulative-length route in each of the three blocks: the counters move
+    by 3 calls and 3·(B·T² − Σ L²) pairs. A call without ``lengths`` takes
+    the dense route and moves neither."""
+    import json
+
+    from bench_torch.families import walks
+    from pytorch_hmm_tpu_torch import ContextualNeuralHMM
+    from pytorch_hmm_tpu_torch.ops import attention
+
+    dev = _card()
+    z = SIZES["cell"]
+    traffic = json.loads((ROOT / "bench_torch" / "traffic" / "train.b512.json").read_text())
+    B, T = traffic["batch"], traffic["max_frames"]
+    gen = torch.Generator(device=dev).manual_seed(27)
+    lengths = walks.lengths(traffic, gen, dev)[0]
+    hmm = ContextualNeuralHMM(z["S"], z["D"], z["V"], linguistic_context_dim=z["L"],
+                              prosody_dim=z["P"], hidden_dim=z["H"], dropout=0.0,
+                              transition_type="transformer", device=dev,
+                              generator=torch.Generator().manual_seed(23))
+    obs = torch.randn((B, T, z["D"]), generator=gen, device=dev)
+    ph = torch.randint(0, z["V"], (B, T), generator=gen, device=dev)
+    pros = torch.randn((B, T, z["P"]), generator=gen, device=dev)
+    before = attention.attention_varlen_calls, attention.attention_pairs_skipped
+    _step(hmm, obs, ph, pros, lengths)
+    torch.cuda.synchronize(dev)
+    n = lengths.tolist()
+    assert min(n) < T
+    assert (attention.attention_varlen_calls - before[0],
+            attention.attention_pairs_skipped - before[1]) == (3, 3 * (B * T * T - sum(
+                x * x for x in n)))
+    before = attention.attention_varlen_calls, attention.attention_pairs_skipped
+    with torch.no_grad():
+        hmm.compute_loss(obs[:8], hmm.encode_context(ph[:8], pros[:8]))
+    torch.cuda.synchronize(dev)
+    assert (attention.attention_varlen_calls, attention.attention_pairs_skipped) == before
 
 
 @pytest.mark.card
