@@ -7,13 +7,14 @@ and then calls the timed entry in a closed loop for ``seconds``: a call
 is due when the one before it returned, and returns when its result is on
 the host. With tracing on, a stretch of further calls runs under
 ``torch.profiler`` after the window closes, in the same steady state, with
-the benchmark's own spans around each call's parts. Last, the program's
-state is freed and its answers are held against the plain reference.
+the benchmark's own spans around each call's parts; the profile is read
+once, the port's own spans with it, and each device op is put down to the
+program span it ran for (``spans.py``). Last, the program's state is
+freed and its answers are held against the plain reference.
 """
 
 from __future__ import annotations
 
-import bisect
 import contextlib
 import importlib
 import importlib.util
@@ -27,6 +28,8 @@ from pathlib import Path
 from types import SimpleNamespace
 
 import torch
+
+from . import spans
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -209,13 +212,20 @@ def run_window(session, seconds: float) -> dict:
 
 
 def run_trace(session, calls: int) -> dict:
-    """``calls`` more calls under ``torch.profiler``, the spans on."""
+    """``calls`` more calls under ``torch.profiler`` (its CUDA activity on
+    a CUDA device only), the spans on; the profile read once by
+    ``spans.from_profile`` with the backward put down through its forward
+    ops: ``ops``, ``host``, ``spans``, ``op_span``, and ``calls`` (each
+    traced call's sizes), ``stretch_s`` (the stretch's wall time),
+    ``read_s`` (the reading's)."""
     from torch.profiler import ProfilerActivity, profile
 
     session.tracing = True
     sync(session.device)
     first = session.next_call
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if session.device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for i in range(first, first + calls):
             session.call(i)
@@ -223,71 +233,37 @@ def run_trace(session, calls: int) -> dict:
         stretch = time.perf_counter() - t0
     session.tracing = False
     session.next_call = first + calls
-    dev, host = [], []
-    for e in prof.events():
-        iv = (e.name, e.time_range.start / 1e6, e.time_range.end / 1e6)
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            host.append(iv)
-        elif not getattr(e, "is_user_annotation", False):
-            dev.append(iv)
-    dev.sort(key=lambda x: x[1])
-    return {"calls": [session.fam.shapes(session.cfg, session.pool.lens[i % session.pool.size])
-                      for i in range(first, first + calls)],
-            "stretch_s": stretch, "ops": dev, "host": host}
-
-
-def merged(intervals):
-    out = []
-    for _, a, b in sorted(intervals, key=lambda x: x[1]):
-        if out and a <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], b)
-        else:
-            out.append([a, b])
+    t_read = time.perf_counter()
+    out = spans.from_profile(prof, through_forward=True)
+    out["read_s"] = time.perf_counter() - t_read
+    out["calls"] = [session.fam.shapes(session.cfg, session.pool.lens[i % session.pool.size])
+                    for i in range(first, first + calls)]
+    out["stretch_s"] = stretch
     return out
-
-
-_SPANS = ("model", "backward", "optimizer.step", "to_host")
-
-
-def _innermost(host, starts, mid, reach=256):
-    """The latest-starting host event that covers ``mid``."""
-    k = bisect.bisect_right(starts, mid) - 1
-    for j in range(k, max(k - reach, -1), -1):
-        if host[j][2] >= mid:
-            return host[j][0]
-    return None
 
 
 def breakdown(trace: dict) -> dict:
     """The device ops that took most time, and the idle gaps between
-    device ops summed by what the host was doing at each gap's middle: the
-    benchmark's span, then the innermost host event."""
+    device ops summed by what the host was doing at each gap's middle, as
+    ``spans.idle_gaps`` labels them: the benchmark's span, then the
+    innermost program span, then the innermost host event."""
     by_op = {}
     for name, a, b in trace["ops"]:
         by_op[name] = by_op.get(name, 0.0) + (b - a)
-    host = sorted(trace["host"], key=lambda x: x[1])
-    spans = [h for h in host if h[0] in _SPANS]
-    starts, span_starts = [h[1] for h in host], [h[1] for h in spans]
-    busy = merged(trace["ops"])
-    gaps = {}
-    for (_, a), (b, _) in zip(busy, busy[1:]):
-        mid = 0.5 * (a + b)
-        span = _innermost(spans, span_starts, mid, reach=4) or "between calls"
-        inner = _innermost(host, starts, mid)
-        label = span if inner in (None, span) else f"{span}: {inner}"
-        gaps[label] = gaps.get(label, 0.0) + (b - a)
 
     def top(d):
         return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]
 
-    return {"device_ops": top(by_op), "idle_gaps": top(gaps)}
+    return {"device_ops": top(by_op), "idle_gaps": top(spans.idle_gaps(trace))}
 
 
 def roofline_pct(kernel, r):
-    """A kernel's least time over its traced time, in percent: the least
-    time of each traced call's shapes (``kernel.work``: bytes, float32
-    operations) times the kernel's launches a call, over the time of the
-    ops whose names match ``kernel.PATTERN``. ``None`` where none ran."""
+    """A kernel's least time over its traced time, in percent. The least
+    time is that of each traced call's sizes: where the kernel's file has
+    ``call_work(sizes)``, the work of the whole call, however many
+    launches it takes; otherwise ``work(sizes)``, one launch's, times the
+    launches a call that match ``kernel.PATTERN``. The traced time is
+    that of those ops. ``None`` where none ran."""
     import re
 
     from .peaks import least_seconds
@@ -296,7 +272,10 @@ def roofline_pct(kernel, r):
     if not ops or not r.calls:
         return None
     spent = sum(b - a for a, b in ops)
-    least = sum(least_seconds(*kernel.work(s)) for s in r.calls) * len(ops) / len(r.calls)
+    if hasattr(kernel, "call_work"):
+        least = sum(least_seconds(*kernel.call_work(s)) for s in r.calls)
+    else:
+        least = sum(least_seconds(*kernel.work(s)) for s in r.calls) * len(ops) / len(r.calls)
     return 100.0 * least / spent
 
 
@@ -319,8 +298,12 @@ def judged(values: dict, limits: dict) -> tuple:
     return ok and set(values) == set(limits), checks
 
 
-def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: float) -> dict:
-    """One run; returns the result line's object."""
+def set_up(cell, seed: int, device, t_start: float):
+    """The session of one run, built and warmed, TF32 off; and the set-up
+    in its three parts, each in seconds: ``imports`` (process start to
+    here: the imports and the card), ``model`` (weights, pool and the
+    port's model) and ``warm`` (the warm-up, which builds the kernels in
+    a checkout's first run)."""
     device = torch.device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -331,13 +314,69 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
     session.warm()
     sync(device)
     t2 = time.perf_counter()
-    setup_s = t2 - t_start
     print(f"set-up: imports and card {t0 - t_start:.4f} s, weights, pool and model "
           f"{t1 - t0:.4f} s, warm-up {t2 - t1:.4f} s", file=sys.stderr)
+    return session, {"imports": t0 - t_start, "model": t1 - t0, "warm": t2 - t1,
+                     "total": t2 - t_start}
+
+
+def reading(cell, setup: dict, window: dict, traced) -> SimpleNamespace:
+    """What the metric readers read (``metrics/__init__.py``) of one run:
+    its set-up, its window and, where one ran, its traced stretch."""
+    r = SimpleNamespace(cfg=cell.cfg, traffic=cell.traffic, setup_s=setup["total"],
+                        setup_parts={k: setup[k] for k in ("imports", "model", "warm")},
+                        window=window, calls=[], ops=[], stretch_s=0.0, busy_s=0.0,
+                        spans=[], op_span=[])
+    if traced:
+        r.calls, r.ops, r.stretch_s = traced["calls"], traced["ops"], traced["stretch_s"]
+        r.spans, r.op_span = traced["spans"], traced["op_span"]
+        r.busy_s = sum(b - a for a, b in spans.merged(traced["ops"]))
+    return r
+
+
+def read_metrics(wanted, r) -> dict:
+    """``{name: {"value", "unit"}}`` of the metrics ``wanted`` whose
+    readers find something to read in ``r``."""
+    metrics = {}
+    for m in wanted:
+        v = metric_reader(m["name"])(r)
+        if v is not None:
+            metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+    return metrics
+
+
+# Neither JAX nor the JAX package runs in a process that reports, by whole
+# top-level name: the port's own name begins with the JAX package's.
+FOREIGN = frozenset({"jax", "jaxlib", "flax", "pytorch_hmm_tpu"})
+
+
+class ForeignModules(RuntimeError):
+    """The process holds JAX or the JAX package: the run reports nothing."""
+
+
+def foreign_modules() -> list:
+    """The top-level names of ``FOREIGN`` that ``sys.modules`` holds."""
+    return sorted({name.split(".")[0] for name in list(sys.modules)} & FOREIGN)
+
+
+def refuse_foreign():
+    found = foreign_modules()
+    if found:
+        raise ForeignModules(f"the process holds {', '.join(found)}; the benchmark "
+                             "measures the PyTorch port alone, and reports nothing")
+
+
+def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: float) -> dict:
+    """One run; returns the result line's object. Raises ``ForeignModules``
+    where JAX or the JAX package is loaded once the window has closed, or
+    once the run is read."""
+    device = torch.device(device)
+    session, setup = set_up(cell, seed, device, t_start)
     window = run_window(session, seconds)
+    refuse_foreign()
     lat = window["latency_ms"]
-    print(f"setup {setup_s:.4f} s; window: {window['calls']} calls, {window['frames']} frames in "
-          f"{window['seconds']:.4f} s, {window['cpu_s']:.4f} s of CPU; call median "
+    print(f"setup {setup['total']:.4f} s; window: {window['calls']} calls, {window['frames']} "
+          f"frames in {window['seconds']:.4f} s, {window['cpu_s']:.4f} s of CPU; call median "
           f"{statistics.median(lat):.4f} ms, max {max(lat):.4f} ms", file=sys.stderr)
     tenth = max(1, len(lat) // 10)
     print("call median by tenth of the window, ms: " + " ".join(
@@ -349,18 +388,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
     values = session.judge()
     correct, checks = judged(values, cell.limits)
 
-    reading = SimpleNamespace(cfg=cell.cfg, traffic=cell.traffic, setup_s=setup_s,
-                              window=window, calls=[], ops=[], stretch_s=0.0, busy_s=0.0)
-    if traced:
-        reading.calls, reading.ops, reading.stretch_s = (traced["calls"], traced["ops"],
-                                                         traced["stretch_s"])
-        reading.busy_s = sum(b - a for a, b in merged(traced["ops"]))
-    wanted = cell.per_layer if trace else cell.end_to_end
-    metrics = {}
-    for m in wanted:
-        v = metric_reader(m["name"])(reading)
-        if v is not None:
-            metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+    r = reading(cell, setup, window, traced)
+    metrics = read_metrics(cell.per_layer if trace else cell.end_to_end, r)
 
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
@@ -369,11 +398,17 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
         from .card import card_line
         dev["card"] = card_line()
     if traced:
-        dev["busy_s"] = reading.busy_s
-        dev["window_s"] = reading.stretch_s
+        dev["busy_s"] = r.busy_s
+        dev["window_s"] = r.stretch_s
+        t_gaps = time.perf_counter()
+        parts = breakdown(traced)
+        print(f"trace: {len(traced['ops'])} device ops, {len(traced['host'])} host events, "
+              f"{len(traced['spans'])} program spans; read in {traced['read_s']:.4f} s, "
+              f"breakdown in {time.perf_counter() - t_gaps:.4f} s", file=sys.stderr)
     out = {"correct": correct, "attempted": window["calls"], "failed": 0, "metrics": metrics,
            "device": dev}
     if traced:
-        out["breakdown"] = breakdown(traced)
+        out["breakdown"] = parts
     out["checks"] = checks
+    refuse_foreign()
     return out

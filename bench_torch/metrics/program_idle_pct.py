@@ -7,7 +7,6 @@ from bench_torch.spans import program_idle_s
 
 
 def read(r):
-    spans = getattr(r, "spans", None)
-    if not spans or not r.ops or not r.stretch_s:
+    if not r.spans or not r.ops or not r.stretch_s:
         return None
-    return 100.0 * program_idle_s(r.ops, spans) / r.stretch_s
+    return 100.0 * program_idle_s(r.ops, r.spans) / r.stretch_s

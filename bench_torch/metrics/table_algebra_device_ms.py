@@ -1,16 +1,13 @@
-"""Device time a traced step of the ops launched inside the
-``core.hsmm_grads_from_tables`` span (``op_span``): the training
-backward's table algebra, apart from Adam, the duration pmf's backward
-and the emission's backward, which share its kernels' names. ``None``
-where the reading has no such span."""
+"""Device time a traced step of the ops that ran for the
+``kernels.hsmm_table_grads`` span: the training backward's table algebra
+(row 24's launch and its fixed-order reduce), apart from Adam, the
+duration pmf's backward and the emission's backward. ``None`` where the
+reading has no such span."""
 
-from bench_torch.spans import device_s_under
+from bench_torch.spans import span_device_ms
 
-NAME = "core.hsmm_grads_from_tables"
+NAME = "kernels.hsmm_table_grads"
 
 
 def read(r):
-    spans = getattr(r, "spans", None)
-    if not spans or not r.ops or not r.calls or not any(s[0] == NAME for s in spans):
-        return None
-    return 1e3 * device_s_under(r.ops, r.op_span, spans, NAME) / len(r.calls)
+    return span_device_ms(r, NAME)

@@ -10,7 +10,9 @@ object as the last line of standard output: ``correct``, ``attempted``,
 ``failed``, ``metrics`` (the cell's end-to-end metrics, or with
 ``--trace 1`` its per-layer ones), ``device``, with ``--trace 1``
 ``breakdown``, and ``checks`` last. Exits 2, printing no result, where
-PyTorch sees no CUDA card or fewer than the cell asks for.
+PyTorch sees no CUDA card or fewer than the cell asks for, and 3, naming
+them on standard error, where ``jax``, ``jaxlib``, ``flax`` or the JAX
+package ``pytorch_hmm_tpu`` is loaded once the window has closed.
 
 The process keeps to one CPU core, the last it may use, with one thread
 for PyTorch's CPU work: the card has one caller, and a caller that moves
@@ -50,7 +52,11 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {cell.chips} CUDA card(s); PyTorch sees "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}", file=sys.stderr)
         return 2
-    out = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda:0", T_START)
+    try:
+        out = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda:0", T_START)
+    except harness.ForeignModules as e:
+        print(e, file=sys.stderr)
+        return 3
     for name, c in out["checks"].items():
         print(f"check {name} = {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     print(json.dumps(_plain(out)), flush=True)

@@ -1,39 +1,50 @@
 #!/usr/bin/env python3
-"""The port's own spans in a traced stretch, and the device ops and idle
-gaps put down to them.
+"""The traced stretch read from its profile: the device ops, the host
+events, the port's own spans, and each device op put down to the span it
+ran for.
 
 The port names its layers with ``torch.profiler.record_function`` spans
 (``pytorch_hmm_tpu_torch.trace``: ``models.*``, ``ops.*``, ``core.*``,
 ``kernels.*``) while a profiler runs. :func:`from_profile` reads a
-finished profile into what ``harness.run_trace`` reads (``ops``, ``host``)
-and two more fields:
+finished profile, in one pass over its events, into what
+``harness.run_trace`` returns:
 
+* ``ops``: the device ops as ``(name, start_s, end_s)``, sorted by start,
+  the device side of user annotations left out;
+* ``host``: every host event as ``(name, start_s, end_s)``;
 * ``spans``: each program span as ``(name, start_s, end_s, thread,
   parent)``, ``parent`` the index of the innermost program span of the
   same thread around it, or ``None``;
 * ``op_span``: for each entry of ``ops``, the index in ``spans`` of the
-  innermost program span open where the op was launched, or ``None``. A
-  device op names the host event that launched it: by its
-  ``linked_correlation_id`` the aten op (or, for a ``ctypes`` launch, the
-  span itself) where ``torch`` gives that field; otherwise, by its own
-  correlation id, the CUDA runtime call (``cudaLaunchKernel``,
-  ``cudaMemcpyAsync``, ...), which lies inside that op or span. The
-  innermost program span of that event's thread around its start is the
-  one.
+  program span it ran for, or ``None``.
 
-The readers ``metrics/program_idle_pct.py``, ``model_host_ms.py`` and
-``table_algebra_device_ms.py`` read those two fields from a reading, and
-return ``None`` where it has no program span.
+A device op names the host event that launched it: by its
+``linked_correlation_id`` the aten op (or, for a ``ctypes`` launch, the
+span itself) where ``torch`` gives that field; otherwise, by its own
+correlation id, the CUDA runtime call (``cudaLaunchKernel``,
+``cudaMemcpyAsync``, ...), which lies inside that op or span. The op runs
+for the innermost program span of that event's thread around its start.
+With ``through_forward``, an op that autograd launched outside every
+program span runs for the span that was open where its forward op ran:
+the op that recorded the autograd node around the launch, matched by the
+node's ``sequence_nr`` (:class:`Autograd`). An op launched inside an
+explicit backward span (``ops.hsmm_log_z.backward``) keeps that span.
+
+The readers under ``metrics/`` read ``spans`` and ``op_span`` from a
+reading, and return ``None`` where it has no span of theirs.
 
     python3 bench_torch/spans.py --workload <name> --seed <n> [--seconds <s>]
 
 runs one cell as ``run.py --trace 1`` does (set-up, a closed-loop window
-of ``--seconds``, then the cell's traced stretch) and prints on standard
-error the table of program spans (:func:`span_table`), the idle gaps with
-the program span at each (:func:`idle_gaps`) and each host wait on the
-stream's sync (:func:`sync_waits`); the last line of standard output is a
-JSON object with the cell's per-layer metrics read from the same stretch,
-the three above among them. Needs a CUDA card; exits 2 without one.
+of ``--seconds``, then the cell's traced stretch through
+``harness.run_trace``) and prints on standard error the cell's per-layer
+metrics as ``BENCHMARK.json`` lists them, the table of program spans
+(:func:`span_table`), the device ops with no program span
+(:func:`unattributed`), the idle gaps with the program span at each
+(:func:`idle_gaps`) and each host wait on the stream's sync
+(:func:`sync_waits`); the last line of standard output is a JSON object
+with all of these. It checks no output. Needs a CUDA card; exits 2
+without one.
 """
 
 from __future__ import annotations
@@ -44,27 +55,24 @@ import statistics
 import sys
 import time
 from pathlib import Path
-from types import SimpleNamespace
 
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-
-from bench_torch import harness  # noqa: E402
-from bench_torch.card import card_line  # noqa: E402
-
 PREFIXES = ("models.", "ops.", "core.", "kernels.")
+# The benchmark's own spans around each call's parts (``entries/``).
+BENCH_SPANS = ("model", "backward", "optimizer.step", "to_host")
 SYNC = "cudaStreamSynchronize"
 _RUNTIME = re.compile(r"cuda|cu[A-Z]")   # CUDA runtime and driver calls
 
 
-def from_profile(prof) -> dict:
+def from_profile(prof, through_forward: bool = False) -> dict:
     """``ops``, ``host``, ``spans`` and ``op_span`` of a finished
-    ``torch.profiler.profile``; ``ops`` and ``host`` as
-    ``harness.run_trace`` builds them (device ops sorted by start, the
-    device side of user annotations left out)."""
+    ``torch.profiler.profile``, reading ``prof.events()`` once; with
+    ``through_forward`` the backward's ops are put down through their
+    forward op (:class:`Autograd`)."""
     cuda = torch.autograd.DeviceType.CUDA
     dev, host, launched, raw = [], [], {}, []
+    grad = Autograd() if through_forward else None
     for e in prof.events():
         a, b = e.time_range.start / 1e6, e.time_range.end / 1e6
         if e.device_type != cuda:
@@ -74,12 +82,15 @@ def from_profile(prof) -> dict:
             key = (bool(_RUNTIME.match(e.name)), e.id)
             if not e.is_async and (key not in launched or a < launched[key][0]):
                 launched[key] = (a, e.thread)
+            if grad is not None:
+                grad.add(e.name, a, b, e.thread, e.sequence_nr)
         elif not getattr(e, "is_user_annotation", False):
             dev.append(((e.name, a, b), launched_by(e)))
     dev.sort(key=lambda x: x[0][1])
     spans = nest(raw)
+    sites = [launched.get(link) for _, link in dev]
     return {"ops": [op for op, _ in dev], "host": host, "spans": spans,
-            "op_span": attribute([link for _, link in dev], launched, spans)}
+            "op_span": owners(sites, spans, grad)}
 
 
 def launched_by(event):
@@ -91,8 +102,9 @@ def launched_by(event):
 
 
 def nest(raw):
-    """Program spans ``(name, start, end, thread)`` with the index of
-    each one's parent appended, sorted by start."""
+    """Intervals ``(name, start, end, thread)`` with the index of each
+    one's parent (the innermost of its thread around it) appended, sorted
+    by start."""
     raw = sorted(raw, key=lambda s: (s[1], -s[2]))
     out, open_ = [], {}
     for name, a, b, thread in raw:
@@ -104,9 +116,19 @@ def nest(raw):
     return out
 
 
+def by_thread(spans):
+    """``{thread: (indices, starts)}`` of ``spans`` in start order."""
+    index = {}
+    for i, s in enumerate(spans):
+        ids, starts = index.setdefault(s[3], ([], []))
+        ids.append(i)
+        starts.append(s[1])
+    return index
+
+
 def innermost(spans, thread, t, index=None):
-    """Index of the innermost program span of ``thread`` open at ``t``
-    (of the latest-starting such span of any thread where ``thread`` is
+    """Index of the innermost span of ``thread`` open at ``t`` (of the
+    latest-starting such span of any thread where ``thread`` is
     ``None``), or ``None``. ``index`` is :func:`by_thread` of ``spans``,
     built once for many lookups."""
     index = by_thread(spans) if index is None else index
@@ -121,25 +143,74 @@ def innermost(spans, thread, t, index=None):
     return j
 
 
-def by_thread(spans):
-    """``{thread: (indices, starts)}`` of ``spans`` in start order."""
-    index = {}
-    for i, s in enumerate(spans):
-        ids, starts = index.setdefault(s[3], ([], []))
-        ids.append(i)
-        starts.append(s[1])
-    return index
+def is_node(name: str) -> bool:
+    """An autograd node's host event (``AddmmBackward0``,
+    ``_FBLogLikelihoodBackward``, and the engine's event around each)."""
+    return name.endswith("Backward") or name[:-1].endswith("Backward")
 
 
-def attribute(links, launched, spans):
-    """``op_span``: for each op's key in ``launched`` (``{key: (start,
-    thread)}`` of host events), the innermost program span around the
-    launching host event's start."""
+class Autograd:
+    """The backward's autograd nodes on the host, and the forward op that
+    recorded each. Fed every host event (:meth:`add`), it answers where
+    the forward op of a host instant inside a node ran
+    (:meth:`forward_site`).
+
+    An op that records a node and the node share a ``sequence_nr``. Ops
+    that record none (a cast, an optimizer's update) share the number of
+    the next node; the op that records it starts last of them, so the
+    latest-starting event of a number outside every node is its forward
+    op."""
+
+    def __init__(self):
+        self.nodes, self.numbers, self.recorded = [], [], []
+        self._tree = None
+
+    def add(self, name, start, end, thread, sequence_nr):
+        if is_node(name):
+            self.nodes.append((name, start, end, thread))
+            self.numbers.append(sequence_nr)
+        elif sequence_nr >= 0 and not name.startswith("autograd"):
+            self.recorded.append((sequence_nr, start, thread))
+        self._tree = None
+
+    def _build(self):
+        order = sorted(range(len(self.nodes)),
+                       key=lambda i: (self.nodes[i][1], -self.nodes[i][2]))
+        self._tree = nest([self.nodes[i] for i in order])
+        self._numbers = [self.numbers[i] for i in order]
+        self._index = by_thread(self._tree)
+        self._forward = {}
+        for number, start, thread in self.recorded:
+            if innermost(self._tree, thread, start, self._index) is not None:
+                continue
+            seen = self._forward.get(number)
+            if seen is None or start > seen[0]:
+                self._forward[number] = (start, thread)
+
+    def forward_site(self, t, thread):
+        """``(start, thread)`` of the forward op whose node is the
+        innermost one of ``thread`` open at ``t``; ``None`` outside every
+        node, or where no forward op of its number was recorded."""
+        if self._tree is None:
+            self._build()
+        j = innermost(self._tree, thread, t, self._index)
+        return None if j is None else self._forward.get(self._numbers[j])
+
+
+def owners(sites, spans, grad=None):
+    """For each host site ``(start, thread)`` (or ``None``), the index in
+    ``spans`` of the innermost program span around it; where there is
+    none and ``grad`` (:class:`Autograd`) has the site inside a node, the
+    span around that node's forward op."""
     index = by_thread(spans)
     out = []
-    for link in links:
-        where = launched.get(link)
-        out.append(None if where is None else innermost(spans, where[1], where[0], index))
+    for where in sites:
+        i = None if where is None else innermost(spans, where[1], where[0], index)
+        if i is None and where is not None and grad is not None:
+            fwd = grad.forward_site(where[0], where[1])
+            if fwd is not None:
+                i = innermost(spans, fwd[1], fwd[0], index)
+        out.append(i)
     return out
 
 
@@ -148,6 +219,18 @@ def chain(spans, i):
     while i is not None:
         yield i
         i = spans[i][4]
+
+
+def merged(intervals):
+    """``[[start, end], ...]`` of the union of ``(name, start, end)``
+    intervals, sorted."""
+    out = []
+    for _, a, b in sorted(intervals, key=lambda x: x[1]):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
 
 
 def overlap(xs, ys):
@@ -167,21 +250,40 @@ def overlap(xs, ys):
 def program_idle_s(ops, spans) -> float:
     """Time some program span is open, on any thread, while no device op
     runs."""
-    inside = harness.merged(s[:3] for s in spans)
-    busy = harness.merged(ops)
-    return sum(b - a for a, b in inside) - overlap(inside, busy)
+    inside = merged(s[:3] for s in spans)
+    return sum(b - a for a, b in inside) - overlap(inside, merged(ops))
 
 
-def device_s_under(ops, op_span, spans, name) -> float:
-    """Device time of the ops launched inside a program span ``name``."""
-    return sum(b - a for (_, a, b), i in zip(ops, op_span)
-               if any(spans[j][0] == name for j in chain(spans, i)))
+def device_s_under(ops, op_span, spans, name, excluding=None) -> float:
+    """Device time of the ops that ran for a program span ``name`` (the
+    op's span or one around it), less those that ran for a span
+    ``excluding`` inside it."""
+    memo = {}
+
+    def counts(i):
+        if i not in memo:
+            names = [spans[j][0] for j in chain(spans, i)]
+            inner = names[:names.index(name)] if name in names else None
+            memo[i] = inner is not None and (excluding is None or excluding not in inner)
+        return memo[i]
+
+    return sum(b - a for (_, a, b), i in zip(ops, op_span) if i is not None and counts(i))
+
+
+def span_device_ms(r, name, excluding=None):
+    """Device ms a traced call of the ops that ran for the program span
+    ``name`` in the reading ``r`` (:func:`device_s_under`); ``None``
+    where ``r`` has no such span or no traced call."""
+    if not r.ops or not r.calls or not any(s[0] == name for s in r.spans):
+        return None
+    return 1e3 * device_s_under(r.ops, r.op_span, r.spans, name, excluding) / len(r.calls)
 
 
 def span_table(trace, calls: int) -> list:
     """One row for each program span name: its entries over the stretch;
     then a traced call's host ms inside it (inclusive, and less its child
-    spans: self), device ms and device ops launched inside it."""
+    spans: self), device ms and device ops that ran for it or a span
+    inside it."""
     spans, ops, op_span = trace["spans"], trace["ops"], trace["op_span"]
     rows = {}
     for s in spans:
@@ -193,6 +295,8 @@ def span_table(trace, calls: int) -> list:
         if s[4] is not None:
             rows[spans[s[4]][0]]["self_ms"] -= s[2] - s[1]
     for (_, a, b), i in zip(ops, op_span):
+        if i is None:
+            continue
         for name in dict.fromkeys(spans[j][0] for j in chain(spans, i)):
             rows[name]["device_ms"] += b - a
             rows[name]["device_ops"] += 1
@@ -203,25 +307,48 @@ def span_table(trace, calls: int) -> list:
     return sorted(rows.values(), key=lambda r: -r["host_ms"])
 
 
+def unattributed(trace, calls: int) -> dict:
+    """The device ops with no program span, by name: ``[ops a call, ms a
+    call]`` each, largest first."""
+    out = {}
+    for (name, a, b), i in zip(trace["ops"], trace["op_span"]):
+        if i is None:
+            row = out.setdefault(name, [0.0, 0.0])
+            row[0] += 1 / calls
+            row[1] += 1e3 * (b - a) / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][1]))
+
+
+def latest_open(host, starts, t, reach=256):
+    """The name of the latest-starting of ``host`` (sorted by start, with
+    ``starts`` its starts) that covers ``t``."""
+    k = bisect.bisect_right(starts, t) - 1
+    for j in range(k, max(k - reach, -1), -1):
+        if host[j][2] >= t:
+            return host[j][0]
+    return None
+
+
 def idle_gaps(trace) -> dict:
-    """The idle gaps between device ops summed by label, as
-    ``harness.breakdown`` labels them (the benchmark's span, then the
-    innermost host event at the gap's middle), with the innermost program
-    span at the middle put between the two."""
+    """The idle gaps between device ops summed by what the host was doing
+    at each gap's middle, largest first: the benchmark's span (or
+    ``between calls``), then the innermost program span of any thread,
+    then the innermost host event, each where it differs from the one
+    before."""
     host = sorted(trace["host"], key=lambda x: x[1])
-    bench = [h for h in host if h[0] in harness._SPANS]
+    bench = [h for h in host if h[0] in BENCH_SPANS]
     starts, bench_starts = [h[1] for h in host], [h[1] for h in bench]
-    spans = trace["spans"]
+    spans = trace.get("spans") or []
     index = by_thread(spans)
     gaps = {}
-    busy = harness.merged(trace["ops"])
+    busy = merged(trace["ops"])
     for (_, a), (b, _) in zip(busy, busy[1:]):
         mid = 0.5 * (a + b)
-        label = [harness._innermost(bench, bench_starts, mid, reach=4) or "between calls"]
+        label = [latest_open(bench, bench_starts, mid, reach=4) or "between calls"]
         i = innermost(spans, None, mid, index)
         if i is not None:
             label.append(spans[i][0])
-        inner = harness._innermost(host, starts, mid)
+        inner = latest_open(host, starts, mid)
         if inner not in (None, *label):
             label.append(inner)
         key = ": ".join(label)
@@ -237,7 +364,7 @@ def sync_waits(trace) -> dict:
     nothing was left to wait for); ``wake`` the wait's end less that op's
     end; ``idle`` the time inside the wait with no device op running."""
     ops = trace["ops"]
-    busy = harness.merged(ops)
+    busy = merged(ops)
     ends = sorted(b for _, _, b in ops)
     rows = []
     for name, a, b in trace["host"]:
@@ -259,54 +386,16 @@ def sync_waits(trace) -> dict:
 # -- the command ---------------------------------------------------------------
 
 
-def traced(session, calls: int):
-    """``harness.run_trace``'s stretch of ``calls`` calls (its loop, as
-    the harness keeps the profile to itself), read with
-    :func:`from_profile`."""
-    from torch.profiler import ProfilerActivity, profile
-
-    sync = harness.sync
-    session.tracing = True
-    sync(session.device)
-    first = session.next_call
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                     if session.device.type == "cuda" else [])
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for i in range(first, first + calls):
-            session.call(i)
-        sync(session.device)
-        stretch = time.perf_counter() - t0
-    session.tracing = False
-    session.next_call = first + calls
-    out = from_profile(prof)
-    out["calls"] = [session.fam.shapes(session.cfg, session.pool.lens[i % session.pool.size])
-                    for i in range(first, first + calls)]
-    out["stretch_s"] = stretch
-    return out
-
-
-def reading(cell, trace):
-    """The reading ``harness.run_cell`` makes of a traced stretch, with
-    ``spans`` and ``op_span`` on it (no window: none ran to measure)."""
-    return SimpleNamespace(cfg=cell.cfg, traffic=cell.traffic, setup_s=0.0, window={},
-                           calls=trace["calls"], ops=trace["ops"], stretch_s=trace["stretch_s"],
-                           busy_s=sum(b - a for a, b in harness.merged(trace["ops"])),
-                           spans=trace["spans"], op_span=trace["op_span"])
-
-
-# The readers of the program's spans, by entry; step_mfu_pct reads the
-# window, which this command does not time.
-NEW_METRICS = {"decode": ["program_idle_pct.decode", "model_host_ms"],
-               "train": ["program_idle_pct.train", "table_algebra_device_ms"]}
-
-
 def main(argv=None) -> int:
     import argparse
     import json
     import os
 
     t_start = time.perf_counter()
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    from bench_torch import harness
+    from bench_torch.card import card_line
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -319,27 +408,31 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs a CUDA card", file=sys.stderr)
         return 2
     device = torch.device("cuda:0")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    session = harness.make_session(cell.cfg, cell.traffic, args.seed, device)
-    session.warm()
-    harness.sync(device)
-    harness.run_window(session, args.seconds)
-    trace = traced(session, cell.traffic["trace_calls"])
-    r = reading(cell, trace)
+    session, setup = harness.set_up(cell, args.seed, device, t_start)
+    window = harness.run_window(session, args.seconds)
+    trace = harness.run_trace(session, cell.traffic["trace_calls"])
+    r = harness.reading(cell, setup, window, trace)
+    metrics = harness.read_metrics(cell.per_layer, r)
     calls = len(trace["calls"])
-    names = [m["name"] for m in cell.per_layer if not m["name"].startswith("step_mfu_pct")]
-    metrics = {n: harness.metric_reader(n)(r) for n in names + NEW_METRICS[cell.traffic["entry"]]}
     p = sys.stderr
     print(f"{args.workload}: {calls} traced calls, {1e3 * trace['stretch_s'] / calls:.4f} ms a "
-          f"call, device busy {1e3 * r.busy_s / calls:.4f} ms a call; card "
-          f"{torch.cuda.get_device_name(device)}", file=p)
+          f"call, device busy {1e3 * r.busy_s / calls:.4f} ms a call; the profile read in "
+          f"{trace['read_s']:.4f} s; card {card_line()}", file=p)
+    for m in cell.per_layer:
+        v = metrics.get(m["name"], {}).get("value")
+        print(f"  {m['name']:<34} {v!r} {m['unit']}  ({m['layer']})", file=p)
     print("span                              entries  host ms  self ms  device ms  device ops"
           "   (a traced call)", file=p)
-    for row in span_table(trace, calls):
+    table = span_table(trace, calls)
+    for row in table:
         print(f"{row['span']:<32} {row['entries']:>8} {row['host_ms']:>8.4f} {row['self_ms']:>8.4f}"
               f" {row['device_ms']:>10.4f} {row['device_ops']:>11.2f}", file=p)
-    unattributed = sum(1 for i in trace["op_span"] if i is None)
-    print(f"device ops with no program span: {unattributed / calls:.2f} a call", file=p)
+    loose = unattributed(trace, calls)
+    print(f"device ops with no program span, a call: "
+          f"{sum(v[0] for v in loose.values()):.2f} ops, {sum(v[1] for v in loose.values()):.4f} ms",
+          file=p)
+    for k, (n, ms) in list(loose.items())[:25]:
+        print(f"  {n:8.2f} ops {ms:10.4f} ms  {k}", file=p)
     gaps = idle_gaps(trace)
     idle = sum(gaps.values())
     named = sum(v for k, v in gaps.items() if not k.startswith("between calls")) / (idle or 1.0)
@@ -347,14 +440,15 @@ def main(argv=None) -> int:
           f"benchmark or program span):", file=p)
     for k, v in list(gaps.items())[:25]:
         print(f"  {1e3 * v / calls:8.4f}  {k}", file=p)
-    print(f"sync waits: {sync_waits(trace)}", file=p)
+    waits = sync_waits(trace)
+    print(f"sync waits: {waits}", file=p)
     out = {"workload": args.workload, "seed": args.seed, "calls": calls,
            "traced_ms_per_call": 1e3 * trace["stretch_s"] / calls,
-           "card": card_line(),
-           "metrics": metrics, "idle_gaps_ms_per_call":
-               {k: 1e3 * v / calls for k, v in list(gaps.items())[:25]},
-           "idle_named_share": named, "spans": span_table(trace, calls),
-           "sync_waits": sync_waits(trace),
+           "busy_ms_per_call": 1e3 * r.busy_s / calls, "read_s": trace["read_s"],
+           "card": card_line(), "metrics": {k: v["value"] for k, v in metrics.items()},
+           "idle_gaps_ms_per_call": {k: 1e3 * v / calls for k, v in list(gaps.items())[:25]},
+           "idle_named_share": named, "spans": table,
+           "unattributed": dict(list(loose.items())[:25]), "sync_waits": waits,
            "seconds": time.perf_counter() - t_start}
     print(json.dumps(out), flush=True)
     return 0

@@ -9,6 +9,8 @@ a device metric.
 import math
 import subprocess
 import sys
+import time
+import types
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -254,3 +256,44 @@ def test_run_needs_a_card():
                            "--seed", str(SEED), "--seconds", "1", "--trace", "0"],
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0 and proc.stdout == ""
+
+
+def _run_small_cell():
+    return harness.run_cell(small_cell("hsmm.decode.b32"), SEED, 0.2, False, "cpu",
+                            time.perf_counter())
+
+
+def _unload_foreign(monkeypatch):
+    for name in list(sys.modules):
+        if name.split(".")[0] in harness.FOREIGN:
+            monkeypatch.delitem(sys.modules, name)
+
+
+def test_run_reports_with_the_port_alone(monkeypatch):
+    _unload_foreign(monkeypatch)
+    import pytorch_hmm_tpu_torch  # noqa: F401  (its name begins with the JAX package's)
+
+    assert harness.foreign_modules() == []
+    out = _run_small_cell()
+    assert out["attempted"] > 0 and list(out)[-1] == "checks"
+
+
+@pytest.mark.parametrize("name", ["jax", "jaxlib.xla_client", "flax.linen", "pytorch_hmm_tpu",
+                                  "pytorch_hmm_tpu.core"])
+@pytest.mark.parametrize("when", ["window", "check"])
+def test_run_refuses_jax_in_the_process(monkeypatch, name, when):
+    _unload_foreign(monkeypatch)
+
+    def plant():
+        monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+
+    if when == "window":
+        # Loaded by the time the window closes.
+        run_window = harness.run_window
+        monkeypatch.setattr(harness, "run_window", lambda *a: (run_window(*a), plant())[0])
+    else:
+        # Loaded after the window, by the time the run is read.
+        judged = harness.judged
+        monkeypatch.setattr(harness, "judged", lambda *a: (plant(), judged(*a))[1])
+    with pytest.raises(harness.ForeignModules, match=name.split(".")[0]):
+        _run_small_cell()
